@@ -1,0 +1,76 @@
+"""Synthetic parametric car geometry (numpy), copied from the JAX package.
+
+The demo traffic and the server's calibration reference must be bit-equal to
+the JAX server's, so this is a verbatim copy of ``CarParams``,
+``sample_params`` and ``car_surface``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class CarParams:
+    length: float
+    width: float
+    height: float
+    cabin_height: float
+    cabin_pos: float
+    taper: float
+    power: float
+
+
+def sample_params(sample_id: int) -> CarParams:
+    rng = np.random.default_rng(1000 + sample_id)
+    return CarParams(
+        length=float(rng.uniform(3.5, 5.2)),
+        width=float(rng.uniform(1.6, 2.1)),
+        height=float(rng.uniform(1.1, 1.6)),
+        cabin_height=float(rng.uniform(0.25, 0.55)),
+        cabin_pos=float(rng.uniform(-0.15, 0.25)),
+        taper=float(rng.uniform(0.0, 0.5)),
+        power=float(rng.uniform(2.2, 3.5)),
+    )
+
+
+def car_surface(params: CarParams, nu: int = 64, nv: int = 32):
+    """Triangulated closed surface. Returns (vertices (N,3), faces (F,3))."""
+    u = np.linspace(0.0, 2 * np.pi, nu, endpoint=False)
+    v = np.linspace(1e-3, np.pi - 1e-3, nv)
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    p = params.power
+
+    def spow(x, e):
+        return np.sign(x) * np.abs(x) ** e
+
+    # superellipsoid base
+    x = spow(np.sin(vv), 2 / p) * spow(np.cos(uu), 2 / p)
+    y = spow(np.sin(vv), 2 / p) * spow(np.sin(uu), 2 / p)
+    z = spow(np.cos(vv), 2 / p)
+    # scale to car-like proportions
+    x = x * params.length / 2
+    y = y * params.width / 2
+    z = z * params.height / 2
+    # cabin bump on the top surface
+    cab = params.cabin_height * np.exp(
+        -((x / params.length - params.cabin_pos) / 0.18) ** 2) \
+        * np.clip(z, 0, None) / (params.height / 2)
+    z = z + cab
+    # rear taper
+    taper = 1.0 - params.taper * np.clip(x / (params.length / 2), 0, 1) ** 2
+    y = y * taper
+    verts = np.stack([x, y, z], axis=-1).reshape(-1, 3).astype(np.float32)
+
+    faces = []
+
+    def vid(i, j):
+        return (i % nu) * nv + j
+    for i in range(nu):
+        for j in range(nv - 1):
+            a, b = vid(i, j), vid(i + 1, j)
+            c, d = vid(i + 1, j + 1), vid(i, j + 1)
+            faces.append((a, b, c))
+            faces.append((a, c, d))
+    return verts, np.asarray(faces, np.int64)

@@ -1,0 +1,116 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each kernel is one ``.cu`` file with a plain C interface under its
+package's ``csrc/``. It is compiled for Hopper (``sm_90a``) into its own
+shared library under ``build/kernels/`` at the repository root, once, at
+first use; the library's file name carries a hash of the source and flags,
+so an edited source is rebuilt and a stale library is never loaded.
+:func:`build` starts one ``nvcc`` per source, all at once, and waits for
+them. Nothing is built or loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
+
+SOURCES: Dict[str, Path] = {
+    "segment_sum": _KERNELS / "segment_agg" / "csrc" / "segment_sum.cu",
+    "knn_topk": _KERNELS / "knn" / "csrc" / "knn_topk.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME "
+                           f"({home}); the CUDA kernels cannot be built")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    src = SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named kernels (default: all) that are not built yet.
+
+    All ``nvcc`` processes start together. Returns ``{name: compiler
+    output}`` for the kernels compiled by this call (``-Xptxas -v`` prints
+    registers, shared memory and spills); raises if any compile fails.
+    """
+    names = list(SOURCES if names is None else names)
+    with _lock:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> Dict[str, str]:
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    try:
+        for n in todo:
+            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs, failed = {}, []
+        for n, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            logs[n] = out
+            library_path(n).with_suffix(".log").write_text(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {SOURCES[n]} "
+                              f"(exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, library_path(n))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return logs
+    finally:
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _build_locked([name])
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        return lib
+
+
+def check(status: int, what: str):
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

@@ -1,0 +1,68 @@
+// Segment-sum (the processor's receiver scatter-add) over a CSR of
+// receiver-sorted edges: out[n] = sum over j in [row_ptr[n], row_ptr[n+1])
+// of msg[perm[j]], in f32, for msg (E, D) f32 and out (N, D) f32.
+//
+// Replaces the TPU kernel `_agg_kernel` / `segment_agg_call` in
+// src/repro/kernels/segment_agg/kernel.py. That kernel computes the sum as a
+// one-hot MXU matmul over edges packed into a fixed per-node-block budget,
+// with a scatter fallback on overflow, because the TPU has no fast scatter.
+// Hopper scatters and gathers rows well, so none of that carries over.
+//
+// Bound on the H100: bytes. Every valid message row is read once
+// (E_valid * D * 4 B) and every output row written once (N * D * 4 B), plus
+// the index arrays; there is one add per 4 bytes read.
+//
+// Design: a group of blockDim.x threads owns one node (blockDim.y nodes per
+// block) and walks its CSR run, reading each message row as float4s with
+// consecutive threads on consecutive columns, and summing in registers in
+// edge order. No atomics and no budget: the result does not depend on run
+// order, every node row is written (zeros for an empty run), and the sum
+// order equals the plain version's. Masked padding edges are left out of the
+// CSR by the caller, so no node carries a long serial run.
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x = __fadd_rn(a.x, b.x);
+  a.y = __fadd_rn(a.y, b.y);
+  a.z = __fadd_rn(a.z, b.z);
+  a.w = __fadd_rn(a.w, b.w);
+}
+
+__global__ void segment_sum_kernel(const float4* __restrict__ msg,
+                                   const int* __restrict__ perm,
+                                   const int* __restrict__ row_ptr,
+                                   float4* __restrict__ out, int n_nodes,
+                                   int cols) {
+  const int node = blockIdx.x * blockDim.y + threadIdx.y;
+  if (node >= n_nodes) return;
+  const int beg = row_ptr[node];
+  const int end = row_ptr[node + 1];
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = beg; j < end; ++j) {
+      add4(acc, msg[static_cast<size_t>(perm[j]) * cols + c]);
+    }
+    out[static_cast<size_t>(node) * cols + c] = acc;
+  }
+}
+
+}  // namespace
+
+// msg (E, d) f32, perm (>= row_ptr[n_nodes],) i32, row_ptr (n_nodes + 1,)
+// i32, out (n_nodes, d) f32, all contiguous; d % 4 == 0 and msg, out 16-byte
+// aligned. Returns cudaGetLastError().
+extern "C" int segment_sum_f32(const void* msg, const void* perm,
+                               const void* row_ptr, void* out, int n_nodes,
+                               int d, int threads_x, int threads_y,
+                               void* stream) {
+  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(threads_x, threads_y);
+  const dim3 grid((n_nodes + threads_y - 1) / threads_y);
+  segment_sum_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(msg), static_cast<const int*>(perm),
+      static_cast<const int*>(row_ptr), static_cast<float4*>(out), n_nodes,
+      d / 4);
+  return static_cast<int>(cudaGetLastError());
+}

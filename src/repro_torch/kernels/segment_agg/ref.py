@@ -1,0 +1,63 @@
+"""Plain PyTorch version of the segment-sum kernel (the CPU path and the
+reference the CUDA kernel is held against), and the CSR preparation both
+paths share."""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class SegmentCSR(NamedTuple):
+    """Receiver-sorted CSR view of an edge list, built once per graph."""
+    perm: torch.Tensor       # (E,) i32 edge ids, stably sorted by segment;
+                             # masked edges sort last, outside every run
+    row_ptr: torch.Tensor    # (N + 1,) i32 run boundaries into perm
+
+    @property
+    def n_segments(self) -> int:
+        return self.row_ptr.numel() - 1
+
+
+def prepare(segment_ids, num_segments: int,
+            mask: Optional[torch.Tensor] = None) -> SegmentCSR:
+    """Stable argsort by segment id + bincount/cumsum row pointers.
+
+    Edges where ``mask`` is False go to a sentinel segment ``num_segments``
+    that no run covers, so they are never read: padding edge slots (all of
+    receiver 0 in the fixed-shape edge union) would otherwise make node 0 one
+    long serial run. Their messages are zero, so leaving them out changes
+    nothing.
+    """
+    seg = segment_ids.long()
+    if mask is not None:
+        seg = torch.where(mask.bool(), seg, num_segments)
+    order = torch.argsort(seg, stable=True)
+    counts = torch.bincount(seg, minlength=num_segments + 1)[:num_segments]
+    row_ptr = torch.zeros(num_segments + 1, dtype=torch.int32,
+                          device=seg.device)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    return SegmentCSR(order.to(torch.int32), row_ptr)
+
+
+def segment_sum_csr(messages, perm, row_ptr):
+    """out[n] = sum of messages[perm[j]] over j in [row_ptr[n], row_ptr[n+1]).
+
+    Repeats the kernel's arithmetic: each run summed in f32 in edge order,
+    starting from zero, one slot of every run per step.
+    """
+    n = row_ptr.numel() - 1
+    out = messages.new_zeros((n, messages.shape[1]))
+    start = row_ptr[:-1].long()
+    deg = row_ptr[1:].long() - start
+    max_deg = int(deg.max()) if n else 0
+    for s in range(max_deg):
+        nodes = torch.nonzero(deg > s).squeeze(1)
+        out[nodes] = out[nodes] + messages[perm[start[nodes] + s].long()]
+    return out
+
+
+def segment_sum(messages, segment_ids, num_segments: int):
+    """messages (E, D); segment_ids (E,) in [0, num_segments).
+    Returns (num_segments, D)."""
+    return segment_sum_csr(messages, *prepare(segment_ids, num_segments))

@@ -1,0 +1,121 @@
+"""MeshGraphNet / X-MeshGraphNet model (paper SII + SIII-D) as an
+``nn.Module``.
+
+Encoder -> ``n_mp_layers`` message-passing layers (distinct params, residual
+edge and node updates, MLPs with trailing LayerNorm) -> decoder. The
+processor's receiver scatter-add goes through ``kernels.segment_agg``: its
+CSR is built once per graph (:func:`make_aggregator`), outside the layer
+loop, and each layer runs the CUDA kernel on the card or its plain version
+on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import GNNConfig
+from repro_torch.device import resolve
+from repro_torch.kernels.segment_agg import ops as segops
+from repro_torch.models.nn import MLP
+
+
+class MeshGraphNet(nn.Module):
+    """Parameters named as in the JAX pytree: ``node_encoder``,
+    ``edge_encoder``, ``proc_edge[i]``, ``proc_node[i]``, ``decoder``."""
+
+    def __init__(self, cfg: GNNConfig, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden
+        hid = [h] * cfg.mlp_layers
+
+        def mlp(dims, ln=True):
+            return MLP(dims, cfg.act, final_layernorm=ln, generator=generator)
+
+        self.node_encoder = mlp([cfg.node_in_eff] + hid + [h])
+        self.edge_encoder = mlp([cfg.edge_in] + hid + [h])
+        self.proc_edge = nn.ModuleList(mlp([3 * h] + hid + [h])
+                                       for _ in range(cfg.n_mp_layers))
+        self.proc_node = nn.ModuleList(mlp([2 * h] + hid + [h])
+                                       for _ in range(cfg.n_mp_layers))
+        self.decoder = mlp([h] + hid + [cfg.node_out], ln=False)
+
+    def apply(self, node_feats, edge_feats, senders, receivers,
+              edge_mask: Optional[torch.Tensor] = None):
+        """Forward pass on one graph.
+
+        node_feats (N, node_in); edge_feats (E, edge_in); senders/receivers
+        (E,) int; edge_mask (E,) 1.0 for real edges. Returns (N, node_out).
+        """
+        n_nodes = node_feats.shape[0]
+        send, recv = senders.long(), receivers.long()
+        aggregate = make_aggregator(receivers, n_nodes, edge_mask)
+        m = None if edge_mask is None else edge_mask[:, None].to(
+            edge_feats.dtype)
+        h = self.node_encoder(node_feats)
+        e = self.edge_encoder(edge_feats)
+        if m is not None:
+            e = e * m
+        # cfg.remat (activation checkpointing) only matters with autograd;
+        # serving runs under torch.no_grad, where it is a no-op
+        for pe, pn in zip(self.proc_edge, self.proc_node):
+            msg_in = torch.cat([h[send], h[recv], e], dim=-1)
+            e_new = e + pe(msg_in)
+            if m is not None:
+                e_new = e_new * m
+            agg = aggregate(e_new)
+            h = h + pn(torch.cat([h, agg], dim=-1))
+            e = e_new
+        return self.decoder(h)
+
+    forward = apply
+
+    def step(self, node_feats, edge_feats, senders, receivers, state, *,
+             edge_mask: Optional[torch.Tensor] = None, out_stats=None):
+        """One autoregressive physics step: state (N, node_out) -> state'.
+
+        With ``cfg.rollout_state_feats`` the state, normalized by
+        ``out_stats`` (mean, std), is appended to the node features; the
+        prediction is denormalized by ``out_stats`` before integration
+        (``'direct'``: state' = pred, ``'residual'``: state' = state + pred).
+        """
+        cfg = self.cfg
+        feats = node_feats
+        if cfg.rollout_state_feats:
+            s = state
+            if out_stats is not None:
+                s = (state - out_stats[0]) / out_stats[1]
+            feats = torch.cat([feats, s.to(feats.dtype)], dim=-1)
+        pred = self.apply(feats, edge_feats, senders, receivers,
+                          edge_mask=edge_mask)
+        if out_stats is not None:
+            pred = pred * out_stats[1] + out_stats[0]
+        if cfg.rollout_integrator == "residual":
+            return state + pred
+        if cfg.rollout_integrator != "direct":
+            raise ValueError(f"unknown rollout_integrator "
+                             f"{cfg.rollout_integrator!r} "
+                             "(expected 'direct' | 'residual')")
+        return pred
+
+
+def init(generator: torch.Generator, cfg: GNNConfig,
+         device=None) -> MeshGraphNet:
+    """Random weights from ``generator`` (a CPU generator, so the numbers do
+    not depend on the device), moved to ``device`` (default: the card)."""
+    return MeshGraphNet(cfg, generator=generator).to(resolve(device))
+
+
+def make_aggregator(receivers, n_nodes: int,
+                    edge_mask: Optional[torch.Tensor] = None):
+    """Build ``agg(messages) -> (n_nodes, D)`` once per graph.
+
+    The CSR (stable argsort of receivers, bincount/cumsum row pointers) is
+    built here, outside the layer loop. Masked edges are left out of the CSR
+    (their messages are zeroed before aggregation, so the sum is the same).
+    """
+    prep = segops.prepare(receivers, n_nodes, edge_mask)
+    return lambda msgs: segops.segment_sum_prepared(prep, msgs)

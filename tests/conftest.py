@@ -91,3 +91,9 @@ except ImportError:
 
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel, so needs a card; skips "
+        "without one")

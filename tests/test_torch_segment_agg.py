@@ -1,0 +1,96 @@
+"""The port's segment-sum (plain PyTorch path, CPU) against the JAX
+reference ``jax.ops.segment_sum`` and the Pallas kernel in interpret mode.
+
+Tolerance 1e-5: every path sums in f32; only the summation order differs
+(the port sums each receiver's run in edge order)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.segment_agg import ops as jops
+from repro.kernels.segment_agg import ref as jref
+from repro_torch.kernels.segment_agg import ops, ref
+
+TOL = 1e-5
+
+
+def _case(kind: str, seed: int):
+    """(messages (E, D), receivers (E,), mask (E,) or None, n_segments)."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty_segments":
+        # receivers drawn from a few nodes only: most segments stay empty
+        n, e, d = 97, 300, 8
+        recv = rng.choice(np.arange(0, n, 7), size=e).astype(np.int32)
+        mask = None
+    elif kind == "duplicates":
+        # heavy fan-in: many edges per receiver, same receivers repeated
+        n, e, d = 16, 500, 5
+        recv = rng.integers(0, n, e).astype(np.int32)
+        mask = None
+    elif kind == "masked_on_zero":
+        # the fixed-shape edge union: padding slots all carry receiver 0
+        n, e, d = 64, 800, 12
+        recv = rng.integers(0, n, e).astype(np.int32)
+        mask = rng.random(e) > 0.4
+        recv = np.where(mask, recv, 0).astype(np.int32)
+    else:
+        raise ValueError(kind)
+    msg = rng.normal(size=(e, d)).astype(np.float32)
+    if mask is not None:
+        msg = msg * mask[:, None]
+    return msg, recv, mask, n
+
+
+KINDS = ["empty_segments", "duplicates", "masked_on_zero"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_segment_sum_matches_jax(kind):
+    msg, recv, mask, n = _case(kind, 0)
+    want = np.asarray(jref.segment_sum(jnp.asarray(msg), jnp.asarray(recv), n))
+    # without the caller's CSR prep (one-shot)
+    got = ref.segment_sum(torch.from_numpy(msg), torch.from_numpy(recv), n)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    # with the CSR prep, masked edges left out, through the device wrapper
+    m = None if mask is None else torch.from_numpy(mask)
+    prep = ops.prepare(torch.from_numpy(recv), n, m)
+    got = ops.segment_sum_prepared(prep, torch.from_numpy(msg))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_segment_sum_matches_pallas_interpret(kind):
+    msg, recv, mask, n = _case(kind, 1)
+    prep_j = jops.prepare(recv, n)
+    want = np.asarray(jops.segment_sum_prepared(prep_j, jnp.asarray(msg),
+                                                interpret=True))
+    m = None if mask is None else torch.from_numpy(mask)
+    prep = ops.prepare(torch.from_numpy(recv), n, m)
+    got = ref.segment_sum_csr(torch.from_numpy(msg), prep.perm, prep.row_ptr)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_csr_prep_leaves_masked_edges_out():
+    """Masked slots go to the sentinel segment: node 0's run holds only its
+    real edges, and no run covers a masked edge."""
+    msg, recv, mask, n = _case("masked_on_zero", 2)
+    prep = ops.prepare(torch.from_numpy(recv), n, torch.from_numpy(mask))
+    row_ptr = prep.row_ptr.numpy()
+    assert row_ptr[0] == 0 and row_ptr[-1] == mask.sum()
+    assert (row_ptr[1] - row_ptr[0]) == np.sum(mask & (recv == 0))
+    covered = prep.perm.numpy()[:row_ptr[-1]]
+    assert mask[covered].all()
+    # stable: within a run, edges keep their original order
+    for i in range(n):
+        run = prep.perm.numpy()[row_ptr[i]:row_ptr[i + 1]]
+        assert (np.diff(run) > 0).all()
+
+
+def test_wrapper_dispatches_cpu_without_launch():
+    msg, recv, _, n = _case("duplicates", 3)
+    before = ops.segment_sum_prepared.launches
+    ops.segment_sum_prepared(ops.prepare(torch.from_numpy(recv), n),
+                             torch.from_numpy(msg))
+    assert ops.segment_sum_prepared.launches == before
+
