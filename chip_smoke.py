@@ -8,12 +8,15 @@ Run from the repository root, with no arguments:
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. card: print the card's name and power limit (nvidia-smi);
-2. build: compile every CUDA kernel of the serving path from the sources in
-   this checkout (nvcc, sm_90a) into build/kernels/;
+2. build: compile every CUDA kernel of both serving paths from the sources
+   in this checkout (nvcc, sm_90a, one process per source) into
+   build/kernels/;
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the serving path's shapes (65,536-point bucket, full width), and time
-   kernel, plain version, one library call for the same function, and the
-   bound (bytes over 3.35 TB/s, or f32 flops over 67 TFLOP/s);
+   at its serving path's shapes (GNN: the 65,536-point bucket, full width;
+   flash attention: gemma2-9b prefill of 2 x 4,608 tokens, with the 4,096
+   window and without, softcap 50, bf16 and f32), and time kernel, plain
+   version, one library call for the same function, and the bound (bytes
+   over 3.35 TB/s, or flops over 67 TFLOP/s in f32 and 989 in bf16);
 4. whole path: one 2,048-point request through the full-width model
    (``GNNConfig()``) on the card and on the CPU (plain versions), same
    params; edges must be equal and fields agree to 1e-4;
@@ -22,15 +25,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    must show 15 segment-sum and 3 kNN launches per request run, warmup
    included;
 6. breakdown: where one 65,536-point request's time goes, and one row's
-   time through each bucket's pipeline.
+   time through each bucket's pipeline;
+7. LLM whole path: gemma2-9b at full width cut to 2 layers (one local and
+   one global), f32, initialised once on the card and copied to the CPU;
+   2 requests of 128 tokens prefilled and decoded 4 steps on both; tokens
+   must be equal and logits agree to LLM_ATOL;
+8. LLM serve: ``repro_torch.launch.serve.serve`` of gemma2-9b at full
+   width in bf16, 2 requests of 4,608 tokens (past the 4,096 window) and
+   32 generated; flash attention must launch once per layer of the one
+   prefill and never in decode; then where one prefill's time goes.
 
-It then prints a ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": {...}}`` line. It needs one card and imports
-nothing of JAX.
+The GNN phases (3-6) run inside one function, so their tensors are freed
+before the LLM phases. It then prints a ``{"kernels": [...]}`` line and,
+last, the ``{"ok": true, "device": {...}}`` line. It needs one card and
+imports nothing of JAX.
 """
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import re
 import subprocess
@@ -42,6 +55,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 BUCKETS = (16384, 65536)
 WHOLE_PATH_POINTS = 2048
 # Fields of one full-width request, card against CPU: the graphs are
@@ -53,6 +67,17 @@ WHOLE_PATH_POINTS = 2048
 WHOLE_PATH_ATOL = 1e-4
 SEG_ATOL, SEG_RTOL = 1e-4, 1e-5
 KNN_D2_ATOL = 1e-6
+# flash attention against its plain version: bf16 is the tolerance of
+# tests/test_kernels.py (one output rounding); f32 sums in another order
+FLASH_ATOL = {"bfloat16": 2e-2, "float32": 1e-5}
+LLM_ARCH = "gemma2-9b"
+LLM_BATCH, LLM_PROMPT, LLM_GEN = 2, 4608, 32
+WHOLE_LLM_PROMPT, WHOLE_LLM_DECODE = 128, 4
+# Logits of the 2-layer full-width gemma2, card against CPU, f32: cuBLAS and
+# the CPU BLAS sum the products in different orders. Measured on an H100:
+# 1.0e-5 on the prefill logits and 1.1e-4 on the decode logits, whose
+# cache went through bf16 (pad_cache_to) on both sides.
+LLM_ATOL = 5e-4
 
 
 def log(msg: str):
@@ -77,19 +102,17 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main() -> int:
+def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
+    """Phases 3 (GNN kernels) to 6; returns the two kernels' entries. Its
+    tensors, the server's included, are freed when it returns."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
-              "test needs an NVIDIA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs.base import GNNConfig
     from repro_torch.core.graph_build import sample_surface
     from repro_torch.data import geometry as geo
@@ -97,7 +120,6 @@ def main() -> int:
     from repro_torch.graphx.multiscale import (MultiscaleSpec,
                                                multiscale_edges)
     from repro_torch.graphx.pipeline import make_graph_forward, make_infer_fn
-    from repro_torch.kernels import _build
     from repro_torch.kernels.knn import ops as knn_ops
     from repro_torch.kernels.knn import ref as knn_ref
     from repro_torch.kernels.segment_agg import ops as seg_ops
@@ -105,43 +127,6 @@ def main() -> int:
     from repro_torch.launch.serve_gnn import (GNNServer, Request,
                                               _level_sizes)
     from repro_torch.models import meshgraphnet
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    counters = {"segment_sum": seg_ops.segment_sum_prepared,
-                "knn_topk": knn_ops.topk_neighbors}
-    by_phase = {name: {} for name in counters}
-
-    def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read_counts(phase):
-        for name, fn in counters.items():
-            by_phase[name][phase] = fn.launches
-
-    # 1. card --------------------------------------------------------------
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} | "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
-        "allow_tf32: matmul False, cudnn False")
-
-    # 2. build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"[build] {len(_build.SOURCES)} kernels ({len(logs)} compiled now) "
-        f"in {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
-    for name, out in logs.items():
-        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
-                                                  out)}) or ["?"]
-        spills = re.search(r"[1-9]\d* bytes spill", out) is not None
-        log(f"[build] {name}: {regs[0]}-{regs[-1]} registers per thread "
-            f"over its instantiations, spills: {spills}")
 
     # the 65,536-point bucket's graph, as the server calibrates and builds it
     n_big = BUCKETS[-1]
@@ -370,8 +355,357 @@ def main() -> int:
     log("[breakdown] one row through a bucket's pipeline, seconds: "
         + ", ".join(f"{n} points {t:.4f}" for n, t in row_s.items()))
 
+    return kernels
+
+
+def _window_pairs(s: int, window) -> int:
+    """Unmasked (query, key) pairs of one head under causal masking."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_check(dev, card) -> dict:
+    """Phase 3 for the flash kernel: against its plain version at the serve
+    phase's prefill shape, bf16 and f32, with the local window and without;
+    kernel, plain version and SDPA timed in bf16."""
+    import math
+
+    import torch
+    from torch.nn import functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(LLM_ARCH)
+    b, s = LLM_BATCH, LLM_PROMPT
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gs, cap = h // kvh, cfg.attn_softcap
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = [torch.randn((b, s, n, hd), generator=gen, device=dev)
+            for n in (h, kvh, kvh)]
+    errs, by_window = {}, {}
+    for dname in ("bfloat16", "float32"):
+        q, k, v = (t.to(getattr(torch, dname)) for t in base)
+        qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, hd).contiguous()
+                      for t in (q, k, v))
+        for window in (cfg.sliding_window, None):
+            got = fa_ops.mha(q, k, v, causal=True, window=window,
+                             softcap=cap)
+            torch.cuda.synchronize()
+            want = fa_ref.attention(qf, kf, vf, group_size=gs, causal=True,
+                                    window=window, softcap=cap)
+            want = want.reshape(b, h, s, hd).transpose(1, 2)
+            if got.dtype != q.dtype or got.shape != q.shape:
+                raise RuntimeError("flash_attention: bad output")
+            err = float((got.float() - want.float()).abs().max())
+            errs[f"{dname} window={window}"] = err
+            if not err <= FLASH_ATOL[dname]:
+                raise RuntimeError(
+                    f"flash_attention {dname} window={window}: max abs "
+                    f"error {err} > {FLASH_ATOL[dname]}")
+            del got, want
+
+            def kernel():
+                return fa_ops.flash_attention(qf, kf, vf, group_size=gs,
+                                              causal=True, window=window,
+                                              softcap=cap)
+            row = by_window.setdefault(str(window), {})
+            row[f"{dname}_ms"] = time_cuda(kernel, 5)
+            if dname != "bfloat16":
+                continue
+            pairs = _window_pairs(s, window)
+            n_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+            bound = bound_ms(n_bytes, 4.0 * hd * pairs * b * h,
+                             BF16_FLOPS_PER_S)
+            i = torch.arange(s, device=dev)
+            mask = i[:, None] >= i[None, :]
+            if window is not None:
+                mask &= (i[:, None] - i[None, :]) < window
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (t.transpose(1, 2).repeat_interleave(gs, 1).contiguous()
+                      for t in (k, v))
+            row.update(
+                ms=time_cuda(kernel, 10),
+                plain_ms=time_cuda(lambda: fa_ref.attention(
+                    qf, kf, vf, group_size=gs, causal=True, window=window,
+                    softcap=cap), 3, warmup=1),
+                library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(hd)),
+                    10),
+                bound_ms=bound[0], bound_by=bound[1], pairs_per_head=pairs)
+            del qt, kt, vt, mask
+    for w, row in by_window.items():
+        log(f"[kernels] flash_attention window={w}: bf16 {row['ms']:.3f} ms "
+            f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, plain "
+            f"{row['plain_ms']:.3f} ms, SDPA without softcap "
+            f"{row['library_ms']:.4f} ms), f32 {row['float32_ms']:.3f} ms "
+            f"| B={b} S={s} H={h} KV={kvh} hd={hd}, "
+            f"{row['pairs_per_head']} pairs per head")
+    log(f"[kernels] flash_attention max abs err vs plain: " + ", ".join(
+        f"{c} {e:.3g}" for c, e in errs.items()))
+
+    def mean(key):
+        return sum(r[key] for r in by_window.values()) / len(by_window)
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:30",
+        max_abs_err=max(e for c, e in errs.items() if "bfloat16" in c),
+        max_abs_err_by_case=errs,
+        ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        bound_by=by_window["None"]["bound_by"],
+        library_ms=mean("library_ms"),
+        library_note="scaled_dot_product_attention with the same causal and "
+                     "window boolean mask and no softcap",
+        by_window=by_window,
+        shape=f"bf16 B={b} S={s} H={h} KV={kvh} hd={hd} softcap={cap}; "
+              "ms and bounds are the mean of the local and the global "
+              "layer, which the path runs equally often")
+
+
+def llm_whole_path(dev):
+    """Phase 7: gemma2-9b at full width, 2 layers, f32, card against CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_cache_to
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_config(LLM_ARCH).replace(n_layers=2, dtype="float32")
+    api = registry.get_model(cfg)
+    model_gpu = api.init(seed=0, device=dev)
+    model_cpu = Transformer(cfg, device="meta")
+    model_cpu.load_state_dict({k: t.cpu() for k, t in
+                               model_gpu.state_dict().items()}, assign=True)
+    b, n = LLM_BATCH, WHOLE_LLM_PROMPT
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(b, n)).astype(np.int32))
+
+    def run(model, device):
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(model, {"tokens": prompts.to(device)})
+        cache = pad_cache_to(cache, api.empty_cache(
+            b, n + WHOLE_LLM_DECODE + 1, device=device))
+        pre = logits.cpu()
+        del logits
+        toks, dec = [pre[:, -1].argmax(-1)], []
+        for step in range(WHOLE_LLM_DECODE):
+            logits, cache = api.decode(
+                model, cache, {"tokens": toks[-1][:, None].to(device)},
+                n + step)
+            dec.append(logits.cpu())
+            toks.append(dec[-1][:, -1].argmax(-1))
+        return pre, torch.cat(dec, 1), torch.stack(toks, 1), \
+            time.perf_counter() - t0
+
+    g_pre, g_dec, g_tok, t_gpu = run(model_gpu, dev)
+    c_pre, c_dec, c_tok, t_cpu = run(model_cpu, torch.device("cpu"))
+    if g_pre.shape != (b, n, cfg.padded_vocab) or \
+            not torch.isfinite(g_pre).all() or not torch.isfinite(g_dec).all():
+        raise RuntimeError("llm whole path: bad logits on the card")
+    if not torch.equal(g_tok, c_tok):
+        raise RuntimeError(f"llm whole path: tokens differ, card "
+                           f"{g_tok.tolist()} CPU {c_tok.tolist()}")
+    pre_err = float((g_pre - c_pre).abs().max())
+    dec_err = float((g_dec - c_dec).abs().max())
+    if not max(pre_err, dec_err) <= LLM_ATOL:
+        raise RuntimeError(f"llm whole path: logits differ, prefill "
+                           f"{pre_err}, decode {dec_err} > {LLM_ATOL}")
+    log(f"[llm_whole_path] {LLM_ARCH} width {cfg.d_model}, 2 layers, f32, "
+        f"{b} x {n} tokens + {WHOLE_LLM_DECODE} decode steps: tokens equal "
+        f"{g_tok.tolist()}; max abs err prefill logits {pre_err:.3g}, decode "
+        f"logits {dec_err:.3g} (atol {LLM_ATOL}); card {t_gpu:.3f} s (first "
+        f"call), CPU {t_cpu:.2f} s")
+
+
+def llm_serve(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 8: gemma2-9b served at full width in bf16; then one prefill's
+    time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_cache_to, serve
+    from repro_torch.models import registry
+
+    cfg = get_config(LLM_ARCH)
+    api = registry.get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(LLM_ARCH, False, LLM_BATCH, LLM_PROMPT, LLM_GEN,
+                params=params, device=dev)
+    torch.cuda.synchronize()
+    read_counts("llm_serve")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = by_phase["flash_attention"]["llm_serve"]
+    if launches != cfg.n_layers:
+        raise RuntimeError(
+            f"llm serve: flash attention launched {launches} times, expected "
+            f"{cfg.n_layers}: once per layer in the one prefill call and "
+            "never in decode")
+    gen = out["generated"]
+    if gen.shape != (LLM_BATCH, LLM_GEN) or \
+            not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise RuntimeError(f"llm serve: bad tokens {gen.shape}")
+    log(f"[llm_serve] {LLM_ARCH} full width ({n_params / 1e9:.3f} B params, "
+        f"{param_gb:.2f} GB bf16, drawn on the card in {t_init:.2f} s), "
+        f"{LLM_BATCH} requests x {LLM_PROMPT} prompt tokens + {LLM_GEN} "
+        f"generated: prefill {out['prefill_s']:.4f} s, decode "
+        f"{out['decode_s_per_token'] * 1e3:.3f} ms/token, "
+        f"{out['tokens_per_s']:.2f} tokens/s, peak memory {peak_gb:.2f} GB "
+        f"| flash launches {launches} ({cfg.n_layers} layers, 1 prefill, "
+        f"0 in decode) | {card}")
+
+    # where one prefill's and one warm decode step's time goes
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(LLM_BATCH, LLM_PROMPT)).astype(
+            np.int32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, cache = api.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    _log_kernels("prefill", prof, time.perf_counter() - t0)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    cache = pad_cache_to(cache, api.empty_cache(
+        LLM_BATCH, LLM_PROMPT + LLM_GEN, device=dev))
+    step_s = []
+    for step in range(LLM_GEN - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode(params, cache, {"tokens": tok},
+                                   LLM_PROMPT + step)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    log(f"[llm_breakdown] decode steps, host clock, ms: first "
+        f"{step_s[0] * 1e3:.3f}, median of the rest "
+        f"{float(np.median(step_s[1:])) * 1e3:.3f}, min "
+        f"{min(step_s) * 1e3:.3f}")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.decode(params, cache, {"tokens": tok}, LLM_PROMPT + LLM_GEN - 1)
+        torch.cuda.synchronize()
+    _log_kernels("decode step", prof, time.perf_counter() - t0)
+
+
+def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
+    """Device time by kernel from a ``torch.profiler`` run."""
+    import torch
+    rows = [(e.key, getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0.0), e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(((k, us / 1e3, n) for k, us, n in rows),
+                  key=lambda r: -r[1])
+    total = sum(ms for _, ms, _ in rows)
+    flash = sum(ms for k, ms, _ in rows if "flash_kernel" in k)
+    gemm = sum(ms for k, ms, _ in rows
+               if re.search(r"gemm|gemv|nvjet|cutlass|xmma", k, re.I))
+    log(f"[llm_breakdown] one {what} (profiled, wall {wall_s * 1e3:.3f} "
+        f"ms): device kernel time {total:.3f} ms in "
+        f"{sum(n for *_, n in rows)} launches, of which flash attention "
+        f"{flash:.3f} ms, GEMMs {gemm:.3f} ms, other "
+        f"{total - flash - gemm:.3f} ms")
+    for k, ms, n in rows[:top]:
+        log(f"[llm_breakdown]   {ms:10.3f} ms  x{n:<5d} {k[:110]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    counters = {"segment_sum": seg_ops.segment_sum_prepared,
+                "knn_topk": knn_ops.topk_neighbors,
+                "flash_attention": fa_ops.mha}
+    by_phase = {name: {} for name in counters}
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts(phase):
+        for name, fn in counters.items():
+            by_phase[name][phase] = fn.launches
+
+    # 1. card --------------------------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
+        "allow_tf32: matmul False, cudnn False")
+
+    # 2. build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"[build] {len(_build.SOURCES)} kernels ({len(logs)} compiled now) "
+        f"in {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
+    for name, out in logs.items():
+        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
+                                                  out)}) or ["?"]
+        spills = re.search(r"[1-9]\d* bytes spill", out) is not None
+        log(f"[build] {name}: {regs[0]}-{regs[-1]} registers per thread "
+            f"over its instantiations, spills: {spills}")
+
+    kernels = gnn_phases(dev, card, reset_counts, read_counts, by_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[llm] GNN phases done and freed: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
+    # 3. (continued) the flash-attention kernel -----------------------------
+    reset_counts()
+    kernels.append(flash_check(dev, card))
+    torch.cuda.synchronize()
+    read_counts("flash_check")
+
+    # 7. LLM whole path: card against CPU ------------------------------------
+    reset_counts()
+    llm_whole_path(dev)
+    torch.cuda.synchronize()
+    read_counts("llm_whole_path")
+    n_layers = 2
+    if by_phase["flash_attention"]["llm_whole_path"] != n_layers:
+        raise RuntimeError(
+            f"llm whole path: flash attention launched "
+            f"{by_phase['flash_attention']['llm_whole_path']} times on the "
+            f"card, expected {n_layers} (one prefill of {n_layers} layers)")
+
+    # 8. LLM serve: the main path of the flash kernel, counted --------------
+    llm_serve(dev, card, reset_counts, read_counts, by_phase)
+
+    main_phase = {"segment_sum": "serve", "knn_topk": "serve",
+                  "flash_attention": "llm_serve"}
     for kr in kernels:
-        kr["launches"] = by_phase[kr["name"]]["serve"]
+        kr["launches"] = by_phase[kr["name"]][main_phase[kr["name"]]]
         kr["launches_by_phase"] = by_phase[kr["name"]]
         kr["phases"] = [p for p, n in by_phase[kr["name"]].items() if n]
         kr["card"] = card

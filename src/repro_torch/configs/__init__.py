@@ -1,0 +1,21 @@
+"""Config registry of the port: the LLM configs it can run so far."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES = {
+    "gemma2-9b": "gemma2_9b",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _ARCH_MODULES:
+        raise KeyError(
+            f"the port has no config {name!r} yet; it knows "
+            f"{sorted(_ARCH_MODULES)}. The JAX package's list is "
+            "repro.configs._ARCH_MODULES (src/repro/configs/__init__.py); "
+            "the others are still to port (ROADMAP.md)")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    return mod.CONFIG

@@ -1,15 +1,72 @@
-"""GNN configuration: a copy of ``GNNConfig`` from the JAX package.
+"""Configurations: copies of ``GNNConfig`` and ``ModelConfig`` from the JAX
+package.
 
-Field names, defaults and ``reduced()`` are identical so configs round-trip
-between the two packages. Fields the port does not act on yet (serving
-autoscaling, sharding, telemetry, cold start, resilience, rollouts) are kept
-for that round-trip and ignored here.
+``GNNConfig``'s field names, defaults and ``reduced()`` are identical so
+configs round-trip between the two packages. Fields the port does not act on
+yet (serving autoscaling, sharding, telemetry, cold start, resilience,
+rollouts) are kept for that round-trip and ignored here. ``ModelConfig``
+keeps only the fields the dense decoder reads; the sharding, remat, MoE, SSM
+and frontend fields come with the slices that read them.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A dense decoder-only transformer (the LLM family's dense path)."""
+
+    name: str
+    family: str                        # "dense" (the only family ported)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None     # None -> d_model // n_heads
+    vocab_pad_to: int = 256
+    rope_theta: float = 1e4
+    use_rope: bool = True
+    qk_norm: bool = False              # per-head RMSNorm on q, k
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None
+    layer_pattern: str = "global"      # "global" | "alt_local_global"
+    norm: str = "rmsnorm"              # "rmsnorm" | "layernorm"
+    act: str = "silu"                  # "silu" | "gelu"
+    glu: bool = True                   # gated FFN (SwiGLU/GeGLU)
+    post_norms: bool = False           # gemma2: post-norms around attn/ffn
+    scale_embeddings: bool = False     # gemma2: embeddings * sqrt(d)
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    source: str = ""                   # citation
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None \
+            else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return ((self.vocab_size + p - 1) // p) * p
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """A smoke-test-sized variant (2 layers, d 128, hd 32), as the JAX
+        package's ``ModelConfig.reduced`` gives for a dense decoder."""
+        return self.replace(
+            n_layers=2, d_model=128, n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2), head_dim=32, d_ff=256,
+            vocab_size=512, vocab_pad_to=64,
+            sliding_window=16 if self.sliding_window else None,
+            dtype="float32")
 
 
 @dataclass(frozen=True)

@@ -25,6 +25,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
     "segment_sum": _KERNELS / "segment_agg" / "csrc" / "segment_sum.cu",
     "knn_topk": _KERNELS / "knn" / "csrc" / "knn_topk.cu",
+    "flash_attention": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,13 +1,18 @@
-"""Layers of the MeshGraphNet: dense, MLP and LayerNorm as ``nn.Module``s.
+"""Layers of the MeshGraphNet and the decoder: dense, MLP, LayerNorm,
+RMSNorm and the embedding table as ``nn.Module``s.
 
 Parameters keep the JAX package's layout (``Dense.w`` is (in, out)) and
 names, so a JAX param pytree loads one to one (``models.convert``). Weights
 are drawn from an explicit ``torch.Generator``: the same LeCun-uniform
-limits and zero biases as ``repro.models.nn``, but not the same numbers,
-since ``jax.random`` and PyTorch's generator differ.
+limits, normal embedding scale and zero biases as ``repro.models.nn``, but
+not the same numbers, since ``jax.random`` and PyTorch's generator differ.
+They are drawn in float32 on ``device`` (the generator's device), then cast
+to ``dtype``: a 10 B-parameter model is drawn on the card, never on the
+host.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -17,36 +22,42 @@ from torch.nn import functional as F
 
 ACTS = {
     "silu": F.silu,
+    # jax.nn.gelu approximates with tanh by default; PyTorch's default is
+    # the exact erf form
+    "gelu": functools.partial(F.gelu, approximate="tanh"),
     "relu": F.relu,
     "tanh": torch.tanh,
 }
 
 
 class Dense(nn.Module):
-    """``y = x @ w + b`` with ``w`` (in, out), LeCun-uniform initialized."""
+    """``y = x @ w (+ b)`` with ``w`` (in, out), LeCun-uniform initialized."""
 
-    def __init__(self, in_dim: int, out_dim: int, *,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, in_dim: int, out_dim: int, *, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         limit = math.sqrt(1.0 / in_dim)
-        w = torch.rand((in_dim, out_dim), generator=generator) * (2 * limit) \
-            - limit
-        self.w = nn.Parameter(w)
-        self.b = nn.Parameter(torch.zeros(out_dim))
+        w = torch.rand((in_dim, out_dim), generator=generator, device=device)
+        self.w = nn.Parameter(w.mul_(2 * limit).sub_(limit).to(dtype))
+        self.b = nn.Parameter(torch.zeros(out_dim, device=device,
+                                          dtype=dtype)) if use_bias else None
 
     def forward(self, x):
-        return x @ self.w + self.b
+        y = x @ self.w
+        return y if self.b is None else y + self.b
 
 
 class LayerNorm(nn.Module):
     """LayerNorm as ``repro.models.nn.layernorm``: float32 upcast, biased
     variance, ``eps=1e-5``, result cast back to the input's dtype."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, *, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
 
     def forward(self, x):
         xf = x.float()
@@ -54,6 +65,37 @@ class LayerNorm(nn.Module):
         var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + self.eps)
         return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm as ``repro.models.nn.rmsnorm``: float32 upcast, ``eps=1e-6``
+    (LayerNorm's is 1e-5), scale applied in float32, cast back."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        xf = x.float()
+        y = xf * torch.rsqrt(torch.square(xf).mean(dim=-1, keepdim=True)
+                             + self.eps)
+        return (y * self.scale.float()).to(x.dtype)
+
+
+class Embed(nn.Module):
+    """Token embedding table (vocab, dim), normal times ``1/sqrt(dim)``."""
+
+    def __init__(self, vocab: int, dim: int, *,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        t = torch.randn((vocab, dim), generator=generator, device=device)
+        self.table = nn.Parameter(t.mul_(1.0 / math.sqrt(dim)).to(dtype))
+
+    def forward(self, ids):
+        return self.table[ids.long()]
 
 
 class MLP(nn.Module):

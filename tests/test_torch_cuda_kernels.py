@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.knn import ref as knn_ref
 from repro_torch.kernels.segment_agg import ops as seg_ops
@@ -93,6 +95,57 @@ def test_kernels_refuse_shapes_they_are_not_built_for(cuda):
         seg_ops.segment_sum_prepared(seg_ops.prepare(recv, 8, mask), msg)
 
 
+def _fa_case(seed: int, b: int, s: int, h: int, kvh: int, hd: int = 256):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(np.float32))
+            for n in (h, kvh, kvh)]
+
+
+# (dtype, B, S, H, KV, causal, window, softcap). The kernel stages 64-key
+# tiles and skips 32-key chunks: S = 640 with window 100 skips whole tiles
+# before the window, S = 200 and 300 end in a ragged tile.
+FA_CASES = [
+    ("bfloat16", 2, 300, 4, 2, True, None, 50.0),
+    ("float32", 2, 300, 4, 2, True, None, 50.0),
+    ("bfloat16", 1, 640, 2, 1, True, 100, 50.0),
+    ("float32", 1, 640, 2, 1, True, 100, 50.0),
+    ("float32", 2, 200, 4, 2, True, 48, None),
+    ("float32", 1, 130, 2, 2, False, 64, None),
+]
+# f32: the same function, sums in another order; bf16: one output rounding
+FA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    dtype, b, s, h, kvh, causal, window, cap = case
+    q, k, v = (t.to(cuda, getattr(torch, dtype))
+               for t in _fa_case(s + h, b, s, h, kvh))
+    before = fa_ops.mha.launches
+    got = fa_ops.mha(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.mha.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, 256) for t in (q, k, v))
+    want = fa_ref.attention(qf, kf, vf, group_size=h // kvh, causal=causal,
+                            window=window, softcap=cap)
+    want = want.reshape(b, h, s, 256).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_TOL[dtype],
+                               rtol=FA_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_is_not_built_for(cuda):
+    """The kernel is built for hd = 256 in bf16 and f32 only."""
+    q, k, v = (t.to(cuda) for t in _fa_case(0, 1, 64, 2, 1, hd=128))
+    with pytest.raises(ValueError, match="hd=256"):
+        fa_ops.mha(q, k, v)
+    q, k, v = (t.to(cuda, torch.float16) for t in _fa_case(0, 1, 64, 2, 1))
+    with pytest.raises(ValueError, match="bfloat16 and float32"):
+        fa_ops.mha(q, k, v)
+
+
 def test_wrappers_refuse_other_devices():
     q, cp, ci, cv = (t.to("meta") for t in _knn_case("random", 0, n=8, c=8))
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -102,6 +155,9 @@ def test_wrappers_refuse_other_devices():
     prep = seg_ops.SegmentCSR(prep.perm.to("meta"), prep.row_ptr.to("meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         seg_ops.segment_sum_prepared(prep, msg.to("meta"))
+    q, k, v = (t.to("meta") for t in _fa_case(0, 1, 8, 2, 1))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa_ops.mha(q, k, v)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

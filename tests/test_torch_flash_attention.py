@@ -1,0 +1,109 @@
+"""The port's flash-attention wrapper on the CPU (its plain version) against
+the JAX package's reference and its interpret-mode Pallas kernel.
+
+Inputs are made with numpy from a seed. Tolerances are those of
+``tests/test_kernels.py``: 2e-5 in float32 (the sums run in another order)
+and 2e-2 in bfloat16 (one rounding of the output, plus the two frameworks'
+bf16 matmul inputs)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa_ops
+from repro.kernels.flash_attention import ref as jfa_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+CASES = [
+    # (B, Sq, Skv, H, KV, hd, causal, window, softcap), tests/test_kernels.py
+    (1, 128, 128, 2, 2, 64, True, None, None),
+    (2, 256, 256, 4, 2, 64, True, None, None),        # GQA
+    (1, 256, 256, 2, 1, 128, True, 64, None),         # sliding window
+    (1, 128, 128, 2, 2, 64, True, None, 50.0),        # softcap (gemma2)
+    (1, 256, 256, 2, 2, 32, False, None, None),       # bidirectional
+    (2, 384, 384, 8, 8, 64, True, 128, 30.0),         # everything at once
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(case, seed):
+    b, sq, skv, h, kvh, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, h, hd)).astype(np.float32),
+            rng.normal(size=(b, skv, kvh, hd)).astype(np.float32),
+            rng.normal(size=(b, skv, kvh, hd)).astype(np.float32))
+
+
+_jit_ref = jax.jit(jfa_ref.attention, static_argnames=(
+    "group_size", "causal", "window", "softcap"))
+
+
+def _jax_ref(q, k, v, case, dtype):
+    b, sq, skv, h, kvh, hd, causal, window, cap = case
+    qj, kj, vj = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    want = _jit_ref(
+        qj.transpose(0, 2, 1, 3).reshape(b * h, sq, hd),
+        kj.transpose(0, 2, 1, 3).reshape(b * kvh, skv, hd),
+        vj.transpose(0, 2, 1, 3).reshape(b * kvh, skv, hd),
+        group_size=h // kvh, causal=causal, window=window, softcap=cap)
+    return np.asarray(want.reshape(b, h, sq, hd).transpose(0, 2, 1, 3),
+                      np.float32)
+
+
+def _port(q, k, v, case, dtype):
+    *_, causal, window, cap = case
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    out = fa_ops.mha(tq, tk, tv, causal=causal, window=window, softcap=cap)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_matches_jax_ref(case, dtype):
+    q, k, v = _inputs(case, CASES.index(case))
+    np.testing.assert_allclose(_port(q, k, v, case, dtype),
+                               _jax_ref(q, k, v, case, getattr(jnp, dtype)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[5]],
+                         ids=["gqa", "everything"])
+def test_mha_matches_jax_pallas_interpret(case):
+    q, k, v = _inputs(case, 10 + CASES.index(case))
+    *_, causal, window, cap = case
+    want = np.asarray(jfa_ops.mha(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window, softcap=cap,
+                                  interpret=True))
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"), want,
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_causal_first_row_attends_self_only():
+    """Causal row 0 is v[0] (softmax over one key)."""
+    q, k, v = _inputs((1, 128, 128, 1, 1, 64), 3)
+    out = _port(q, k, v, (1, 128, 128, 1, 1, 64, True, None, None),
+                "float32")
+    np.testing.assert_allclose(out[0, 0, 0], v[0, 0, 0], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_ragged_length_matches_jax_ref(window):
+    """S = 200 is no multiple of any block: the port masks the tail itself
+    (the JAX reference takes any length; its Pallas kernel does not)."""
+    case = (2, 200, 200, 4, 2, 64, True, window, 50.0)
+    q, k, v = _inputs(case, 7)
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"),
+                               _jax_ref(q, k, v, case, jnp.float32),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_cpu_path_launches_no_kernel():
+    case = CASES[0]
+    before = fa_ops.mha.launches
+    _port(*_inputs(case, 0), case, "float32")
+    assert fa_ops.mha.launches == before

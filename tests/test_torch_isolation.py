@@ -32,6 +32,8 @@ def test_import_loads_no_jax_or_repro():
     assert res["bad"] == []
     assert "repro_torch.launch.serve_gnn" in res["modules"]
     assert "repro_torch.kernels._build" in res["modules"]
+    assert "repro_torch.launch.serve" in res["modules"]
+    assert "repro_torch.kernels.flash_attention.ops" in res["modules"]
 
 
 _FORBIDDEN = re.compile(
