@@ -9,14 +9,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. card: print the card's name and power limit (nvidia-smi);
 2. build: compile every CUDA kernel of both serving paths from the sources
-   in this checkout (nvcc, sm_90a, one process per source) into
-   build/kernels/;
+   in this checkout (nvcc, sm_90a, one process per source, each timed) into
+   build/kernels/; the bf16 flash kernel's SASS must hold HGMMA (wgmma on
+   the tensor cores) and UTMALDG (TMA loads);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at its serving path's shapes (GNN: the 65,536-point bucket, full width;
    flash attention: gemma2-9b prefill of 2 x 4,608 tokens, with the 4,096
-   window and without, softcap 50, bf16 and f32), and time kernel, plain
-   version, one library call for the same function, and the bound (bytes
-   over 3.35 TB/s, or flops over 67 TFLOP/s in f32 and 989 in bf16);
+   window and without, softcap 50, bf16 through the wgmma kernel and f32
+   through the CUDA-core kernel; bf16 also per row, where the plain
+   version with a key tile dropped must fail), and time kernel, plain
+   version, one library call for the same function (flash:
+   ``flex_attention`` with the softcap, compiled; SDPA without it beside),
+   and the bound (bytes over 3.35 TB/s, or flops over 67 TFLOP/s in f32 and
+   989 in bf16);
 4. whole path: one 2,048-point request through the full-width model
    (``GNNConfig()``) on the card and on the CPU (plain versions), same
    params; edges must be equal and fields agree to 1e-4;
@@ -33,7 +38,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 8. LLM serve: ``repro_torch.launch.serve.serve`` of gemma2-9b at full
    width in bf16, 2 requests of 4,608 tokens (past the 4,096 window) and
    32 generated; flash attention must launch once per layer of the one
-   prefill and never in decode; then where one prefill's time goes.
+   prefill and never in decode; then where one prefill's time goes, and the
+   profile must show those launches as the wgmma kernel.
 
 The GNN phases (3-6) run inside one function, so their tensors are freed
 before the LLM phases. It then prints a ``{"kernels": [...]}`` line and,
@@ -45,13 +51,23 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+# flex_attention's yardstick compiles with inductor: in this process, with
+# its caches inside the checkout's build directory
+for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                   ("TRITON_CACHE_DIR", "triton")):
+    os.environ.setdefault(_var, str(ROOT / "build" / _sub))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
@@ -67,9 +83,25 @@ WHOLE_PATH_POINTS = 2048
 WHOLE_PATH_ATOL = 1e-4
 SEG_ATOL, SEG_RTOL = 1e-4, 1e-5
 KNN_D2_ATOL = 1e-6
-# flash attention against its plain version: bf16 is the tolerance of
-# tests/test_kernels.py (one output rounding); f32 sums in another order
-FLASH_ATOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# flash attention against its plain version, elementwise |got - want| <=
+# atol + rtol |want|. f32 sums in another order. bf16 is the tolerance of
+# tests/test_kernels.py, with a relative part so that an output of 4 or more
+# that rounds to its other bf16 neighbour (an ulp of 3.1e-2) passes.
+FLASH_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 0.0)}
+# An output at the serve shape is about 0.03, so 2e-2 alone would pass a
+# kernel that drops a 64-key tile of a row. bf16 is therefore also held per
+# (row, head) to |got - want| / |want| over hd: the kernel rounds P to bf16
+# before PV, beside the output's rounding, and takes tanh.approx and
+# ex2.approx. Measured on an H100 at the serve shape: see PERF.md; the plain
+# version with one key tile per row dropped must fail it.
+FLASH_ROW_RTOL = 1e-2
+KEY_TILE = 64    # the wgmma kernel's K/V tile
+# the kernel names the profiler shows for the bf16 (wgmma) and f32 flash
+# kernels
+FLASH_WGMMA_KERNEL = "flash_wgmma_kernel"
+FLASH_KERNEL_RE = re.compile(r"flash_(wgmma_)?kernel")
+# SASS that shows the bf16 flash kernel runs on the tensor cores and TMA
+FLASH_SASS = ("HGMMA", "UTMALDG")
 LLM_ARCH = "gemma2-9b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 2, 4608, 32
 WHOLE_LLM_PROMPT, WHOLE_LLM_DECODE = 128, 4
@@ -365,10 +397,71 @@ def _window_pairs(s: int, window) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
+def row_rel_err(got, want):
+    """|got - want| / |want| over the last dim (hd), one per (row, head)."""
+    g, w = got.float(), want.float()
+    return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+
+
+def plain_dropping_a_tile(qf, kf, vf, gs: int, window, cap: float):
+    """A stand-in for a wrong kernel: the plain version (causal) with the
+    first key tile of each row's range skipped wherever the row has keys in
+    a later tile, as an off-by-one in the kernel's first tile would."""
+    import math
+
+    import torch
+    s, hd = qf.shape[1:]
+    i = torch.arange(s, device=qf.device)
+    mask = i[:, None] >= i[None, :]
+    if window is not None:
+        mask &= (i[:, None] - i[None, :]) < window
+    tile = i // KEY_TILE
+    first = tile[None, :] == (mask.int().argmax(1) // KEY_TILE)[:, None]
+    mask &= ~(first & (mask & ~first).any(1, keepdim=True))
+    kr, vr = (t.repeat_interleave(gs, 0).float() for t in (kf, vf))
+    sc = torch.einsum("hqd,hkd->hqk", qf.float(), kr) / math.sqrt(hd)
+    sc = torch.where(mask, cap * torch.tanh(sc / cap), -1e30)
+    return torch.einsum("hqk,hkd->hqd", sc.softmax(-1), vr).to(qf.dtype)
+
+
+def flex_yardstick(q, k, v, cap: float, window):
+    """``flex_attention`` computing the kernel's function: the softcap as a
+    ``score_mod`` (it gets the scaled score), causal and window as a block
+    mask, GQA. q (B, H, S, hd), k and v (B, KV, S, hd). Returns the compiled
+    call, its first output and the seconds of that first call (compile
+    included). The port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        ok = q_idx >= kv_idx
+        if window is not None:
+            ok = ok & (q_idx - kv_idx < window)
+        return ok
+
+    s = q.shape[2]
+    block_mask = create_block_mask(mask_mod, None, None, s, s,
+                                   device=q.device)
+    compiled = torch.compile(flex_attention)
+
+    def call():
+        return compiled(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                        enable_gqa=True)
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return call, out, time.perf_counter() - t0
+
+
 def flash_check(dev, card) -> dict:
-    """Phase 3 for the flash kernel: against its plain version at the serve
-    phase's prefill shape, bf16 and f32, with the local window and without;
-    kernel, plain version and SDPA timed in bf16."""
+    """Phase 3 for the flash kernels: against their plain version at the
+    serve phase's prefill shape, bf16 (wgmma kernel) and f32 (CUDA-core
+    kernel), with the local window and without; in bf16 also the plain
+    version, flex_attention (same function) and SDPA (no softcap) timed."""
     import math
 
     import torch
@@ -385,7 +478,7 @@ def flash_check(dev, card) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     base = [torch.randn((b, s, n, hd), generator=gen, device=dev)
             for n in (h, kvh, kvh)]
-    errs, by_window = {}, {}
+    errs, row_errs, by_window = {}, {}, {}
     for dname in ("bfloat16", "float32"):
         q, k, v = (t.to(getattr(torch, dname)) for t in base)
         qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, hd).contiguous()
@@ -399,13 +492,36 @@ def flash_check(dev, card) -> dict:
             want = want.reshape(b, h, s, hd).transpose(1, 2)
             if got.dtype != q.dtype or got.shape != q.shape:
                 raise RuntimeError("flash_attention: bad output")
-            err = float((got.float() - want.float()).abs().max())
+            diff = (got.float() - want.float()).abs()
+            atol, rtol = FLASH_TOL[dname]
+            err = float(diff.max())
             errs[f"{dname} window={window}"] = err
-            if not err <= FLASH_ATOL[dname]:
+            if not bool((diff <= atol + rtol * want.float().abs()).all()):
                 raise RuntimeError(
                     f"flash_attention {dname} window={window}: max abs "
-                    f"error {err} > {FLASH_ATOL[dname]}")
-            del got, want
+                    f"error {err}, beyond {atol} + {rtol} |want|")
+            del diff
+            if dname == "bfloat16":
+                rows = row_rel_err(got, want)
+                wrong = plain_dropping_a_tile(qf, kf, vf, gs, window, cap)
+                wrong = row_rel_err(
+                    wrong.reshape(b, h, s, hd).transpose(1, 2), want)
+                e = row_errs[str(window)] = dict(
+                    max=float(rows.max()), median=float(rows.median()),
+                    tile_dropped_max=float(wrong.max()),
+                    tile_dropped_median=float(wrong.median()))
+                del rows, wrong
+                if not e["max"] <= FLASH_ROW_RTOL:
+                    raise RuntimeError(
+                        f"flash_attention bf16 window={window}: row relative "
+                        f"error {e['max']} > {FLASH_ROW_RTOL}")
+                if not e["tile_dropped_max"] > FLASH_ROW_RTOL:
+                    raise RuntimeError(
+                        f"flash_attention bf16 window={window}: the plain "
+                        "version with one key tile per row dropped passes "
+                        f"the row check ({e['tile_dropped_max']} <= "
+                        f"{FLASH_ROW_RTOL}); it cannot fail a wrong kernel")
+            del got
 
             def kernel():
                 return fa_ops.flash_attention(qf, kf, vf, group_size=gs,
@@ -414,6 +530,7 @@ def flash_check(dev, card) -> dict:
             row = by_window.setdefault(str(window), {})
             row[f"{dname}_ms"] = time_cuda(kernel, 5)
             if dname != "bfloat16":
+                del want
                 continue
             pairs = _window_pairs(s, window)
             n_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
@@ -423,43 +540,65 @@ def flash_check(dev, card) -> dict:
             mask = i[:, None] >= i[None, :]
             if window is not None:
                 mask &= (i[:, None] - i[None, :]) < window
-            qt = q.transpose(1, 2).contiguous()
-            kt, vt = (t.transpose(1, 2).repeat_interleave(gs, 1).contiguous()
-                      for t in (k, v))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kr, vr = (t.repeat_interleave(gs, 1) for t in (kt, vt))
             row.update(
                 ms=time_cuda(kernel, 10),
                 plain_ms=time_cuda(lambda: fa_ref.attention(
                     qf, kf, vf, group_size=gs, causal=True, window=window,
                     softcap=cap), 3, warmup=1),
-                library_ms=time_cuda(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(hd)),
+                sdpa_ms=time_cuda(lambda: F.scaled_dot_product_attention(
+                    qt, kr, vr, attn_mask=mask, scale=1.0 / math.sqrt(hd)),
                     10),
                 bound_ms=bound[0], bound_by=bound[1], pairs_per_head=pairs)
-            del qt, kt, vt, mask
+            row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+            del kr, vr, mask
+            flex, out, row["flex_first_call_s"] = flex_yardstick(
+                qt, kt, vt, cap, window)
+            row["flex_max_abs_err"] = float(
+                (out.transpose(1, 2).float() - want.float()).abs().max())
+            del out
+            row["flex_ms"] = time_cuda(flex, 10)
+            del qt, kt, vt, want
     for w, row in by_window.items():
-        log(f"[kernels] flash_attention window={w}: bf16 {row['ms']:.3f} ms "
-            f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, plain "
-            f"{row['plain_ms']:.3f} ms, SDPA without softcap "
-            f"{row['library_ms']:.4f} ms), f32 {row['float32_ms']:.3f} ms "
+        row["faster_than_sdpa"] = row["ms"] < row["sdpa_ms"]
+        log(f"[kernels] flash_attention window={w}: bf16 {row['ms']:.4f} ms "
+            f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{row['fraction_of_bound']:.3f} of it; plain "
+            f"{row['plain_ms']:.3f} ms; flex_attention {row['flex_ms']:.4f} "
+            f"ms (first call {row['flex_first_call_s']:.1f} s, max abs err "
+            f"vs plain {row['flex_max_abs_err']:.3g}); SDPA without softcap "
+            f"{row['sdpa_ms']:.4f} ms, faster than SDPA: "
+            f"{row['faster_than_sdpa']}), f32 {row['float32_ms']:.3f} ms "
             f"| B={b} S={s} H={h} KV={kvh} hd={hd}, "
-            f"{row['pairs_per_head']} pairs per head")
+            f"{row['pairs_per_head']} pairs per head | {card}")
     log(f"[kernels] flash_attention max abs err vs plain: " + ", ".join(
         f"{c} {e:.3g}" for c, e in errs.items()))
+    log(f"[kernels] flash_attention bf16 row relative error (limit "
+        f"{FLASH_ROW_RTOL}): " + "; ".join(
+            f"window={w}: kernel max {e['max']:.3g} median {e['median']:.3g}, "
+            f"plain with a key tile dropped max {e['tile_dropped_max']:.3g} "
+            f"median {e['tile_dropped_median']:.3g}"
+            for w, e in row_errs.items()))
 
     def mean(key):
         return sum(r[key] for r in by_window.values()) / len(by_window)
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
+               "flash_attention_wgmma.cu",
+        float32_source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:30",
         max_abs_err=max(e for c, e in errs.items() if "bfloat16" in c),
-        max_abs_err_by_case=errs,
+        max_abs_err_by_case=errs, row_rel_err_bf16=row_errs,
         ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by=by_window["None"]["bound_by"],
-        library_ms=mean("library_ms"),
-        library_note="scaled_dot_product_attention with the same causal and "
-                     "window boolean mask and no softcap",
+        fraction_of_bound=mean("bound_ms") / mean("ms"),
+        library_ms=mean("flex_ms"),
+        library_note="flex_attention (torch.compile) with the tanh softcap "
+                     "as score_mod and the causal and window block mask",
+        sdpa_ms=mean("sdpa_ms"), float32_ms=mean("float32_ms"),
         by_window=by_window,
         shape=f"bf16 B={b} S={s} H={h} KV={kvh} hd={hd} softcap={cap}; "
               "ms and bounds are the mean of the local and the global "
@@ -577,7 +716,14 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
                              ProfilerActivity.CUDA]) as prof:
         logits, cache = api.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-    _log_kernels("prefill", prof, time.perf_counter() - t0)
+    rows = _log_kernels("prefill", prof, time.perf_counter() - t0)
+    n_wgmma = sum(n for k, _, n in rows if FLASH_WGMMA_KERNEL in k)
+    n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
+    if not n_wgmma == n_flash == cfg.n_layers:
+        raise RuntimeError(
+            f"llm breakdown: the profiled prefill shows {n_wgmma} launches "
+            f"of {FLASH_WGMMA_KERNEL} and {n_flash} of any flash kernel, "
+            f"expected {cfg.n_layers} of the wgmma kernel")
     tok = logits[:, -1].argmax(-1)[:, None]
     del logits
     cache = pad_cache_to(cache, api.empty_cache(
@@ -604,7 +750,8 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
 
 
 def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
-    """Device time by kernel from a ``torch.profiler`` run."""
+    """Device time by kernel from a ``torch.profiler`` run; returns
+    ``[(kernel name, ms, launches)]``, longest first."""
     import torch
     rows = [(e.key, getattr(e, "self_device_time_total", None)
              or getattr(e, "self_cuda_time_total", 0.0), e.count)
@@ -613,7 +760,7 @@ def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
     rows = sorted(((k, us / 1e3, n) for k, us, n in rows),
                   key=lambda r: -r[1])
     total = sum(ms for _, ms, _ in rows)
-    flash = sum(ms for k, ms, _ in rows if "flash_kernel" in k)
+    flash = sum(ms for k, ms, _ in rows if FLASH_KERNEL_RE.search(k))
     gemm = sum(ms for k, ms, _ in rows
                if re.search(r"gemm|gemv|nvjet|cutlass|xmma", k, re.I))
     log(f"[llm_breakdown] one {what} (profiled, wall {wall_s * 1e3:.3f} "
@@ -623,6 +770,7 @@ def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
         f"{total - flash - gemm:.3f} ms")
     for k, ms, n in rows[:top]:
         log(f"[llm_breakdown]   {ms:10.3f} ms  x{n:<5d} {k[:110]}")
+    return rows
 
 
 def main() -> int:
@@ -631,7 +779,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.knn import ops as knn_ops
@@ -665,15 +813,31 @@ def main() -> int:
 
     # 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build()
-    log(f"[build] {len(_build.SOURCES)} kernels ({len(logs)} compiled now) "
-        f"in {time.perf_counter() - t0:.2f} s -> {_build.BUILD_DIR}")
-    for name, out in logs.items():
+    built = _build.build()
+    log(f"[build] {len(_build.SOURCES)} kernels ({len(built)} compiled now, "
+        f"in parallel) in {time.perf_counter() - t0:.2f} s -> "
+        f"{_build.BUILD_DIR}")
+    for name, c in built.items():
         regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
-                                                  out)}) or ["?"]
-        spills = re.search(r"[1-9]\d* bytes spill", out) is not None
-        log(f"[build] {name}: {regs[0]}-{regs[-1]} registers per thread "
-            f"over its instantiations, spills: {spills}")
+                                                  c.log)}) or ["?"]
+        spills = re.findall(r"(\d+) bytes spill (stores|loads)", c.log)
+        log(f"[build] {name}: {c.seconds:.2f} s, {regs[0]}-{regs[-1]} "
+            f"registers per thread over its kernels, spills: "
+            f"{sum(int(n) for n, _ in spills)} bytes")
+        for line in c.log.splitlines():
+            if "warning" in line.lower():
+                log(f"[build] {name}: {line.strip()}")
+    sass = subprocess.run(
+        [shutil.which("cuobjdump")
+         or str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+         str(_build.library_path("flash_attention_wgmma"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    found = {op: len(re.findall(rf"\b{op}\b", sass)) for op in FLASH_SASS}
+    log(f"[build] flash_attention_wgmma SASS: " + ", ".join(
+        f"{op} x{n}" for op, n in found.items()))
+    if not all(found.values()):
+        raise RuntimeError(f"flash_attention_wgmma: SASS lacks "
+                           f"{[op for op, n in found.items() if not n]}")
 
     kernels = gnn_phases(dev, card, reset_counts, read_counts, by_phase)
     gc.collect()

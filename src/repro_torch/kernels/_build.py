@@ -16,8 +16,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
@@ -27,6 +28,8 @@ SOURCES: Dict[str, Path] = {
     "knn_topk": _KERNELS / "knn" / "csrc" / "knn_topk.cu",
     "flash_attention": _KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    "flash_attention_wgmma": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_wgmma.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -34,6 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+class Compiled(NamedTuple):
+    log: str          # nvcc's output: -Xptxas -v registers, smem, spills
+    seconds: float    # from the start of all compiles to this one's end
 
 
 def _nvcc() -> str:
@@ -55,45 +63,54 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Compiled]:
     """Compile the named kernels (default: all) that are not built yet.
 
-    All ``nvcc`` processes start together. Returns ``{name: compiler
-    output}`` for the kernels compiled by this call (``-Xptxas -v`` prints
-    registers, shared memory and spills); raises if any compile fails.
+    All ``nvcc`` processes start together. Returns ``{name: Compiled}`` for
+    the kernels compiled by this call; raises if any compile fails.
     """
     names = list(SOURCES if names is None else names)
     with _lock:
         return _build_locked(names)
 
 
-def _build_locked(names) -> Dict[str, str]:
+def _build_locked(names) -> Dict[str, Compiled]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    procs, done = {}, {}
+
+    def wait(name, proc):
+        out, _ = proc.communicate()
+        done[name] = Compiled(out, time.perf_counter() - t0)
+
     try:
+        t0 = time.perf_counter()
         for n in todo:
             tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
             procs[n] = (tmp, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
-        logs, failed = {}, []
+        waiters = [threading.Thread(target=wait, args=(n, proc))
+                   for n, (_, proc) in procs.items()]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
+        failed = []
         for n, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            logs[n] = out
-            library_path(n).with_suffix(".log").write_text(out)
+            library_path(n).with_suffix(".log").write_text(done[n].log)
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {SOURCES[n]} "
-                              f"(exit {proc.returncode}):\n{out}")
+                              f"(exit {proc.returncode}):\n{done[n].log}")
             else:
                 os.replace(tmp, library_path(n))
         if failed:
             raise RuntimeError("\n".join(failed))
-        return logs
+        return done
     finally:
         for tmp, proc in procs.values():
             if proc.poll() is None:

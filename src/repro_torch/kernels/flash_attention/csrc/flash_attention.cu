@@ -1,10 +1,11 @@
 // Flash attention with GQA, causal masking, a sliding window and a tanh
-// logit softcap, for head_dim 256 in bf16 or f32:
+// logit softcap, for head_dim 256 in f32 on the CUDA cores:
 //   out[bh, i] = softmax_j(mask(cap(q[bh, i] . k[bh / group, j] / sqrt(hd))))
 //                . v[bh / group, j]
-// with the mask j <= i (causal) and i - j < window, f32 accumulation, and
-// the output in the input's dtype. q, k, v, out are (rows, S, 256),
-// contiguous; Skv == Sq.
+// with the mask j <= i (causal) and i - j < window, f32 throughout. q, k, v,
+// out are (rows, S, 256), contiguous; Skv == Sq. bf16 goes to the tensor-core
+// kernel in flash_attention_wgmma.cu; f32 stays here because the tensor
+// cores' TF32 keeps about three digits and the f32 path is held to 1e-5.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py, which walks (128, hd) query
@@ -12,20 +13,19 @@
 // keeps the running max, denominator and accumulator in VMEM scratch.
 //
 // Bound on the H100: operations. 4 * hd flops per unmasked (query, key)
-// pair; at gemma2's prefill shape that is about 3.5e11 flops against 226 MB
-// of q, k, v and out. This first kernel runs on the CUDA cores in f32, not
-// on the tensor cores, so it stays well above that bound (see PERF.md).
+// pair; at gemma2's prefill shape that is about 3.5e11 flops, 5.2 ms at the
+// CUDA cores' 67 TFLOP/s in f32, against 450 MB of q, k, v and out.
 //
 // Design: one warp per query row, 16 rows of one (batch, head) per block.
 // Each lane holds 8 of the row's 256 dims of q and of the f32 accumulator.
-// The block stages 64-key tiles of K and V in dynamic shared memory (64 KB
-// in bf16, 128 KB in f32) and skips tiles wholly past the causal diagonal or
-// before the window; each warp also skips the 32-key chunks that are wholly
-// masked for its row. Per chunk, every lane forms its 8-dim partial dot with
-// each of the 32 keys, and a reduce-scatter butterfly (31 shuffles) leaves
-// lane t with the full score of key t. The online softmax then takes one
-// max and one sum over the warp per chunk, and the PV update broadcasts each
-// key's probability to the lanes, which add it times their 8 dims of v.
+// The block stages 64-key tiles of K and V in dynamic shared memory (128 KB)
+// and skips tiles wholly past the causal diagonal or before the window; each
+// warp also skips the 32-key chunks that are wholly masked for its row. Per
+// chunk, every lane forms its 8-dim partial dot with each of the 32 keys,
+// and a reduce-scatter butterfly (31 shuffles) leaves lane t with the full
+// score of key t. The online softmax then takes one max and one sum over the
+// warp per chunk, and the PV update broadcasts each key's probability to the
+// lanes, which add it times their 8 dims of v.
 // Masked logits are -1e30, never -inf, as in the TPU kernel: a chunk that is
 // wholly masked for a row before its first real key gives p = 1 for its
 // keys, and that is wiped by alpha = exp(-1e30 - m) = 0 when the real keys
@@ -33,7 +33,6 @@
 // expf and tanhf (not the fast intrinsics) keep f32 within about 1e-6 of
 // the plain PyTorch version.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,54 +44,23 @@ constexpr int kChunk = 32;      // keys per online-softmax step, one per lane
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T>
-struct Io;
+// Lane owns dims [4 * lane, 4 * lane + 4) and [128 + 4 * lane, ...), two
+// 16-byte accesses with neighbouring lanes on neighbouring addresses.
+__device__ __forceinline__ void load_row(const float* row, int lane,
+                                         float* x) {
+  const float4 a = *reinterpret_cast<const float4*>(row + 4 * lane);
+  const float4 b = *reinterpret_cast<const float4*>(row + 128 + 4 * lane);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
 
-// bf16: lane owns dims [8 * lane, 8 * lane + 8), one 16-byte access.
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* row,
-                                              int lane, float* x) {
-    const uint4 u = *reinterpret_cast<const uint4*>(row + 8 * lane);
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = __uint_as_float(w[i] << 16);
-      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* row, int lane,
-                                               const float* x) {
-    unsigned w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-      w[i] = *reinterpret_cast<const unsigned*>(&h);
-    }
-    *reinterpret_cast<uint4*>(row + 8 * lane) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
-// f32: lane owns dims [4 * lane, 4 * lane + 4) and [128 + 4 * lane, ...),
-// two 16-byte accesses with neighbouring lanes on neighbouring addresses.
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ void load(const float* row, int lane,
-                                              float* x) {
-    const float4 a = *reinterpret_cast<const float4*>(row + 4 * lane);
-    const float4 b = *reinterpret_cast<const float4*>(row + 128 + 4 * lane);
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-  }
-  static __device__ __forceinline__ void store(float* row, int lane,
-                                               const float* x) {
-    *reinterpret_cast<float4*>(row + 4 * lane) =
-        make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(row + 128 + 4 * lane) =
-        make_float4(x[4], x[5], x[6], x[7]);
-  }
-};
+__device__ __forceinline__ void store_row(float* row, int lane,
+                                          const float* x) {
+  *reinterpret_cast<float4*>(row + 4 * lane) =
+      make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(row + 128 + 4 * lane) =
+      make_float4(x[4], x[5], x[6], x[7]);
+}
 
 // One stage of the reduce-scatter: lanes with bit N set keep the upper N
 // of their 2N partial sums, the others the lower N, each adding its
@@ -122,14 +90,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kRows * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int group, int s,
-             int causal, int window, float scale, float softcap) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int group,
+             int s, int causal, int window, float scale, float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kTile * kHd;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kTile * kHd;
   const int lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
   // the last row blocks carry the most keys under causal masking: start them
@@ -146,13 +113,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qr[i] = 0.f;
     acc[i] = 0.f;
   }
-  if (active) Io<T>::load(q + (static_cast<size_t>(bh) * s + row) * kHd, lane,
-                          qr);
+  if (active) load_row(q + (static_cast<size_t>(bh) * s + row) * kHd, lane, qr);
   float m = kNegInf, l = 0.f;
 
   const int lo = window > 0 ? max(0, r0 - window + 1) : 0;
   const int hi = causal ? r_last + 1 : s;  // keys [lo, hi) reach the block
-  constexpr int kVecPerRow = kHd * static_cast<int>(sizeof(T)) / 16;
+  constexpr int kVecPerRow = kHd * 4 / 16;
   for (int t0 = lo / kTile * kTile; t0 < hi; t0 += kTile) {
     __syncthreads();  // every warp is done with the previous tile
     for (int idx = threadIdx.x; idx < kTile * kVecPerRow; idx += blockDim.x) {
@@ -177,7 +143,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int t = 0; t < kChunk; ++t) {
         float kr[8];
-        Io<T>::load(ks + (c0 + t) * kHd, lane, kr);
+        load_row(ks + (c0 + t) * kHd, lane, kr);
         float d = 0.f;
 #pragma unroll
         for (int i = 0; i < 8; ++i) d = fmaf(qr[i], kr[i], d);
@@ -206,7 +172,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int t = 0; t < kChunk; ++t) {
         const float pt = __shfl_sync(kFull, p, t);
         float vr[8];
-        Io<T>::load(vs + (c0 + t) * kHd, lane, vr);
+        load_row(vs + (c0 + t) * kHd, lane, vr);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[i] = fmaf(pt, vr[i], acc[i]);
       }
@@ -216,47 +182,29 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = acc[i] / denom;
-    Io<T>::store(out + (static_cast<size_t>(bh) * s + row) * kHd, lane, acc);
+    store_row(out + (static_cast<size_t>(bh) * s + row) * kHd, lane, acc);
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int group, int s, int causal, int window, int hd, float scale,
-           float softcap, void* stream) {
-  if (hd != kHd || group < 1 || bh < 1 || bh % group || bh > 65535 || s < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * kTile * kHd * static_cast<int>(sizeof(T));
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kRows - 1) / kRows, bh);
-  flash_kernel<T><<<grid, kRows * 32, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), group, s, causal,
-      window, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, out (bh, s, hd); k, v (bh / group, s, hd); all contiguous and 16-byte
+// q, out (bh, s, hd); k, v (bh / group, s, hd); f32, contiguous and 16-byte
 // aligned; hd == 256. window <= 0: none; softcap <= 0: none. Returns a
 // cudaError_t (cudaErrorInvalidValue for a shape the kernel is not built for).
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int bh,
-                                    int group, int s, int causal, int window,
-                                    int hd, float scale, float softcap,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, bh, group, s, causal, window, hd,
-                               scale, softcap, stream);
-}
-
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int bh, int group,
                                    int s, int causal, int window, int hd,
                                    float scale, float softcap, void* stream) {
-  return launch<float>(q, k, v, out, bh, group, s, causal, window, hd, scale,
-                       softcap, stream);
+  if (hd != kHd || group < 1 || bh < 1 || bh % group || bh > 65535 || s < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 2 * kTile * kHd * static_cast<int>(sizeof(float));
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s + kRows - 1) / kRows, bh);
+  flash_kernel<<<grid, kRows * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), group, s, causal,
+      window, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
-"""Flash attention: the CUDA kernel for tensors on the card, its plain
+"""Flash attention: a CUDA kernel for tensors on the card, its plain
 version for tensors on the CPU (dispatch by device; there is no other
-switch).
+switch). On the card, bf16 goes to the tensor-core kernel
+(``csrc/flash_attention_wgmma.cu``: wgmma, TMA-fed K/V ring) and f32 to the
+CUDA-core kernel (``csrc/flash_attention.cu``); nothing falls back.
 
 ``flash_attention`` takes flattened heads, ``mha`` the model layout (the
 reshapes of ``repro.kernels.flash_attention.ops.mha``). ``mha.launches``
-counts every launch of the kernel, through either function.
+counts every launch of either kernel, through either function.
 """
 from __future__ import annotations
 
@@ -17,13 +19,16 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-KERNEL_HEAD_DIM = 256   # flash_attention.cu instantiates gemma2's head_dim only
-_ENTRY = {torch.bfloat16: "flash_attention_bf16",
-          torch.float32: "flash_attention_f32"}
+KERNEL_HEAD_DIM = 256   # both kernels are built for gemma2's head_dim only
+# dtype -> (library in _build.SOURCES, C entry point)
+_ENTRY = {torch.bfloat16: ("flash_attention_wgmma",
+                           "flash_attention_wgmma_bf16"),
+          torch.float32: ("flash_attention", "flash_attention_f32")}
 
 
 def _lib(dtype):
-    fn = getattr(_build.load("flash_attention"), _ENTRY[dtype])
+    library, symbol = _ENTRY[dtype]
+    fn = getattr(_build.load(library), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
@@ -95,9 +100,9 @@ def _launch(q, k, v, group_size: int, causal: bool, window: Optional[int],
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
-    if bh > 65535:
-        raise ValueError(f"flash_attention: BH={bh} exceeds the grid's "
-                         "y limit of 65535")
+    if q.dtype == torch.float32 and bh > 65535:
+        raise ValueError(f"flash_attention: BH={bh} exceeds the f32 "
+                         "kernel's grid y limit of 65535")
     out = torch.empty_like(q)
     if bh == 0 or sq == 0:
         return out

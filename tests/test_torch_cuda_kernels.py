@@ -7,6 +7,10 @@ This file imports no JAX, so it also runs on the machine with the card:
 A kernel has no CPU mode, so the ``cuda`` tests skip without a card. The
 wrapper tests run anywhere: a tensor that is neither on the CPU nor on the
 card is refused, never routed to the plain version."""
+import math
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -101,9 +105,13 @@ def _fa_case(seed: int, b: int, s: int, h: int, kvh: int, hd: int = 256):
             for n in (h, kvh, kvh)]
 
 
-# (dtype, B, S, H, KV, causal, window, softcap). The kernel stages 64-key
-# tiles and skips 32-key chunks: S = 640 with window 100 skips whole tiles
-# before the window, S = 200 and 300 end in a ragged tile.
+# (dtype, B, S, H, KV, causal, window, softcap). bf16 runs the wgmma kernel
+# (128-row blocks, 64-key tiles), f32 the CUDA-core kernel (16-row blocks,
+# 64-key tiles, 32-key chunks). S = 640 with window 100 skips whole tiles
+# before the window; S = 200, 300 and 1,000 end in a ragged tile, and S = 200
+# inside one 128-row block; window 300 at S = 1,000 puts the window's edge
+# inside a key tile; S = 4,608 with window 4,096 is the serve shape at B = 1,
+# H = 4.
 FA_CASES = [
     ("bfloat16", 2, 300, 4, 2, True, None, 50.0),
     ("float32", 2, 300, 4, 2, True, None, 50.0),
@@ -111,9 +119,51 @@ FA_CASES = [
     ("float32", 1, 640, 2, 1, True, 100, 50.0),
     ("float32", 2, 200, 4, 2, True, 48, None),
     ("float32", 1, 130, 2, 2, False, 64, None),
+    ("bfloat16", 1, 4608, 4, 2, True, 4096, 50.0),
+    ("bfloat16", 2, 200, 4, 2, True, 48, 50.0),
+    ("bfloat16", 1, 1000, 2, 1, True, 300, 50.0),
+    ("bfloat16", 1, 130, 2, 2, False, 64, 50.0),
+    ("bfloat16", 1, 256, 2, 2, True, None, 50.0),
+    ("bfloat16", 2, 640, 4, 2, True, None, None),
 ]
-# f32: the same function, sums in another order; bf16: one output rounding
+# Elementwise atol and rtol. f32: the same function, sums in another order.
+# bf16: the tolerance of tests/test_kernels.py.
 FA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# Outputs are about sqrt(e / n) for n keys, 0.03 at S = 4,608, so 2e-2 would
+# pass a kernel that drops a 64-key tile of a row. bf16 is also held per
+# (row, head) to |got - want| / |want| over hd: the output rounding, and the
+# wgmma kernel rounds P to bf16 before PV and takes tanh.approx and
+# ex2.approx; measured on an H100 at the serve shape: see PERF.md. The plain
+# version with one key tile per row dropped must fail it.
+FA_BF16_ROW_RTOL = 1e-2
+KEY_TILE = 64    # the wgmma kernel's K/V tile
+
+
+def _row_rel_err(got, want):
+    g, w = got.float(), want.float()
+    return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+
+
+def _plain_dropping_a_tile(qf, kf, vf, gs, causal, window, cap):
+    """A stand-in for a wrong kernel: the plain version with the first key
+    tile of each row's range skipped wherever the row has keys in a later
+    tile, as an off-by-one in the kernel's first tile would."""
+    s, hd = qf.shape[1:]
+    i = torch.arange(s, device=qf.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=qf.device)
+    if causal:
+        mask &= i[:, None] >= i[None, :]
+    if window is not None:
+        mask &= (i[:, None] - i[None, :]) < window
+    tile = i // KEY_TILE
+    first = tile[None, :] == (mask.int().argmax(1) // KEY_TILE)[:, None]
+    mask &= ~(first & (mask & ~first).any(1, keepdim=True))
+    kr, vr = (t.repeat_interleave(gs, 0).float() for t in (kf, vf))
+    sc = torch.einsum("hqd,hkd->hqk", qf.float(), kr) / math.sqrt(hd)
+    if cap is not None:
+        sc = cap * torch.tanh(sc / cap)
+    sc = torch.where(mask, sc, -1e30)
+    return torch.einsum("hqk,hkd->hqd", sc.softmax(-1), vr).to(qf.dtype)
 
 
 @pytest.mark.cuda
@@ -133,17 +183,53 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     want = want.reshape(b, h, s, 256).transpose(1, 2)
     torch.testing.assert_close(got.float(), want.float(), atol=FA_TOL[dtype],
                                rtol=FA_TOL[dtype])
+    if dtype == "bfloat16":
+        assert float(_row_rel_err(got, want).max()) <= FA_BF16_ROW_RTOL
+        wrong = _plain_dropping_a_tile(qf, kf, vf, h // kvh, causal, window,
+                                       cap).reshape(b, h, s, 256)
+        assert float(_row_rel_err(wrong.transpose(1, 2), want).max()) > \
+            FA_BF16_ROW_RTOL
+
+
+@pytest.mark.parametrize("s,window", [(640, None), (1000, 300)])
+def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
+    """The bf16 row check admits the plain version's own bf16 rounding and
+    rejects the plain version with one key tile per row dropped."""
+    q, k, v = _fa_case(s, 1, s, 2, 1)
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, 256) for t in (q, k, v))
+    want = fa_ref.attention(qf, kf, vf, group_size=2, window=window,
+                            softcap=50.0)
+    args = [t.to(torch.bfloat16) for t in (qf, kf, vf)]
+    rounded = fa_ref.attention(*args, group_size=2, window=window,
+                               softcap=50.0)
+    assert float(_row_rel_err(rounded, want).max()) <= FA_BF16_ROW_RTOL
+    wrong = _plain_dropping_a_tile(*args, 2, True, window, 50.0)
+    assert float(_row_rel_err(wrong, rounded).max()) > FA_BF16_ROW_RTOL
 
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_is_not_built_for(cuda):
-    """The kernel is built for hd = 256 in bf16 and f32 only."""
+    """Both kernels are built for hd = 256 in bf16 and f32 only, with
+    Skv == Sq; the bf16 kernel's grid takes at most 65,535 blocks of 128
+    rows, which its C entry checks before it reads any memory."""
     q, k, v = (t.to(cuda) for t in _fa_case(0, 1, 64, 2, 1, hd=128))
     with pytest.raises(ValueError, match="hd=256"):
         fa_ops.mha(q, k, v)
     q, k, v = (t.to(cuda, torch.float16) for t in _fa_case(0, 1, 64, 2, 1))
     with pytest.raises(ValueError, match="bfloat16 and float32"):
         fa_ops.mha(q, k, v)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(cuda, dtype)
+                   for t in _fa_case(0, 1, 130, 2, 1))
+        with pytest.raises(ValueError, match="Skv == Sq"):
+            fa_ops.mha(q, k[:, :128], v[:, :128])
+    q = torch.zeros((1, 128, 256), dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    status = fa_ops._lib(torch.bfloat16)(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 1,
+        65535 * 128 + 1, 1, 0, 256, 1 / 16, 0.0, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(status, "flash_attention")
 
 
 def test_wrappers_refuse_other_devices():
@@ -169,11 +255,86 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not list(tmp_path.glob("kernels/*.so"))
 
 
-def test_library_name_tracks_the_source():
-    """A library is named by a hash of its source and flags, so an edited
-    source never loads a stale build."""
+@pytest.mark.parametrize("edit", [None, "flash_attention_wgmma", "flags"])
+def test_library_name_tracks_the_source(monkeypatch, tmp_path, edit):
+    """A library is named by a hash of its own source and the flags, so an
+    edited source never loads a stale build: editing one source renames that
+    kernel's library and no other's, editing the flags renames them all."""
+    copies = {}
     for name, src in _build.SOURCES.items():
         assert src.is_file()
-        path = _build.library_path(name)
+        copies[name] = tmp_path / src.name
+        copies[name].write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "SOURCES", copies)
+    before = {n: _build.library_path(n) for n in copies}
+    assert len(set(before.values())) == len(before)
+    for name, path in before.items():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+    if edit == "flags":
+        monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    elif edit is not None:
+        copies[edit].write_text(copies[edit].read_text() + "\n// edited\n")
+    changed = [n for n in copies if _build.library_path(n) != before[n]]
+    assert changed == ([] if edit is None else list(copies)
+                       if edit == "flags" else [edit])
+
+
+def test_flash_library_raises_without_nvcc(monkeypatch, tmp_path):
+    """No fallback: where the bf16 kernel cannot be built, asking for it
+    raises."""
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_libs", {})
+    for dtype in fa_ops._ENTRY:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fa_ops._lib(dtype)
+
+
+_FAKE_NVCC = """#!{python}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if "fail" in args[-1]:
+    print("error: no such kernel")
+    sys.exit(2)
+time.sleep(0.2 if "wgmma" in args[-1] else 0.0)
+open(out, "wb").write(b"lib")
+print("ptxas info    : Used 42 registers")
+"""
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_compiles_in_parallel_and_times_each_source(
+        monkeypatch, tmp_path, fail):
+    """Each source gets its own compiler process and its own time; a failed
+    compile raises and leaves no library behind."""
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    sources = {}
+    for name in ("fast", "flash_attention_wgmma", "fail" if fail else "ok"):
+        sources[name] = tmp_path / f"{name}.cu"
+        sources[name].write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "SOURCES", sources)
+    if fail:
+        with pytest.raises(RuntimeError, match="nvcc failed .*fail.cu"):
+            _build.build()
+        assert not list((tmp_path / "kernels").glob("libfail-*.so"))
+        assert not list((tmp_path / "kernels").glob("*.tmp"))
+        return
+    done = _build.build()
+    assert set(done) == set(sources)
+    for name, c in done.items():
+        assert "Used 42 registers" in c.log and c.seconds >= 0
+        assert _build.library_path(name).read_bytes() == b"lib"
+    assert done["flash_attention_wgmma"].seconds >= 0.2
+    assert _build.build() == {}    # nothing left to compile
+    assert os.path.exists(_build.library_path("fast").with_suffix(".log"))
+
