@@ -13,15 +13,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    build/kernels/; the bf16 flash kernel's SASS must hold HGMMA (wgmma on
    the tensor cores) and UTMALDG (TMA loads);
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at its serving path's shapes (GNN: the 65,536-point bucket, full width;
-   flash attention: gemma2-9b prefill of 2 x 4,608 tokens, with the 4,096
-   window and without, softcap 50, bf16 through the wgmma kernel and f32
-   through the CUDA-core kernel; bf16 also per row, where the plain
-   version with a key tile dropped must fail), and time kernel, plain
-   version, one library call for the same function (flash:
-   ``flex_attention`` with the softcap, compiled; SDPA without it beside),
-   and the bound (bytes over 3.35 TB/s, or flops over 67 TFLOP/s in f32 and
-   989 in bf16);
+   at its serving path's shapes (kNN: bit-equal at all six level shapes of
+   the two buckets, on each bucket's calibrated grid; segment-sum: the
+   65,536-point bucket, full width; flash attention: gemma2-9b prefill of
+   2 x 4,608 tokens, with the 4,096 window and without, softcap 50, bf16
+   through the wgmma kernel and f32 through the CUDA-core kernel; bf16 also
+   per row, where the plain version with a key tile dropped must fail), and
+   time each: the kernel's device time (``device_ms``, ``torch.profiler``
+   by kernel name), the wrapper's call on CUDA events (``call_ms``: host
+   work plus kernels), the plain version, one library call for the same
+   function (kNN: ``torch.topk``; segment-sum: ``index_add_``; flash:
+   ``flex_attention`` with the softcap, compiled; SDPA without it beside) on
+   events and by its device kernels (``library_device_ms``), and the bound
+   (bytes over 3.35 TB/s, or flops over 67 TFLOP/s in f32 and 989 in bf16)
+   with ``fraction_of_bound`` = bound / device time;
 4. whole path: one 2,048-point request through the full-width model
    (``GNNConfig()``) on the card and on the CPU (plain versions), same
    params; edges must be equal and fields agree to 1e-4;
@@ -82,7 +87,11 @@ WHOLE_PATH_POINTS = 2048
 # builds and still fails on any real divergence.
 WHOLE_PATH_ATOL = 1e-4
 SEG_ATOL, SEG_RTOL = 1e-4, 1e-5
-KNN_D2_ATOL = 1e-6
+# kNN d2 against its plain version: bit-equal, the same rounded arithmetic
+KNN_D2_ATOL = 0.0
+# the kernel names the profiler shows for kNN and segment-sum
+KNN_KERNEL = "knn_topk_kernel"
+SEG_KERNEL = "segment_sum_kernel"
 # flash attention against its plain version, elementwise |got - want| <=
 # atol + rtol |want|. f32 sums in another order. bf16 is the tolerance of
 # tests/test_kernels.py, with a relative part so that an output of 4 or more
@@ -141,8 +150,156 @@ def bound_ms(n_bytes: float, n_flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_rows(averages):
+    """``[(kernel name, ms, launches)]`` of the device kernels in a
+    ``torch.profiler`` run's ``key_averages()``, by their self device time,
+    longest first."""
+    import torch
+    rows = [(e.key, getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0.0), e.count)
+            for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(((k, us / 1e3, n) for k, us, n in rows),
+                  key=lambda r: -r[1])
+
+
+def device_ms(fn, reps: int = 50, kernel=None) -> float:
+    """Device milliseconds per call of ``fn``, from ``torch.profiler`` over
+    ``reps`` back-to-back calls after two unprofiled ones: the self device
+    time of the kernel whose name matches the regex ``kernel`` (one launch a
+    call), or, with no ``kernel``, of every device kernel the calls launch.
+    Each kernel counts as its mean time per launch held in the profile, times
+    its launches per call: a profile that holds fewer launches than were made
+    (seen with the flash kernels) still gives the time of a call."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof.key_averages())
+    seen = [r for r in rows if kernel is None or re.search(kernel, r[0])]
+    launches = sum(n for *_, n in seen)
+    if not seen or (kernel is not None and launches > reps):
+        raise RuntimeError(
+            f"device time: {launches} launches of {kernel!r} in {reps} "
+            f"calls; the profile shows {[k[:80] for k, *_ in rows[:6]]}")
+    short = [(k[:60], n) for k, _, n in seen if n % reps]
+    if short:
+        log(f"[kernels] note: launches held in a profile of {reps} calls "
+            f"that are not a whole number per call: {short}")
+    return sum(ms / n * math.ceil(n / reps) for _, ms, n in seen)
+
+
+def timed_row(kernel_fn, kernel_re: str, plain_fn, library_fn, bound,
+              reps: int = 50, plain_reps: int = 10) -> dict:
+    """The timing columns of one kernel's row: the kernel's device time
+    (``device_ms``, also ``ms``), the wrapper's call on CUDA events
+    (``call_ms``: host work plus kernels), the plain version's and the
+    library call's (``library_ms`` on events, ``library_device_ms`` the sum of
+    its device kernels per call), and the bound."""
+    row = dict(device_ms=device_ms(kernel_fn, reps, kernel_re),
+               call_ms=time_cuda(kernel_fn, reps),
+               plain_ms=time_cuda(plain_fn, plain_reps),
+               library_ms=time_cuda(library_fn, reps),
+               library_device_ms=device_ms(library_fn, reps),
+               bound_ms=bound[0], bound_by=bound[1])
+    row["ms"] = row["device_ms"]
+    row["fraction_of_bound"] = row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def log_row(kr: dict, library: str):
+    log(f"[kernels] {kr['name']}: device {kr['device_ms']:.4f} ms, "
+        f"{kr['fraction_of_bound']:.3f} of its bound {kr['bound_ms']:.4f} ms "
+        f"by {kr['bound_by']}; call {kr['call_ms']:.4f} ms; plain "
+        f"{kr['plain_ms']:.3f} ms; {library} device "
+        f"{kr['library_device_ms']:.4f} ms, call {kr['library_ms']:.4f} ms; "
+        f"max abs err {kr['max_abs_err']:.3g} | {kr['shape']}")
+
+
+def knn_check(dev, card) -> dict:
+    """Phase 3 for the kNN kernel: bit-equal to its plain version, and timed,
+    at every level shape the server launches it at (3 levels of each bucket,
+    on the bucket's calibrated grid and its calibration cloud). Returns the
+    row of the largest shape, with every shape's under ``by_shape``."""
+    import torch
+    from repro_torch.core.graph_build import sample_surface
+    from repro_torch.data import geometry as geo
+    from repro_torch.graphx import hashgrid
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.launch.serve_gnn import _level_sizes
+
+    verts, faces = geo.car_surface(geo.sample_params(0))
+    by_shape = []
+    for bucket in BUCKETS:
+        ref_pts, _ = sample_surface(verts, faces, bucket,
+                                    np.random.default_rng(0))
+        for m in _level_sizes(bucket, 3):
+            gspec = hashgrid.calibrate_spec(ref_pts[:m], 6, n_points=m)
+            pts = torch.from_numpy(ref_pts[:m]).to(dev)
+            cand, cvalid, _ = hashgrid.csr_candidate_lists(pts, m, gspec)
+            cpos = pts[cand.long()]
+            k = gspec.k
+            args = (pts, cpos, cand, cvalid, k)
+            ki, kd, km = knn_ops.topk_neighbors(*args)
+            torch.cuda.synchronize()
+            pi, pd, pm = knn_ref.topk_neighbors(*args)
+            if not (torch.equal(ki, pi) and torch.equal(km, pm)):
+                raise RuntimeError(f"knn_topk at N={m}: indices differ from "
+                                   "the plain version")
+            err = float((kd - pd).abs().max())
+            if err > KNN_D2_ATOL:
+                raise RuntimeError(f"knn_topk at N={m}: d2 error {err} > "
+                                   f"{KNN_D2_ATOL}")
+            d2_masked = torch.where(
+                cvalid, ((cpos - pts[:, None, :]) ** 2).sum(-1), knn_ref.BIG)
+            n_c = cand.shape[1]
+            n_valid = int(cvalid.sum())
+            n_bytes = m * 12 + m * n_c + n_valid * 12 + m * k * 4 + m * k * 8
+            row = dict(
+                bucket=bucket, n=m, c=n_c, valid_share=n_valid / (m * n_c),
+                max_abs_err=err, **timed_row(
+                    lambda: knn_ops.topk_neighbors(*args), KNN_KERNEL,
+                    lambda: knn_ref.topk_neighbors(*args),
+                    lambda: torch.topk(d2_masked, k, dim=1, largest=False),
+                    bound_ms(n_bytes, 8.0 * n_valid)))
+            by_shape.append(row)
+            log(f"[kernels] knn_topk bucket {bucket} level N={m}: C={n_c}, "
+                f"valid {row['valid_share']:.3f}, bound "
+                f"{row['bound_ms']:.4f} ms by {row['bound_by']}, device "
+                f"{row['device_ms']:.4f} ms ({row['fraction_of_bound']:.3f} "
+                f"of the bound), call {row['call_ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, torch.topk device "
+                f"{row['library_device_ms']:.4f} ms (call "
+                f"{row['library_ms']:.4f} ms); bit-equal | {card}")
+            del cpos, d2_masked
+    top = dict(by_shape[-1])
+    kr = dict(
+        name="knn_topk", route="cuda",
+        source="src/repro_torch/kernels/knn/csrc/knn_topk.cu",
+        replaces="src/repro/kernels/knn/kernel.py:27",
+        **{key: top[key] for key in (
+            "max_abs_err", "ms", "device_ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "fraction_of_bound", "library_ms",
+            "library_device_ms")},
+        library_note="torch.topk over the masked d2",
+        shape=f"N={top['n']} C={top['c']} k=6, valid candidates "
+              f"{top['valid_share']:.3f}",
+        by_shape=by_shape)
+    log_row(kr, "torch.topk")
+    return kr
+
+
 def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
-    """Phases 3 (GNN kernels) to 6; returns the two kernels' entries. Its
+    """Phases 3 (GNN kernels) to 6; returns the two kernels' rows. Its
     tensors, the server's included, are freed when it returns."""
     import torch
     from repro_torch.configs.base import GNNConfig
@@ -152,8 +309,6 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
     from repro_torch.graphx.multiscale import (MultiscaleSpec,
                                                multiscale_edges)
     from repro_torch.graphx.pipeline import make_graph_forward, make_infer_fn
-    from repro_torch.kernels.knn import ops as knn_ops
-    from repro_torch.kernels.knn import ref as knn_ref
     from repro_torch.kernels.segment_agg import ops as seg_ops
     from repro_torch.kernels.segment_agg import ref as seg_ref
     from repro_torch.launch.serve_gnn import (GNNServer, Request,
@@ -173,40 +328,7 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
 
     # 3. kernels -----------------------------------------------------------
     reset_counts()
-    kernels = []
-    gspec = grids[-1]
-    cand, cvalid, _ = hashgrid.csr_candidate_lists(pts, n_big, gspec)
-    cpos = pts[cand.long()]
-    k = gspec.k
-    ki, kd, km = knn_ops.topk_neighbors(pts, cpos, cand, cvalid, k)
-    torch.cuda.synchronize()
-    pi, pd, pm = knn_ref.topk_neighbors(pts, cpos, cand, cvalid, k)
-    if not (torch.equal(ki, pi) and torch.equal(km, pm)):
-        raise RuntimeError("knn_topk: indices differ from the plain version")
-    knn_err = float((kd - pd).abs().max())
-    if knn_err > KNN_D2_ATOL:
-        raise RuntimeError(f"knn_topk: d2 error {knn_err} > {KNN_D2_ATOL}")
-    d2_masked = torch.where(
-        cvalid, ((cpos - pts[:, None, :]) ** 2).sum(-1), knn_ref.BIG)
-    n_c = cand.shape[1]
-    n_valid_cand = int(cvalid.sum())
-    knn_bytes = (n_big * 12 + n_big * n_c * 1 + n_valid_cand * 12
-                 + n_big * k * 4 + n_big * k * 8)
-    knn_bound = bound_ms(knn_bytes, 8.0 * n_valid_cand)
-    kernels.append(dict(
-        name="knn_topk", route="cuda",
-        source="src/repro_torch/kernels/knn/csrc/knn_topk.cu",
-        replaces="src/repro/kernels/knn/kernel.py:27",
-        max_abs_err=knn_err,
-        ms=time_cuda(lambda: knn_ops.topk_neighbors(pts, cpos, cand, cvalid,
-                                                    k), 50),
-        plain_ms=time_cuda(lambda: knn_ref.topk_neighbors(pts, cpos, cand,
-                                                          cvalid, k), 10),
-        bound_ms=knn_bound[0], bound_by=knn_bound[1],
-        library_ms=time_cuda(lambda: torch.topk(d2_masked, k, dim=1,
-                                                largest=False), 50),
-        shape=f"N={n_big} C={n_c} k={k}, valid candidates "
-              f"{n_valid_cand / (n_big * n_c):.3f}"))
+    kernels = [knn_check(dev, card)]
 
     senders, receivers, emask = multiscale_edges(pts, n_big, ms)
     n_e, d = receivers.numel(), GNNConfig().hidden
@@ -224,29 +346,24 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
     e_valid = int(emask.sum())
     seg_bytes = e_valid * d * 4 + n_big * d * 4 + e_valid * 4 + \
         (n_big + 1) * 4
-    seg_bound = bound_ms(seg_bytes, float(e_valid) * d)
     kernels.append(dict(
         name="segment_sum", route="cuda",
         source="src/repro_torch/kernels/segment_agg/csrc/segment_sum.cu",
         replaces="src/repro/kernels/segment_agg/kernel.py:28",
         max_abs_err=seg_err,
-        ms=time_cuda(lambda: seg_ops.segment_sum_prepared(prep, msg), 50),
-        plain_ms=time_cuda(lambda: seg_ref.segment_sum_csr(
-            msg, prep.perm, prep.row_ptr), 5),
-        bound_ms=seg_bound[0], bound_by=seg_bound[1],
-        library_ms=time_cuda(lambda: torch.zeros_like(so).index_add_(
-            0, recv_long, msg), 50),
+        **timed_row(
+            lambda: seg_ops.segment_sum_prepared(prep, msg),
+            SEG_KERNEL, lambda: seg_ref.segment_sum_csr(
+                msg, prep.perm, prep.row_ptr),
+            lambda: torch.zeros_like(so).index_add_(0, recv_long, msg),
+            bound_ms(seg_bytes, float(e_valid) * d), plain_reps=5),
         shape=f"E={n_e} N={n_big} D={d}, masked "
               f"{1 - e_valid / n_e:.3f}, max abs diff vs index_add_ "
               f"{lib_err:.3g}"))
     torch.cuda.synchronize()
     read_counts("kernel_check")
-    for kr in kernels:
-        log(f"[kernels] {kr['name']}: {kr['ms']:.4f} ms (bound "
-            f"{kr['bound_ms']:.4f} ms by {kr['bound_by']}, plain "
-            f"{kr['plain_ms']:.3f} ms, library {kr['library_ms']:.4f} ms) "
-            f"max abs err {kr['max_abs_err']:.3g} | {kr['shape']}")
-    del msg, so, sp, cpos, d2_masked
+    log_row(kernels[-1], "index_add_")
+    del msg, so, sp
 
     # 4. whole path: card against CPU, one full-width request ---------------
     reset_counts()
@@ -369,11 +486,11 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
     t0 = time.perf_counter()
     out.cpu()
     stage["d2h"] = time.perf_counter() - t0
-    seg_share = cfg.n_mp_layers * kernels[1]["ms"] / 1e3
+    seg_share = cfg.n_mp_layers * kernels[1]["device_ms"] / 1e3
     log("[breakdown] 65536-point request, seconds: " + ", ".join(
         f"{k} {v:.4f}" for k, v in stage.items())
         + f"; of the model, segment_sum ~{seg_share:.4f} "
-        f"({cfg.n_mp_layers} x kernel median)")
+        f"({cfg.n_mp_layers} x its device time)")
     row_s = {}
     for n in BUCKETS:
         p_np, n_np = server._sample_reference(n)
@@ -543,7 +660,8 @@ def flash_check(dev, card) -> dict:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             kr, vr = (t.repeat_interleave(gs, 1) for t in (kt, vt))
             row.update(
-                ms=time_cuda(kernel, 10),
+                device_ms=device_ms(kernel, 10, FLASH_WGMMA_KERNEL),
+                call_ms=time_cuda(kernel, 10),
                 plain_ms=time_cuda(lambda: fa_ref.attention(
                     qf, kf, vf, group_size=gs, causal=True, window=window,
                     softcap=cap), 3, warmup=1),
@@ -551,7 +669,7 @@ def flash_check(dev, card) -> dict:
                     qt, kr, vr, attn_mask=mask, scale=1.0 / math.sqrt(hd)),
                     10),
                 bound_ms=bound[0], bound_by=bound[1], pairs_per_head=pairs)
-            row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+            row["fraction_of_bound"] = row["bound_ms"] / row["device_ms"]
             del kr, vr, mask
             flex, out, row["flex_first_call_s"] = flex_yardstick(
                 qt, kt, vt, cap, window)
@@ -559,13 +677,16 @@ def flash_check(dev, card) -> dict:
                 (out.transpose(1, 2).float() - want.float()).abs().max())
             del out
             row["flex_ms"] = time_cuda(flex, 10)
+            row["flex_device_ms"] = device_ms(flex, 10)
             del qt, kt, vt, want
     for w, row in by_window.items():
-        row["faster_than_sdpa"] = row["ms"] < row["sdpa_ms"]
-        log(f"[kernels] flash_attention window={w}: bf16 {row['ms']:.4f} ms "
+        row["faster_than_sdpa"] = row["call_ms"] < row["sdpa_ms"]
+        log(f"[kernels] flash_attention window={w}: bf16 device "
+            f"{row['device_ms']:.4f} ms, call {row['call_ms']:.4f} ms "
             f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
             f"{row['fraction_of_bound']:.3f} of it; plain "
-            f"{row['plain_ms']:.3f} ms; flex_attention {row['flex_ms']:.4f} "
+            f"{row['plain_ms']:.3f} ms; flex_attention device "
+            f"{row['flex_device_ms']:.4f} ms, call {row['flex_ms']:.4f} "
             f"ms (first call {row['flex_first_call_s']:.1f} s, max abs err "
             f"vs plain {row['flex_max_abs_err']:.3g}); SDPA without softcap "
             f"{row['sdpa_ms']:.4f} ms, faster than SDPA: "
@@ -592,10 +713,11 @@ def flash_check(dev, card) -> dict:
         replaces="src/repro/kernels/flash_attention/kernel.py:30",
         max_abs_err=max(e for c, e in errs.items() if "bfloat16" in c),
         max_abs_err_by_case=errs, row_rel_err_bf16=row_errs,
-        ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-        bound_by=by_window["None"]["bound_by"],
-        fraction_of_bound=mean("bound_ms") / mean("ms"),
-        library_ms=mean("flex_ms"),
+        ms=mean("device_ms"), device_ms=mean("device_ms"),
+        call_ms=mean("call_ms"), plain_ms=mean("plain_ms"),
+        bound_ms=mean("bound_ms"), bound_by=by_window["None"]["bound_by"],
+        fraction_of_bound=mean("bound_ms") / mean("device_ms"),
+        library_ms=mean("flex_ms"), library_device_ms=mean("flex_device_ms"),
         library_note="flex_attention (torch.compile) with the tanh softcap "
                      "as score_mod and the causal and window block mask",
         sdpa_ms=mean("sdpa_ms"), float32_ms=mean("float32_ms"),
@@ -752,13 +874,7 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
 def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
     """Device time by kernel from a ``torch.profiler`` run; returns
     ``[(kernel name, ms, launches)]``, longest first."""
-    import torch
-    rows = [(e.key, getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0.0), e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(((k, us / 1e3, n) for k, us, n in rows),
-                  key=lambda r: -r[1])
+    rows = device_rows(prof.key_averages())
     total = sum(ms for _, ms, _ in rows)
     flash = sum(ms for k, ms, _ in rows if FLASH_KERNEL_RE.search(k))
     gemm = sum(ms for k, ms, _ in rows

@@ -25,6 +25,9 @@ from repro_torch.kernels.segment_agg import ref as seg_ref
 
 
 def _knn_case(kind: str, seed: int, n: int = 300, c: int = 256):
+    """Rows of five kinds, by row index mod 5: scattered valid slots; a valid
+    prefix with one hole (as a hash-grid row, less the query itself); no
+    valid slot; fewer than k valid; every slot valid."""
     rng = np.random.default_rng(seed)
     if kind == "random":
         pts = rng.normal(size=(n, 3)).astype(np.float32)
@@ -34,10 +37,27 @@ def _knn_case(kind: str, seed: int, n: int = 300, c: int = 256):
         pts = rng.integers(-2, 3, size=(n, 3)).astype(np.float32)
     ci = rng.integers(0, n, size=(n, c)).astype(np.int32)
     cv = rng.random((n, c)) < 0.5
-    cv[:3] = False
-    cv[3:6, 2:] = False
+    slots = np.arange(c)[None, :]
+    prefix = (slots < rng.integers(0, c + 1, n)[:, None]) & \
+        (slots != rng.integers(0, c, n)[:, None])
+    kind_of_row = np.arange(n) % 5
+    cv = np.where((kind_of_row == 1)[:, None], prefix, cv)
+    cv[kind_of_row == 2] = False
+    cv[kind_of_row == 3] &= slots < 4
+    cv[kind_of_row == 4] = True
     return [torch.from_numpy(np.ascontiguousarray(a))
             for a in (pts, pts[ci], ci, cv)]
+
+
+def _knn_matches_plain(args):
+    k = knn_ops.KERNEL_K
+    before = knn_ops.topk_neighbors.launches
+    ki, kd, km = knn_ops.topk_neighbors(*args, k)
+    torch.cuda.synchronize()
+    assert knn_ops.topk_neighbors.launches == before + 1
+    pi, pd, pm = knn_ref.topk_neighbors(*args, k)
+    assert torch.equal(ki, pi) and torch.equal(km, pm)
+    torch.testing.assert_close(kd, pd, atol=0.0, rtol=0.0)
 
 
 def _seg_case(seed: int, n: int, e: int, d: int):
@@ -58,18 +78,43 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 300, 4097])
+@pytest.mark.parametrize("c", [16, 37, 128, 256, 384])
 @pytest.mark.parametrize("kind,seed", [("random", 0), ("ties", 1),
                                        ("lattice", 2)])
-def test_knn_kernel_matches_plain(cuda, kind, seed):
-    """Bit-equal: same distance arithmetic, same (d2, slot) order."""
-    k = knn_ops.KERNEL_K
-    args = [t.to(cuda) for t in _knn_case(kind, seed)]
-    before = knn_ops.topk_neighbors.launches
-    ki, kd, km = knn_ops.topk_neighbors(*args, k)
-    assert knn_ops.topk_neighbors.launches == before + 1
-    pi, pd, pm = knn_ref.topk_neighbors(*args, k)
-    assert torch.equal(ki, pi) and torch.equal(km, pm)
-    torch.testing.assert_close(kd, pd, atol=0.0, rtol=0.0)
+def test_knn_kernel_matches_plain(cuda, kind, seed, c, n):
+    """Bit-equal: same distance arithmetic, same (d2, slot) order. C = 37
+    takes the scalar loads, C = 384 more than one group of chunks, C = 16 a
+    part of one chunk."""
+    _knn_matches_plain([t.to(cuda) for t in _knn_case(kind, seed, n, c)])
+
+
+@pytest.mark.cuda
+def test_knn_kernel_reads_a_misaligned_row_with_scalar_loads(cuda):
+    """Positions that start 4 bytes past a 16-byte boundary (a contiguous
+    view into a larger buffer) go through the scalar loads, bit-equal."""
+    q, cp, ci, cv = (t.to(cuda) for t in _knn_case("random", 3, 300, 256))
+    buf = torch.empty(cp.numel() + 1, device=cuda)
+    shifted = buf[1:].view(cp.shape)
+    shifted.copy_(cp)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    _knn_matches_plain([q, shifted, ci, cv])
+
+
+@pytest.mark.cuda
+def test_knn_kernel_matches_plain_on_hash_grid_candidates(cuda):
+    """The candidate lists of a 4,096-point car cloud, as the serving path
+    builds them: valid slots a prefix with the query's own slot a hole."""
+    from repro_torch.core.graph_build import sample_surface
+    from repro_torch.data import geometry as geo
+    from repro_torch.graphx import hashgrid
+    verts, faces = geo.car_surface(geo.sample_params(0))
+    pts_np, _ = sample_surface(verts, faces, 4096, np.random.default_rng(0))
+    spec = hashgrid.calibrate_spec(pts_np, knn_ops.KERNEL_K)
+    pts = torch.from_numpy(pts_np).to(cuda)
+    cand, valid, _ = hashgrid.csr_candidate_lists(pts, 4096, spec)
+    assert cand.shape[1] % 128 == 0 and bool((~valid[:, -1]).any())
+    _knn_matches_plain([pts, pts[cand.long()], cand, valid])
 
 
 @pytest.mark.cuda
