@@ -8,10 +8,10 @@ Run from the repository root, with no arguments:
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. card: print the card's name and power limit (nvidia-smi);
-2. build: compile every CUDA kernel of both serving paths from the sources
-   in this checkout (nvcc, sm_90a, one process per source, each timed) into
-   build/kernels/; the bf16 flash kernel's SASS must hold HGMMA (wgmma on
-   the tensor cores) and UTMALDG (TMA loads);
+2. build: compile every CUDA kernel of the serving and training paths from
+   the sources in this checkout (nvcc, sm_90a, one process per source, each
+   timed) into build/kernels/; the bf16 flash kernel's SASS must hold HGMMA
+   (wgmma on the tensor cores) and UTMALDG (TMA loads);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at its serving path's shapes (kNN: bit-equal at all six level shapes of
    the two buckets, on each bucket's calibrated grid; segment-sum: the
@@ -26,7 +26,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    ``flex_attention`` with the softcap, compiled; SDPA without it beside) on
    events and by its device kernels (``library_device_ms``), and the bound
    (bytes over 3.35 TB/s, or flops over 67 TFLOP/s in f32 and 989 in bf16)
-   with ``fraction_of_bound`` = bound / device time;
+   with ``fraction_of_bound`` = bound / device time. The segment-sum
+   backward kernel (training) is held bit-equal to its plain version, masked
+   rows zero, at the shape of a training partition (65,536 points, 8
+   partitions: one partition of sample 0), with
+   ``torch.index_select(grad_out, 0, recv)`` times the edge mask as its
+   yardstick; it runs after phase 8, before phase 9;
 4. whole path: one 2,048-point request through the full-width model
    (``GNNConfig()``) on the card and on the CPU (plain versions), same
    params; edges must be equal and fields agree to 1e-4;
@@ -46,10 +51,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    prefill and never in decode; then where one prefill's time goes, and the
    profile must show those launches as the wgmma kernel.
 
-The GNN phases (3-6) run inside one function, so their tensors are freed
-before the LLM phases. It then prints a ``{"kernels": [...]}`` line and,
-last, the ``{"ok": true, "device": {...}}`` line. It needs one card and
-imports nothing of JAX.
+9. training whole path: ``GNNConfig()`` at full width cut to 2
+   message-passing layers and halo 2, a 2,048-point sample in 2 partitions;
+   one optimizer step of ``launch.train.make_gnn_step_fn`` on the card and
+   on the CPU from the same parameters: equal partition batches, the loss,
+   every gradient leaf (the edge encoder's and edge MLPs' nonzero) and the
+   updated parameters within the tolerances stated below;
+10. training: ``train_gnn`` of ``GNNConfig()`` at full width (15 layers,
+   hidden 512, remat) on 3 samples of 65,536 points in 8 partitions, 3
+   steps; finite losses; the launch counters must show 2 x 15 x 8
+   segment-sum forwards (forward and remat recompute) and 15 x 8 backwards
+   a step; then ``eval_gnn`` on the test sample (Table I metrics), and one
+   more step profiled by kernel.
+
+The GNN serving phases (3-6) run inside one function, so their tensors are
+freed before the LLM phases (the flash row of 3, then 7 and 8); the training
+phases (the backward row of 3, then 9 and 10) run last, in another. It then
+prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
+{...}}`` line. It needs one card and imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -111,6 +130,29 @@ FLASH_WGMMA_KERNEL = "flash_wgmma_kernel"
 FLASH_KERNEL_RE = re.compile(r"flash_(wgmma_)?kernel")
 # SASS that shows the bf16 flash kernel runs on the tensor cores and TMA
 FLASH_SASS = ("HGMMA", "UTMALDG")
+# the segment-sum backward kernel's name in the profiler
+SEG_BWD_KERNEL = "segment_sum_backward_kernel"
+# Phase 10: the paper's model at full width on 65,536-point clouds (the
+# paper's 2M-point levels do not fit a run of this script's length).
+TRAIN_LEVELS, TRAIN_PARTITIONS = (16384, 32768, 65536), 8
+TRAIN_STEPS, TRAIN_SAMPLES = 3, 3
+# Phase 9: full width, 2 layers, one small sample, card against CPU.
+WHOLE_TRAIN_LEVELS, WHOLE_TRAIN_PARTITIONS, WHOLE_TRAIN_LAYERS = \
+    (512, 1024, 2048), 2, 2
+# One step, card against CPU: the loss to a relative 1e-5 (cuBLAS and the
+# CPU BLAS sum the f32 products in other orders; 6.1e-8 measured on an
+# H100); each gradient leaf to TRAIN_GRAD_RTOL of its own largest element
+# (8.4e-7 measured); each updated parameter to TRAIN_PARAM_ATOL, except
+# where the gradient is below TRAIN_NEAR_ZERO: Adam's update
+# g / (|g| + 1e-8) turns the rounding of a small gradient into an update
+# error of up to the learning rate, and the error falls with |g|^2 above
+# eps, so there the bound is 2 lr_max (tests/test_torch_train.py makes the
+# same split against JAX). With the split at 1e-7 the rest reached 8.5e-7
+# on an H100; at 1e-6 it keeps a margin.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-5
+TRAIN_PARAM_ATOL = 1e-6
+TRAIN_NEAR_ZERO = 1e-6
 LLM_ARCH = "gemma2-9b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 2, 4608, 32
 WHOLE_LLM_PROMPT, WHOLE_LLM_DECODE = 128, 4
@@ -505,6 +547,276 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
         + ", ".join(f"{n} points {t:.4f}" for n, t in row_s.items()))
 
     return kernels
+
+
+def seg_backward_check(dev, cfg, ps) -> dict:
+    """Phase 3 for the segment-sum backward kernel, at the shape of one
+    training partition (partition 0 of ``ps``): bit-equal to its plain
+    version, masked rows zero, and timed."""
+    import torch
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg import ref as seg_ref
+
+    recv = torch.from_numpy(ps.stacked["receivers"][0]).to(dev)
+    emask = torch.from_numpy(ps.stacked["edge_mask"][0]).to(dev)
+    n_pad, e_pad = ps.stacked["node_feats"].shape[1], recv.numel()
+    d = cfg.hidden
+    prep = seg_ops.prepare(recv, n_pad, emask)
+    g_out = torch.randn((n_pad, d),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    got = seg_ops.segment_sum_backward(prep, g_out, e_pad)
+    torch.cuda.synchronize()
+    want = seg_ref.segment_sum_csr_backward(g_out, prep.perm, prep.row_ptr,
+                                            e_pad)
+    if not torch.equal(got, want):
+        raise RuntimeError("segment_sum_backward: differs from the plain "
+                           "version")
+    masked = emask == 0
+    if got[masked].any():
+        raise RuntimeError("segment_sum_backward: a masked edge's row is "
+                           "not zero")
+    recv_long = recv.long()
+    lib = torch.index_select(g_out, 0, recv_long) * emask[:, None]
+    lib_err = float((got - lib).abs().max())
+    n_bytes = e_pad * d * 4 + n_pad * d * 4 + e_pad * 4 + (n_pad + 1) * 4
+    row = dict(
+        name="segment_sum_backward", route="cuda",
+        source="src/repro_torch/kernels/segment_agg/csrc/segment_sum.cu",
+        replaces="src/repro/models/meshgraphnet.py:87",
+        replaces_note="no TPU kernel: XLA's transpose of jax.ops.segment_sum "
+                      "(a row gather); the kernel is the port's own",
+        max_abs_err=float((got - want).abs().max()),
+        **timed_row(
+            lambda: seg_ops.segment_sum_backward(prep, g_out, e_pad),
+            SEG_BWD_KERNEL,
+            lambda: seg_ref.segment_sum_csr_backward(
+                g_out, prep.perm, prep.row_ptr, e_pad),
+            lambda: torch.index_select(g_out, 0, recv_long)
+            * emask[:, None],
+            bound_ms(n_bytes, 0.0), plain_reps=5),
+        library_note="torch.index_select(grad_out, 0, recv) * edge_mask",
+        shape=f"E={e_pad} N={n_pad} D={d}, masked "
+              f"{float(masked.float().mean()):.3f}, max abs diff vs "
+              f"index_select {lib_err:.3g}")
+    log_row(row, "index_select")
+    return row
+
+
+def _near_zero_split(got, want, grads):
+    """(max |got - want| where |grad| >= TRAIN_NEAR_ZERO, the same where
+    below, share of elements below), over lists of CPU tensors."""
+    far, near, n_near, n_all = 0.0, 0.0, 0, 0
+    for g, w, gr in zip(got, want, grads):
+        diff = (g - w).abs()
+        nz = gr.abs() < TRAIN_NEAR_ZERO
+        far = max(far, float(diff[~nz].max()) if (~nz).any() else 0.0)
+        near = max(near, float(diff[nz].max()) if nz.any() else 0.0)
+        n_near += int(nz.sum())
+        n_all += nz.numel()
+    return far, near, n_near / max(n_all, 1)
+
+
+def train_whole_path(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 9: one optimizer step at full width (2 layers), card against
+    CPU, from the same parameters and the same partition batch."""
+    import torch
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.data import pipeline as pipe
+    from repro_torch.launch.train import make_gnn_step_fn, prepare_gnn_batch
+    from repro_torch.models import meshgraphnet
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    cfg = GNNConfig().replace(levels=WHOLE_TRAIN_LEVELS,
+                              n_partitions=WHOLE_TRAIN_PARTITIONS,
+                              n_mp_layers=WHOLE_TRAIN_LAYERS,
+                              halo=WHOLE_TRAIN_LAYERS)
+    train, _, ni, no = pipe.build_dataset(cfg, 2)
+    [ps] = pipe.partition_samples(cfg, train, ni, no)
+    opt_cfg = AdamConfig(total_steps=10)
+    step = make_gnn_step_fn(cfg, opt_cfg)
+    model_cpu = meshgraphnet.init(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    b_gpu = prepare_gnn_batch(ps, dev)
+    b_cpu = prepare_gnn_batch(ps, "cpu")
+    for k in b_cpu[0]:
+        if not torch.equal(b_gpu[0][k].cpu(), b_cpu[0][k]):
+            raise RuntimeError(f"train whole path: partition batch {k!r} "
+                               "differs on the card")
+    if not torch.equal(b_gpu[1].cpu(), b_cpu[1]):
+        raise RuntimeError("train whole path: loss denominators differ")
+    out = {}
+    for name, model, batch in (("gpu", model_gpu, b_gpu),
+                               ("cpu", model_cpu, b_cpu)):
+        reset_counts()
+        t0 = time.perf_counter()
+        opt = adam_init([p for _, p in model.leaves()])
+        opt, loss, gnorm, skipped = step(model, opt, *batch)
+        loss = float(loss)
+        out[name] = dict(
+            loss=loss, gnorm=float(gnorm), skipped=skipped,
+            s=time.perf_counter() - t0,
+            names=[n for n, _ in model.leaves()],
+            grads=[p.grad.detach().cpu() for _, p in model.leaves()],
+            params=[p.detach().cpu() for _, p in model.leaves()])
+        read_counts(f"train_whole_path_{name}")
+    g, c = out["gpu"], out["cpu"]
+    n_parts = ps.stacked["senders"].shape[0]
+    want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts,
+            "segment_sum_backward": cfg.n_mp_layers * n_parts}
+    for name, n in want.items():
+        got = by_phase[name]["train_whole_path_gpu"]
+        if got != n:
+            raise RuntimeError(f"train whole path: {name} launched {got} "
+                               f"times on the card, expected {n}")
+    if g["skipped"] or c["skipped"] or not np.isfinite(g["loss"]):
+        raise RuntimeError(f"train whole path: step skipped or loss not "
+                           f"finite (card {g['loss']}, CPU {c['loss']})")
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    if loss_rel > TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"train whole path: loss card {g['loss']} CPU "
+                           f"{c['loss']}, relative {loss_rel} > "
+                           f"{TRAIN_LOSS_RTOL}")
+    worst = (0.0, "")
+    for name, gg, gcpu in zip(c["names"], g["grads"], c["grads"]):
+        scale = float(gcpu.abs().max())
+        rel = float((gg - gcpu).abs().max()) / max(scale, 1e-30)
+        if scale == 0.0 and name.startswith(("edge_encoder", "proc_edge")):
+            raise RuntimeError(f"train whole path: gradient of {name} is "
+                               "zero on the CPU")
+        if not float(gg.abs().max()) > 0 and \
+                name.startswith(("edge_encoder", "proc_edge")):
+            raise RuntimeError(f"train whole path: gradient of {name} is "
+                               "zero on the card: the aggregation detached")
+        worst = max(worst, (rel, name))
+    if worst[0] > TRAIN_GRAD_RTOL:
+        raise RuntimeError(f"train whole path: gradient of {worst[1]} "
+                           f"differs by {worst[0]} of its largest element "
+                           f"> {TRAIN_GRAD_RTOL}")
+    far, near, share = _near_zero_split(g["params"], c["params"], c["grads"])
+    if far > TRAIN_PARAM_ATOL or near > 2 * opt_cfg.lr_max:
+        raise RuntimeError(f"train whole path: updated params differ by "
+                           f"{far} (limit {TRAIN_PARAM_ATOL}), near-zero "
+                           f"gradients {near} (limit {2 * opt_cfg.lr_max})")
+    n_pad, e_pad = ps.stacked["node_feats"].shape[1], \
+        ps.stacked["senders"].shape[1]
+    log(f"[train_whole_path] hidden {cfg.hidden}, {cfg.n_mp_layers} layers, "
+        f"{max(cfg.levels)} points in {n_parts} partitions (N={n_pad} "
+        f"E={e_pad} each): batches equal; loss card "
+        f"{g['loss']:.8f} CPU {c['loss']:.8f} (relative {loss_rel:.3g}, "
+        f"limit {TRAIN_LOSS_RTOL}); gnorm {g['gnorm']:.6f} / "
+        f"{c['gnorm']:.6f}; worst gradient leaf {worst[1]} "
+        f"{worst[0]:.3g} of its largest element (limit {TRAIN_GRAD_RTOL}); "
+        f"updated params max abs err {far:.3g} (limit {TRAIN_PARAM_ATOL}), "
+        f"{near:.3g} on the {share:.2%} with gradient below "
+        f"{TRAIN_NEAR_ZERO}; launches segment_sum "
+        f"{by_phase['segment_sum']['train_whole_path_gpu']}, backward "
+        f"{by_phase['segment_sum_backward']['train_whole_path_gpu']}; card "
+        f"{g['s']:.3f} s (first step), CPU {c['s']:.2f} s | {card}")
+
+
+def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
+    """The backward kernel's row (phase 3), phases 9 and 10; returns the
+    row. Its tensors are freed when it returns."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.data import pipeline as pipe
+    from repro_torch.launch.train import (eval_gnn, make_gnn_step_fn,
+                                          prepare_gnn_batch, train_gnn)
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    cfg = GNNConfig().replace(levels=TRAIN_LEVELS,
+                              n_partitions=TRAIN_PARTITIONS)
+    # 3. the backward kernel at one training partition's shape -------------
+    t0 = time.perf_counter()
+    s0 = pipe.build_sample(cfg, 0)
+    parts0 = pipe.build_sample_partitions(cfg, s0)
+    ps0 = pipe.partition_sample(cfg, s0, parts=parts0)
+    log(f"[kernels] training partitions of sample 0 built on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    row = seg_backward_check(dev, cfg, ps0)
+    torch.cuda.synchronize()
+    read_counts("kernel_check")
+
+    # 9. one step, card against CPU ----------------------------------------
+    train_whole_path(dev, card, reset_counts, read_counts, by_phase)
+
+    # 10. training at full width: the main path, counted --------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+    reset_counts()
+    model, losses, (train, test, ni, no) = train_gnn(
+        cfg, TRAIN_STEPS, TRAIN_SAMPLES, log_every=1, device=dev,
+        stage_seconds=stages)
+    torch.cuda.synchronize()
+    read_counts("train")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_parts = cfg.n_partitions
+    want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts * TRAIN_STEPS,
+            "segment_sum_backward": cfg.n_mp_layers * n_parts * TRAIN_STEPS}
+    for name, n in want.items():
+        got = by_phase[name]["train"]
+        if got != n:
+            raise RuntimeError(f"train: {name} launched {got} times in "
+                               f"{TRAIN_STEPS} steps, expected {n}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"train: losses {losses}")
+    log(f"[train] GNNConfig() full width ({cfg.hidden} hidden, "
+        f"{cfg.n_mp_layers} layers, remat {cfg.remat}), levels "
+        f"{cfg.levels}, {n_parts} partitions, {len(train)} train / "
+        f"{len(test)} test samples: host data {stages['data']:.2f} s, "
+        f"partition {stages['partition']:.2f} s; steps (s): "
+        + ", ".join(f"{t:.3f}" for t in stages["step"])
+        + f" (first, then warm); staging "
+        + ", ".join(f"{t:.4f}" for t in stages["prepare"])
+        + f" s; losses {[round(x, 6) for x in losses]}; peak memory "
+        f"{peak_gb:.2f} GB; launches segment_sum "
+        f"{by_phase['segment_sum']['train']}, backward "
+        f"{by_phase['segment_sum_backward']['train']} | {card}")
+
+    t0 = time.perf_counter()
+    metrics = eval_gnn(cfg, model, test, ni, no)
+    eval_s = time.perf_counter() - t0
+    if not all(np.isfinite(m["rel_l2"]) and np.isfinite(m["rel_l1"])
+               for k, m in metrics.items() if k != "force_r2"):
+        raise RuntimeError(f"eval: {metrics}")
+    log(f"[train] eval_gnn on {len(test)} test sample(s) in {eval_s:.2f} s: "
+        + json.dumps(metrics))
+
+    # one more step, profiled by kernel (sample 0, a fresh Adam state) ------
+    ps = pipe.partition_sample(cfg, s0, ni, no, parts=parts0)
+    stacked, denom = prepare_gnn_batch(ps, dev)
+    step = make_gnn_step_fn(cfg, AdamConfig(total_steps=TRAIN_STEPS))
+    opt = adam_init([p for _, p in model.leaves()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(model, opt, stacked, denom)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = device_rows(prof.key_averages())
+    total = sum(ms for _, ms, _ in rows)
+    if not total > 0:
+        raise RuntimeError("train breakdown: the profile shows no device time")
+    gemm = sum(ms for k, ms, _ in rows
+               if re.search(r"gemm|gemv|nvjet|cutlass|xmma", k, re.I))
+    seg_f = sum(ms for k, ms, _ in rows if SEG_KERNEL in k)
+    seg_b = sum(ms for k, ms, _ in rows if SEG_BWD_KERNEL in k)
+    log(f"[train_breakdown] one warm step (profiled, wall {wall:.3f} s): "
+        f"device kernel time {total:.1f} ms in {sum(n for *_, n in rows)} "
+        f"launches ({total / 1e3 / wall:.1%} of the wall), of which GEMMs "
+        f"{gemm:.1f} ms ({gemm / total:.1%}), segment_sum {seg_f:.2f} ms, "
+        f"segment_sum_backward {seg_b:.2f} ms, other "
+        f"{total - gemm - seg_f - seg_b:.1f} ms")
+    for k, ms, n in rows[:10]:
+        log(f"[train_breakdown]   {ms:10.3f} ms  x{n:<5d} {k[:110]}")
+    return row
 
 
 def _window_pairs(s: int, window) -> int:
@@ -905,6 +1217,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     counters = {"segment_sum": seg_ops.segment_sum_prepared,
+                "segment_sum_backward": seg_ops.segment_sum_backward,
                 "knn_topk": knn_ops.topk_neighbors,
                 "flash_attention": fa_ops.mha}
     by_phase = {name: {} for name in counters}
@@ -981,9 +1294,17 @@ def main() -> int:
 
     # 8. LLM serve: the main path of the flash kernel, counted --------------
     llm_serve(dev, card, reset_counts, read_counts, by_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    main_phase = {"segment_sum": "serve", "knn_topk": "serve",
-                  "flash_attention": "llm_serve"}
+    # training, last: after its profile of a whole step (about 34,000
+    # launches), torch.profiler held almost no launches of the later
+    # flash-attention profiles in the same process
+    kernels.append(train_phases(dev, card, reset_counts, read_counts,
+                                by_phase))
+
+    main_phase = {"segment_sum": "serve", "segment_sum_backward": "train",
+                  "knn_topk": "serve", "flash_attention": "llm_serve"}
     for kr in kernels:
         kr["launches"] = by_phase[kr["name"]][main_phase[kr["name"]]]
         kr["launches_by_phase"] = by_phase[kr["name"]]

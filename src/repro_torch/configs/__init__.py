@@ -1,16 +1,19 @@
-"""Config registry of the port: the LLM configs it can run so far."""
+"""Config registry of the port: the paper's GNN and the LLM configs it can
+run so far."""
 from __future__ import annotations
 
 import importlib
+from typing import Union
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import GNNConfig, ModelConfig
 
 _ARCH_MODULES = {
     "gemma2-9b": "gemma2_9b",
+    "xmgn-drivaer": "xmgn_drivaer",
 }
 
 
-def get_config(name: str) -> ModelConfig:
+def get_config(name: str) -> Union[GNNConfig, ModelConfig]:
     if name not in _ARCH_MODULES:
         raise KeyError(
             f"the port has no config {name!r} yet; it knows "

@@ -3,8 +3,10 @@ package.
 
 ``GNNConfig``'s field names, defaults and ``reduced()`` are identical so
 configs round-trip between the two packages. Fields the port does not act on
-yet (serving autoscaling, sharding, telemetry, cold start, resilience,
-rollouts) are kept for that round-trip and ignored here. ``ModelConfig``
+yet (serving autoscaling, sharding, telemetry, cold start, checkpoints, the
+serving side of resilience, rollouts) are kept for that round-trip and
+ignored here; the trainer reads ``nonfinite_guard``, ``noise_std`` and
+``remat``. ``ModelConfig``
 keeps only the fields the dense decoder reads; the sharding, remat, MoE, SSM
 and frontend fields come with the slices that read them.
 """
@@ -120,7 +122,7 @@ class GNNConfig:
     rollout_steps_per_flush: int = 4
     rollout_timeout_s: float = 0.0
     noise_std: float = 0.0
-    remat: bool = True                 # no-op under torch.no_grad (serving)
+    remat: bool = True                 # checkpoint each MP layer (autograd)
     dtype: str = "float32"
     source: str = "arXiv X-MeshGraphNet (NVIDIA 2024)"
 

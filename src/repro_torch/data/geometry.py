@@ -1,14 +1,18 @@
-"""Synthetic parametric car geometry (numpy), copied from the JAX package.
+"""Synthetic parametric car geometry and its analytic aerodynamic proxy
+field (numpy), copied from the JAX package (``repro.data.geometry``).
 
-The demo traffic and the server's calibration reference must be bit-equal to
-the JAX server's, so this is a verbatim copy of ``CarParams``,
-``sample_params`` and ``car_surface``.
+The demo traffic, the server's calibration reference and the training data
+must be bit-equal to the JAX package's, so this is a verbatim copy of
+``CarParams``, ``sample_params``, ``car_surface``, ``FLOW_DIR`` and
+``surface_fields``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+FLOW_DIR = np.array([1.0, 0.0, 0.0], np.float32)   # +x airflow
 
 
 @dataclass(frozen=True)
@@ -74,3 +78,32 @@ def car_surface(params: CarParams, nu: int = 64, nv: int = 32):
             faces.append((a, b, c))
             faces.append((a, c, d))
     return verts, np.asarray(faces, np.int64)
+
+
+def surface_fields(points: np.ndarray, normals: np.ndarray,
+                   params: CarParams) -> np.ndarray:
+    """Analytic targets (N, 4): [pressure_coeff, tau_x, tau_y, tau_z].
+
+    cp follows the potential-flow stagnation pattern 1 - (3/2 sin(theta))^2
+    style dependence on the angle between the surface normal and the flow,
+    with a geometry-dependent wake deficit; shear is tangential, strongest
+    where the flow grazes the surface.
+    """
+    n_dot = normals @ FLOW_DIR                      # cos(angle to flow)
+    x_rel = points[:, 0] / (params.length / 2)
+    cp = 1.0 - 2.25 * (1.0 - n_dot ** 2)            # stagnation -> suction
+    wake = -0.35 * np.exp(-((x_rel - 1.0) / 0.35) ** 2)   # base pressure
+    cp = cp + wake + 0.2 * np.tanh(2 * points[:, 2] / params.height)
+    # high-frequency content (separation ripples / panel-scale structure):
+    # real CFD fields carry this; it is what the paper's Fourier features
+    # and multi-level graphs exist to capture (Fig. 9)
+    ripple = 0.25 * np.sin(4 * np.pi * points[:, 0]) * \
+        np.sin(3 * np.pi * points[:, 1]) * (1.0 - n_dot ** 2)
+    cp = cp + ripple
+    # tangential flow direction: project flow onto tangent plane
+    t = FLOW_DIR[None, :] - n_dot[:, None] * normals
+    tn = np.linalg.norm(t, axis=1, keepdims=True)
+    t = t / np.maximum(tn, 1e-6)
+    tau_mag = 0.05 * (1.0 - n_dot ** 2) ** 0.5 * (1.0 + 0.5 * np.tanh(-x_rel))
+    tau = tau_mag[:, None] * t
+    return np.concatenate([cp[:, None], tau], axis=1).astype(np.float32)

@@ -1,22 +1,27 @@
-"""Segment-sum: the CUDA kernel for tensors on the card, its plain version
+"""Segment-sum: the CUDA kernels for tensors on the card, their plain versions
 for tensors on the CPU (dispatch by device; there is no other switch).
 
 ``prepare`` builds the receiver-sorted CSR once per graph, outside the
-message-passing loop; ``segment_sum_prepared`` runs once per layer.
+message-passing loop; ``segment_sum_prepared`` runs once per layer. It is
+differentiable on both devices through :class:`SegmentSum`, whose backward
+(``segment_sum_backward``, the transpose: a row gather) is a kernel too.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_agg import ref
 from repro_torch.kernels.segment_agg.ref import SegmentCSR, prepare
 
-__all__ = ["SegmentCSR", "prepare", "segment_sum_prepared"]
+__all__ = ["SegmentCSR", "SegmentSum", "prepare", "segment_sum_prepared",
+           "segment_sum_backward"]
 
 _THREADS = 256      # threads per block: blockDim.x over columns x nodes
+_TAIL_BLOCKS = 1024  # backward: blocks that zero the masked rows, grid-stride
 
 
 def _lib():
@@ -28,14 +33,72 @@ def _lib():
     return fn
 
 
+def _lib_backward():
+    fn = _build.load("segment_sum").segment_sum_backward_f32
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+            [ctypes.c_void_p]
+    return fn
+
+
+class SegmentSum(torch.autograd.Function):
+    """``out[n] = sum of messages[perm[j]]`` over ``n``'s CSR run, with the
+    transpose as its backward: ``grad_msg[perm[j]] = grad_out[n]`` inside
+    the runs, zero for the masked edges outside them. Only ``perm`` and
+    ``row_ptr`` are saved, never the (E, D) messages."""
+
+    @staticmethod
+    def forward(ctx, messages, perm, row_ptr):
+        ctx.save_for_backward(perm, row_ptr)
+        ctx.n_edges = messages.shape[0]
+        if messages.device.type == "cpu":
+            return ref.segment_sum_csr(messages, perm, row_ptr)
+        return _launch(SegmentCSR(perm, row_ptr), messages)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        perm, row_ptr = ctx.saved_tensors
+        return segment_sum_backward(SegmentCSR(perm, row_ptr), grad_out,
+                                    ctx.n_edges), None, None
+
+
 def segment_sum_prepared(prep: SegmentCSR, messages):
     """messages (E, D) f32 -> (N, D) f32 over a prepared CSR."""
-    if messages.device.type == "cpu":
-        return ref.segment_sum_csr(messages, prep.perm, prep.row_ptr)
-    return _launch(prep, messages)
+    return SegmentSum.apply(messages, prep.perm, prep.row_ptr)
 
 
 segment_sum_prepared.launches = 0
+
+
+def segment_sum_backward(prep: SegmentCSR, grad_out, n_edges: int):
+    """grad_out (N, D) f32 -> grad_msg (n_edges, D) f32: the transpose of
+    :func:`segment_sum_prepared` over the same CSR."""
+    if grad_out.device.type == "cpu":
+        return ref.segment_sum_csr_backward(grad_out, prep.perm,
+                                            prep.row_ptr, n_edges)
+    return _launch_backward(prep, grad_out, n_edges)
+
+
+segment_sum_backward.launches = 0
+
+
+def _check_csr(prep: SegmentCSR, dev, n_edges: int):
+    for name, t, length in (("perm", prep.perm, n_edges),
+                            ("row_ptr", prep.row_ptr, None)):
+        if t.device != dev or t.dtype != torch.int32 or t.dim() != 1 \
+                or not t.is_contiguous() \
+                or (length is not None and t.numel() != length):
+            raise ValueError(f"segment_sum: {name} must be a contiguous "
+                             f"int32 vector on {dev}"
+                             + (f" of length {length}" if length else ""))
+
+
+def _threads(d: int):
+    cols = d // 4
+    tx = min(1 << (cols - 1).bit_length(), 128)
+    return tx, max(_THREADS // tx, 1)
 
 
 def _launch(prep: SegmentCSR, messages):
@@ -54,21 +117,12 @@ def _launch(prep: SegmentCSR, messages):
         # multiple of 4 and fresh allocations are 16-byte aligned
         raise ValueError(f"segment_sum: D={d} must be a multiple of 4 and "
                          "messages 16-byte aligned")
-    for name, t, length in (("perm", prep.perm, e),
-                            ("row_ptr", prep.row_ptr, None)):
-        if t.device != dev or t.dtype != torch.int32 or t.dim() != 1 \
-                or not t.is_contiguous() \
-                or (length is not None and t.numel() != length):
-            raise ValueError(f"segment_sum: {name} must be a contiguous "
-                             f"int32 vector on {dev}"
-                             + (f" of length {length}" if length else ""))
+    _check_csr(prep, dev, e)
     n = prep.n_segments
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return out
-    cols = d // 4
-    tx = min(1 << (cols - 1).bit_length(), 128)
-    ty = max(_THREADS // tx, 1)
+    tx, ty = _threads(d)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -77,3 +131,40 @@ def _launch(prep: SegmentCSR, messages):
                         ty, stream), "segment_sum")
     segment_sum_prepared.launches += 1
     return out
+
+
+def _launch_backward(prep: SegmentCSR, grad_out, n_edges: int):
+    dev = grad_out.device
+    if dev.type != "cuda":
+        raise ValueError("segment_sum_backward runs on cuda or cpu tensors, "
+                         f"not {dev}")
+    n = prep.n_segments
+    if grad_out.dtype != torch.float32 or grad_out.dim() != 2 \
+            or grad_out.shape[0] != n:
+        raise ValueError("segment_sum_backward: grad_out must be a 2-D "
+                         f"float32 tensor of {n} rows, got {grad_out.dtype} "
+                         f"{tuple(grad_out.shape)}")
+    d = grad_out.shape[1]
+    if d % 4:
+        raise ValueError(f"segment_sum_backward: D={d} must be a multiple "
+                         "of 4")
+    if grad_out.stride(1) != 1 or grad_out.stride(0) % 4 \
+            or grad_out.data_ptr() % 16:
+        # rows of float4s, a stride apart: the gradient of torch.cat is a
+        # column slice and is read in place; anything else is copied once
+        grad_out = grad_out.contiguous()
+    _check_csr(prep, dev, n_edges)
+    grad_msg = torch.empty((n_edges, d), dtype=torch.float32, device=dev)
+    if n_edges == 0 or d == 0:
+        return grad_msg
+    tx, ty = _threads(d)
+    fn = _lib_backward()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(fn(grad_out.data_ptr(), prep.perm.data_ptr(),
+                        prep.row_ptr.data_ptr(), grad_msg.data_ptr(), n,
+                        n_edges, d, grad_out.stride(0), tx, ty,
+                        min(_TAIL_BLOCKS, -(-n_edges // ty)), stream),
+                     "segment_sum_backward")
+    segment_sum_backward.launches += 1
+    return grad_msg

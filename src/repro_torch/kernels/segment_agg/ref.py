@@ -1,6 +1,6 @@
-"""Plain PyTorch version of the segment-sum kernel (the CPU path and the
-reference the CUDA kernel is held against), and the CSR preparation both
-paths share."""
+"""Plain PyTorch versions of the segment-sum kernels, forward and backward
+(the CPU path and the references the CUDA kernels are held against), and the
+CSR preparation both paths share."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -54,6 +54,19 @@ def segment_sum_csr(messages, perm, row_ptr):
     for s in range(max_deg):
         nodes = torch.nonzero(deg > s).squeeze(1)
         out[nodes] = out[nodes] + messages[perm[start[nodes] + s].long()]
+    return out
+
+
+def segment_sum_csr_backward(grad_out, perm, row_ptr, n_edges: int):
+    """The transpose of :func:`segment_sum_csr`: grad_msg (n_edges, D) with
+    row perm[j] = grad_out[n] for j in [row_ptr[n], row_ptr[n+1]), and zero
+    for the edges outside every run (the masked ones). A copy, so the
+    kernel's result equals it bit for bit."""
+    n = row_ptr.numel() - 1
+    out = grad_out.new_zeros((n_edges, grad_out.shape[1]))
+    deg = row_ptr[1:].long() - row_ptr[:-1].long()
+    seg = torch.repeat_interleave(torch.arange(n, device=deg.device), deg)
+    out[perm[:seg.numel()].long()] = grad_out[seg]
     return out
 
 

@@ -1,11 +1,13 @@
-"""Load JAX param pytrees into the port's modules.
+"""Load JAX param pytrees into the port's modules, and back.
 
 A pytree arrives as numpy arrays (nested dicts and lists, as the JAX
 package's ``init`` builds it). MeshGraphNet: its ``proc_edge`` and
 ``proc_node`` leaves carry a leading ``n_mp_layers`` axis, which is
-unstacked into the module list. Decoder transformer: its ``blocks`` leaves
-carry a leading group axis. Any missing or extra key, and any shape
-mismatch, raises.
+unstacked into the module list (``params_to_jax`` restacks it). Decoder
+transformer: its ``blocks`` leaves carry a leading group axis. Any missing
+or extra key, and any shape mismatch, raises. A JAX ``AdamState`` loads into
+the port's (``adam_state_from_jax``), its moments in the order of
+``MeshGraphNet.leaves()``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.configs.base import GNNConfig, ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models.meshgraphnet import MeshGraphNet
 from repro_torch.models.transformer import Transformer, group_structure
+from repro_torch.optim.adam import AdamState
 
 _STACKED = ("proc_edge", "proc_node")
 
@@ -75,6 +78,64 @@ def params_from_jax(tree, cfg: GNNConfig, device=None) -> MeshGraphNet:
     model = MeshGraphNet(cfg)
     _load(model, state_dict_from_jax(tree, cfg.n_mp_layers))
     return model.to(resolve(device))
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    """Dotted keys -> nested dicts; a dict whose keys are 0..n-1 -> list."""
+    root: dict = {}
+    for key, arr in flat.items():
+        node = root
+        *path, last = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = arr
+
+    def lists(tree):
+        if not isinstance(tree, dict):
+            return tree
+        out = {k: lists(v) for k, v in tree.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+    return lists(root)
+
+
+def params_to_jax(model: MeshGraphNet, grads: bool = False) -> dict:
+    """The inverse of :func:`params_from_jax`: the model's parameters, or
+    with ``grads`` their ``.grad``, as the JAX pytree of numpy arrays, with
+    ``proc_edge``/``proc_node`` restacked on a leading ``n_mp_layers``
+    axis."""
+    flat: Dict[str, np.ndarray] = {}
+    stacked: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"{name} has no gradient")
+        arr = t.detach().cpu().numpy()
+        top, *rest = name.split(".")
+        if top in _STACKED:
+            stacked.setdefault(".".join([top, *rest[1:]]), []).append(arr)
+        else:
+            flat[name] = arr
+    flat.update({k: np.stack(v) for k, v in stacked.items()})
+    return _unflatten(flat)
+
+
+def adam_state_from_jax(state, model: MeshGraphNet) -> AdamState:
+    """A JAX ``AdamState`` (``step``, ``mu``, ``nu``; numpy trees) as the
+    port's, its moments in ``model.leaves()`` order on the model's
+    device."""
+    n = model.cfg.n_mp_layers
+    mu = state_dict_from_jax(state.mu, n)
+    nu = state_dict_from_jax(state.nu, n)
+    names = [name for name, _ in model.leaves()]
+    dev = next(model.parameters()).device
+    if sorted(mu) != sorted(names) or sorted(nu) != sorted(names):
+        raise KeyError("Adam state does not match the model's parameters")
+    return AdamState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        mu=[mu[k].to(dev) for k in names], nu=[nu[k].to(dev) for k in names])
 
 
 def transformer_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:

@@ -6,14 +6,16 @@ edge and node updates, MLPs with trailing LayerNorm) -> decoder. The
 processor's receiver scatter-add goes through ``kernels.segment_agg``: its
 CSR is built once per graph (:func:`make_aggregator`), outside the layer
 loop, and each layer runs the CUDA kernel on the card or its plain version
-on the CPU.
+on the CPU, forward and backward. ``masked_mse`` and ``loss_fn`` are the
+training loss.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve
@@ -59,19 +61,41 @@ class MeshGraphNet(nn.Module):
         e = self.edge_encoder(edge_feats)
         if m is not None:
             e = e * m
-        # cfg.remat (activation checkpointing) only matters with autograd;
-        # serving runs under torch.no_grad, where it is a no-op
-        for pe, pn in zip(self.proc_edge, self.proc_node):
+
+        def mp_layer(pe, pn, h, e):
             msg_in = torch.cat([h[send], h[recv], e], dim=-1)
             e_new = e + pe(msg_in)
             if m is not None:
                 e_new = e_new * m
             agg = aggregate(e_new)
-            h = h + pn(torch.cat([h, agg], dim=-1))
-            e = e_new
+            return h + pn(torch.cat([h, agg], dim=-1)), e_new
+
+        # activation checkpointing (paper SV-D), as jax.checkpoint with
+        # nothing_saveable around the JAX layer: only the (h, e) carries are
+        # kept, and each layer is recomputed in the backward pass. Without
+        # autograd (serving) there is nothing to save.
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for pe, pn in zip(self.proc_edge, self.proc_node):
+            if remat:
+                h, e = checkpoint(mp_layer, pe, pn, h, e, use_reentrant=False)
+            else:
+                h, e = mp_layer(pe, pn, h, e)
         return self.decoder(h)
 
     forward = apply
+
+    def leaves(self) -> List[Tuple[str, nn.Parameter]]:
+        """``(name, parameter)`` in the JAX pytree's leaf order: dict keys
+        sorted at every level, list items in order, and a stacked
+        ``proc_edge``/``proc_node`` leaf as its ``n_mp_layers`` tensors in
+        layer order. ``optim.adam.global_norm`` sums in this order, as
+        JAX's sums the pytree's leaves."""
+        def key(name):
+            parts = [int(p) if p.isdigit() else p for p in name.split(".")]
+            if parts[0] in ("proc_edge", "proc_node"):
+                parts = [parts[0], *parts[2:], parts[1]]
+            return parts
+        return sorted(self.named_parameters(), key=lambda kv: key(kv[0]))
 
     def step(self, node_feats, edge_feats, senders, receivers, state, *,
              edge_mask: Optional[torch.Tensor] = None, out_stats=None):
@@ -119,3 +143,25 @@ def make_aggregator(receivers, n_nodes: int,
     """
     prep = segops.prepare(receivers, n_nodes, edge_mask)
     return lambda msgs: segops.segment_sum_prepared(prep, msgs)
+
+
+def masked_mse(pred, target, mask, denom=None):
+    """Sum of squared errors over masked nodes, divided by ``denom``.
+
+    With ``denom = total_owned_nodes * node_out`` summed across partitions,
+    partition losses add up exactly to the full-graph mean-squared error
+    (paper SIII-A: halo nodes are filtered out before the loss).
+    """
+    se = torch.sum(torch.square(pred - target) * mask[:, None])
+    if denom is None:
+        denom = torch.clamp(torch.sum(mask) * pred.shape[-1], min=1.0)
+    return se / denom
+
+
+def loss_fn(model: MeshGraphNet, batch, denom=None):
+    """batch keys: node_feats, edge_feats, senders, receivers, targets,
+    loss_mask (owned nodes), optional edge_mask."""
+    pred = model.apply(batch["node_feats"], batch["edge_feats"],
+                       batch["senders"], batch["receivers"],
+                       edge_mask=batch.get("edge_mask"))
+    return masked_mse(pred, batch["targets"], batch["loss_mask"], denom)

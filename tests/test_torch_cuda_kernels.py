@@ -144,6 +144,99 @@ def test_kernels_refuse_shapes_they_are_not_built_for(cuda):
         seg_ops.segment_sum_prepared(seg_ops.prepare(recv, 8, mask), msg)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 7, 300, 4097])
+@pytest.mark.parametrize("d", [4, 64, 512])
+def test_segment_sum_backward_kernel_matches_plain(cuda, d, n, masked):
+    """Bit-equal: the backward kernel copies grad_out rows (no rounding);
+    masked edges, outside every run, get zero rows, and so do the edges of
+    an all-masked graph's tail."""
+    e = 3 * n + 5
+    msg, recv, mask = (t.to(cuda) for t in _seg_case(n * d, n, e, d))
+    if not masked:
+        mask = torch.ones_like(mask)
+    prep = seg_ops.prepare(recv, n, mask)
+    g_out = torch.randn((n, d), generator=torch.Generator().manual_seed(n),
+                        dtype=torch.float32).to(cuda)
+    before = seg_ops.segment_sum_backward.launches
+    got = seg_ops.segment_sum_backward(prep, g_out, e)
+    torch.cuda.synchronize()
+    assert seg_ops.segment_sum_backward.launches == before + 1
+    want = seg_ref.segment_sum_csr_backward(g_out, prep.perm, prep.row_ptr, e)
+    assert torch.equal(got, want)
+    assert not got[~mask].any()
+
+
+@pytest.mark.cuda
+def test_segment_sum_backward_kernel_reads_a_column_slice(cuda):
+    """grad_out as autograd hands it over from torch.cat([h, agg]): the
+    right half of a wider tensor, rows a stride apart, read in place."""
+    n, e, d = 300, 2000, 64
+    msg, recv, mask = (t.to(cuda) for t in _seg_case(1, n, e, d))
+    prep = seg_ops.prepare(recv, n, mask)
+    wide = torch.randn((n, 2 * d), generator=torch.Generator().manual_seed(1))
+    g_out = wide.to(cuda)[:, d:]
+    assert not g_out.is_contiguous() and g_out.stride(0) == 2 * d
+    got = seg_ops.segment_sum_backward(prep, g_out, e)
+    want = seg_ref.segment_sum_csr_backward(g_out.contiguous(), prep.perm,
+                                            prep.row_ptr, e)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_segment_sum_gradient_on_the_card_matches_the_cpu(cuda):
+    """Autograd through SegmentSum on the card: the messages' gradient and,
+    through a small MeshGraphNet, every parameter's gradient equal the
+    CPU's; the edge path's are nonzero. A card path that detached the
+    aggregation would leave the edge encoder and edge MLPs at zero."""
+    import copy
+
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.models import meshgraphnet as mgn
+
+    msg, recv, mask = _seg_case(2, 97, 600, 16)
+    prep = seg_ops.prepare(recv, 97, mask)
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = seg_ops.SegmentCSR(prep.perm.to(dev), prep.row_ptr.to(dev))
+        x = msg.to(dev).detach().requires_grad_()
+        (seg_ops.segment_sum_prepared(p, x) ** 2).sum().backward()
+        grads[str(dev)] = x.grad.cpu()
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], atol=1e-5,
+                               rtol=1e-5)
+    assert grads["cuda"].any()
+
+    cfg = GNNConfig().reduced().replace(hidden=16, n_mp_layers=2)
+    rng = np.random.default_rng(3)
+    n, e = 120, 900
+    s, r = (torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+            for _ in range(2))
+    em = torch.from_numpy((rng.random(e) > 0.2).astype(np.float32))
+    nf, ef, tg = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                  for shape in ((n, cfg.node_in), (e, cfg.edge_in),
+                                (n, cfg.node_out)))
+    batch = dict(node_feats=nf, edge_feats=ef * em[:, None], senders=s,
+                 receivers=r, targets=tg, loss_mask=torch.ones(n),
+                 edge_mask=em)
+    cpu = mgn.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    before = (seg_ops.segment_sum_prepared.launches,
+              seg_ops.segment_sum_backward.launches)
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        mgn.loss_fn(model, {k: v.to(dev) for k, v in batch.items()}).backward()
+    # remat: each layer's forward runs twice on the card, its backward once
+    assert seg_ops.segment_sum_prepared.launches == before[0] + 4
+    assert seg_ops.segment_sum_backward.launches == before[1] + 2
+    for (name, pc), (_, pg) in zip(cpu.named_parameters(),
+                                   card.named_parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-5,
+                                   rtol=1e-4, msg=name)
+    for name in ("edge_encoder", "proc_edge.0"):
+        g = [p.grad for k, p in card.named_parameters() if k.startswith(name)]
+        assert all(x is not None for x in g) and any(x.any() for x in g), name
+
+
 def _fa_case(seed: int, b: int, s: int, h: int, kvh: int, hd: int = 256):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.normal(size=(b, s, n, hd)).astype(np.float32))
@@ -286,6 +379,9 @@ def test_wrappers_refuse_other_devices():
     prep = seg_ops.SegmentCSR(prep.perm.to("meta"), prep.row_ptr.to("meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         seg_ops.segment_sum_prepared(prep, msg.to("meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        seg_ops.segment_sum_backward(prep, torch.zeros((8, 4), device="meta"),
+                                     20)
     q, k, v = (t.to("meta") for t in _fa_case(0, 1, 8, 2, 1))
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa_ops.mha(q, k, v)

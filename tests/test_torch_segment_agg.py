@@ -1,8 +1,11 @@
 """The port's segment-sum (plain PyTorch path, CPU) against the JAX
-reference ``jax.ops.segment_sum`` and the Pallas kernel in interpret mode.
+reference ``jax.ops.segment_sum`` and the Pallas kernel in interpret mode,
+forward and backward.
 
-Tolerance 1e-5: every path sums in f32; only the summation order differs
-(the port sums each receiver's run in edge order)."""
+Tolerance 1e-5 forward: every path sums in f32; only the summation order
+differs (the port sums each receiver's run in edge order). The backward is a
+row copy on both sides, so it is held bit for bit."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,3 +97,56 @@ def test_wrapper_dispatches_cpu_without_launch():
                              torch.from_numpy(msg))
     assert ops.segment_sum_prepared.launches == before
 
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_segment_sum_gradient_matches_jax(kind):
+    """The gradient through segment_sum_prepared (autograd, SegmentSum)
+    equals JAX's VJP of jax.ops.segment_sum, grad_out[recv], and the plain
+    backward; masked edges, which the CSR leaves out, get zero rows (JAX
+    gives them grad_out[0], which the model's edge mask zeroes)."""
+    msg, recv, mask, n = _case(kind, 4)
+    g_out = np.random.default_rng(5).normal(
+        size=(n, msg.shape[1])).astype(np.float32)
+    _, vjp = jax.vjp(lambda m: jax.ops.segment_sum(m, jnp.asarray(recv),
+                                                   num_segments=n),
+                     jnp.asarray(msg))
+    want = np.asarray(vjp(jnp.asarray(g_out))[0])
+    if mask is not None:
+        want = want * mask[:, None]
+    m = None if mask is None else torch.from_numpy(mask)
+    prep = ops.prepare(torch.from_numpy(recv), n, m)
+    x = torch.from_numpy(msg).requires_grad_()
+    out = ops.segment_sum_prepared(prep, x)
+    out.backward(torch.from_numpy(g_out))
+    np.testing.assert_array_equal(x.grad.numpy(), want)
+    direct = ref.segment_sum_csr_backward(torch.from_numpy(g_out), prep.perm,
+                                          prep.row_ptr, msg.shape[0])
+    assert torch.equal(x.grad, direct)
+    if mask is not None:
+        assert not x.grad[torch.from_numpy(~mask)].any()
+    if kind == "empty_segments":
+        # an empty segment's gradient goes nowhere
+        empty = np.setdiff1d(np.arange(n), recv)
+        assert len(empty) and not np.isin(recv, empty).any()
+
+
+def test_segment_sum_saves_only_the_csr():
+    """The backward keeps perm and row_ptr, never the (E, D) messages."""
+    msg, recv, mask, n = _case("masked_on_zero", 6)
+    prep = ops.prepare(torch.from_numpy(recv), n, torch.from_numpy(mask))
+    out = ops.segment_sum_prepared(
+        prep, torch.from_numpy(msg).requires_grad_())
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 2
+    assert saved[0] is prep.perm and saved[1] is prep.row_ptr
+
+
+def test_backward_dispatches_cpu_without_launch():
+    msg, recv, _, n = _case("duplicates", 7)
+    prep = ops.prepare(torch.from_numpy(recv), n)
+    before = ops.segment_sum_backward.launches
+    x = torch.from_numpy(msg).requires_grad_()
+    ops.segment_sum_prepared(prep, x).sum().backward()
+    assert ops.segment_sum_backward.launches == before
+    assert torch.equal(x.grad, torch.ones_like(x))
