@@ -19,9 +19,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    2 x 4,608 tokens, with the 4,096 window and without, softcap 50, bf16
    through the wgmma kernel and f32 through the CUDA-core kernel; bf16 also
    per row, where the plain version with a key tile dropped must fail), and
-   time each: the kernel's device time (``device_ms``, ``torch.profiler``
-   by kernel name), the wrapper's call on CUDA events (``call_ms``: host
-   work plus kernels), the plain version, one library call for the same
+   time each (f32 flash too, by CUDA events: its time, its bound at 67
+   TFLOP/s and ``flex_attention`` compiled in f32): the kernel's device
+   time (``device_ms``, ``torch.profiler`` by kernel name), the wrapper's
+   call on CUDA events (``call_ms``: host work plus kernels), the plain
+   version, one library call for the same
    function (kNN: ``torch.topk``; segment-sum: ``index_add_``; flash:
    ``flex_attention`` with the softcap, compiled; SDPA without it beside) on
    events and by its device kernels (``library_device_ms``), and the bound
@@ -59,14 +61,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    updated parameters within the tolerances stated below;
 10. training: ``train_gnn`` of ``GNNConfig()`` at full width (15 layers,
    hidden 512, remat) on 3 samples of 65,536 points in 8 partitions, 3
-   steps; finite losses; the launch counters must show 2 x 15 x 8
-   segment-sum forwards (forward and remat recompute) and 15 x 8 backwards
-   a step; then ``eval_gnn`` on the test sample (Table I metrics), and one
-   more step profiled by kernel.
+   steps, telemetry on, checkpointing every step into a temporary directory
+   under build/ (removed at the end) and keeping 2 step-tagged files;
+   finite losses; the launch counters must show 2 x 15 x 8 segment-sum
+   forwards (forward and remat recompute) and 15 x 8 backwards a step; the
+   step-1 and step-2 files and the final one must exist (sizes and the
+   ``checkpoint`` histogram's write seconds logged; step times from the
+   ``step`` spans); then ``eval_gnn`` on the test sample (Table I metrics);
+11. resume and serve from the checkpoint: ``train_gnn`` resumed from the
+   step-2 file takes the last step again, and its loss and every parameter
+   must be bit-equal to phase 10's (restore seconds logged; launches 2 x 15
+   x 8 and 15 x 8); ``GNNServer.from_checkpoint`` of the final file serves
+   one 16,384-point demo request, whose fields must be bit-equal to those of
+   a server built from phase 10's model and normalizers (15 segment-sum and
+   3 kNN launches); the step-1 file resumed to step 1 must compare unequal
+   to phase 10's model. Then one more training step profiled by kernel
+   (after phase 11: a profile of a whole step makes torch.profiler drop
+   later launches).
 
 The GNN serving phases (3-6) run inside one function, so their tensors are
 freed before the LLM phases (the flash row of 3, then 7 and 8); the training
-phases (the backward row of 3, then 9 and 10) run last, in another. It then
+phases (the backward row of 3, then 9 to 11) run last, in another. It then
 prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
 {...}}`` line. It needs one card and imports nothing of JAX.
 """
@@ -80,6 +95,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -128,6 +144,8 @@ KEY_TILE = 64    # the wgmma kernel's K/V tile
 # kernels
 FLASH_WGMMA_KERNEL = "flash_wgmma_kernel"
 FLASH_KERNEL_RE = re.compile(r"flash_(wgmma_)?kernel")
+# calls timed of flex_attention compiled in f32
+F32_REPS = 3
 # SASS that shows the bf16 flash kernel runs on the tensor cores and TMA
 FLASH_SASS = ("HGMMA", "UTMALDG")
 # the segment-sum backward kernel's name in the profiler
@@ -136,6 +154,9 @@ SEG_BWD_KERNEL = "segment_sum_backward_kernel"
 # paper's 2M-point levels do not fit a run of this script's length).
 TRAIN_LEVELS, TRAIN_PARTITIONS = (16384, 32768, 65536), 8
 TRAIN_STEPS, TRAIN_SAMPLES = 3, 3
+# Phase 10 checkpoints every step and keeps the newest 2 step-tagged files
+# (steps 1 and 2) beside the final one; phase 11 resumes from step 2
+TRAIN_KEEP_CKPTS = 2
 # Phase 9: full width, 2 layers, one small sample, card against CPU.
 WHOLE_TRAIN_LEVELS, WHOLE_TRAIN_PARTITIONS, WHOLE_TRAIN_LAYERS = \
     (512, 1024, 2048), 2, 2
@@ -715,6 +736,119 @@ def train_whole_path(dev, card, reset_counts, read_counts, by_phase):
         f"{g['s']:.3f} s (first step), CPU {c['s']:.2f} s | {card}")
 
 
+def _same_params(a, b) -> bool:
+    """Every parameter of the two models bit-equal."""
+    import torch
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    return sorted(pa) == sorted(pb) and all(
+        torch.equal(pa[k], pb[k]) for k in pa)
+
+
+def resume_check(dev, card, cfg, ck, model, losses, norms, reset_counts,
+                 read_counts, by_phase):
+    """Phase 11: resume phase 10 from its step-2 checkpoint (bit-equal to
+    the straight run), serve its final checkpoint (bit-equal to a server
+    built from phase 10's model), and check that the step-1 checkpoint is
+    told apart."""
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.data import geometry as geo
+    from repro_torch.launch.serve_gnn import GNNServer
+    from repro_torch.launch.train import train_gnn
+
+    t_phase = time.perf_counter()
+    last = TRAIN_STEPS - 1
+    p_last = ckpt.retained_path(ck, last)
+    t0 = time.perf_counter()
+    tree = ckpt.restore(p_last)
+    restore_s = time.perf_counter() - t0
+    del tree
+    # resume: the last step again, from the checkpoint ---------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    m_res, l_res, _ = train_gnn(cfg, TRAIN_STEPS, TRAIN_SAMPLES, log_every=1,
+                                resume=p_last, device=dev)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    read_counts("resume")
+    n_parts = cfg.n_partitions
+    want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts,
+            "segment_sum_backward": cfg.n_mp_layers * n_parts}
+    for name, n in want.items():
+        if by_phase[name]["resume"] != n:
+            raise RuntimeError(f"resume: {name} launched "
+                               f"{by_phase[name]['resume']} times, expected "
+                               f"{n} (one step)")
+    if l_res != losses[last:]:
+        raise RuntimeError(f"resume: loss {l_res} != the straight run's "
+                           f"{losses[last:]}")
+    if not _same_params(m_res, model):
+        worst = max(float((a - b).detach().abs().max()) for a, b in
+                    zip(m_res.parameters(), model.parameters()))
+        raise RuntimeError(f"resume: parameters differ from the straight "
+                           f"run's by up to {worst}")
+    del m_res
+    log(f"[resume] from {os.path.basename(p_last)} "
+        f"({os.path.getsize(p_last)} bytes; restore alone {restore_s:.3f} "
+        f"s): one step, loss {l_res[0]!r} bit-equal to the straight run's "
+        f"step {last}, every parameter bit-equal; train_gnn with resume "
+        f"{resume_s:.2f} s (data and partitioning included); launches "
+        f"segment_sum {by_phase['segment_sum']['resume']}, backward "
+        f"{by_phase['segment_sum_backward']['resume']} | {card}")
+
+    # serve the final checkpoint, against a server of the model in memory --
+    verts, faces = geo.car_surface(geo.sample_params(1))
+    n = BUCKETS[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    srv = GNNServer.from_checkpoint(ck, GNNConfig(), (n,), max_batch=1)
+    load_s = time.perf_counter() - t0
+    [r_ck] = srv.serve([(verts, faces, n)])
+    torch.cuda.synchronize()
+    read_counts("serve_ckpt")
+    want = {"segment_sum": GNNConfig().n_mp_layers, "knn_topk": 3}
+    for name, k in want.items():
+        if by_phase[name]["serve_ckpt"] != k:
+            raise RuntimeError(f"serve from checkpoint: {name} launched "
+                               f"{by_phase[name]['serve_ckpt']} times, "
+                               f"expected {k}")
+    ni, no = norms
+    del srv
+    mem = GNNServer(GNNConfig(), (n,), max_batch=1, params=model,
+                    norm_in=(ni.mean, ni.std), norm_out=(no.mean, no.std))
+    [r_mem] = mem.serve([(verts, faces, n)])
+    del mem
+    if r_ck.fields.shape != (n, GNNConfig().node_out) or \
+            not np.isfinite(r_ck.fields).all():
+        raise RuntimeError("serve from checkpoint: bad fields")
+    if not (np.array_equal(r_ck.points, r_mem.points)
+            and np.array_equal(r_ck.fields, r_mem.fields)):
+        raise RuntimeError(
+            f"serve from checkpoint: fields differ from the in-memory "
+            f"server's by {np.abs(r_ck.fields - r_mem.fields).max()}")
+    log(f"[serve_ckpt] GNNServer.from_checkpoint (load and calibrate "
+        f"{load_s:.2f} s), one {n}-point request: fields bit-equal to the "
+        f"server of phase 10's model; cp range [{r_ck.fields[:, 0].min():.3f}"
+        f", {r_ck.fields[:, 0].max():.3f}]; launches segment_sum "
+        f"{by_phase['segment_sum']['serve_ckpt']}, knn_topk "
+        f"{by_phase['knn_topk']['serve_ckpt']}")
+
+    # negative: the step-1 checkpoint, resumed to step 1, must differ ------
+    p_first = ckpt.retained_path(ck, 1)
+    m_neg, l_neg, _ = train_gnn(cfg, 1, TRAIN_SAMPLES, resume=p_first,
+                                device=dev)
+    if l_neg or _same_params(m_neg, model):
+        raise RuntimeError("negative check: the step-1 checkpoint's "
+                           "parameters compare equal to the final model's")
+    worst = max(float((a - b).detach().abs().max()) for a, b in
+                zip(m_neg.parameters(), model.parameters()))
+    del m_neg
+    log(f"[resume] negative check: {os.path.basename(p_first)} resumed to "
+        f"step 1 differs from the final model (max abs {worst:.3g}), as it "
+        f"must; phase 11 took {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
     """The backward kernel's row (phase 3), phases 9 and 10; returns the
     row. Its tensors are freed when it returns."""
@@ -723,9 +857,11 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
 
     from repro_torch.configs.base import GNNConfig
     from repro_torch.data import pipeline as pipe
+    from repro_torch.ckpt import checkpoint as ckpt
     from repro_torch.launch.train import (eval_gnn, make_gnn_step_fn,
                                           prepare_gnn_batch, train_gnn)
     from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.telemetry import Telemetry
 
     cfg = GNNConfig().replace(levels=TRAIN_LEVELS,
                               n_partitions=TRAIN_PARTITIONS)
@@ -748,45 +884,84 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    stages = {}
-    reset_counts()
-    model, losses, (train, test, ni, no) = train_gnn(
-        cfg, TRAIN_STEPS, TRAIN_SAMPLES, log_every=1, device=dev,
-        stage_seconds=stages)
-    torch.cuda.synchronize()
-    read_counts("train")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_parts = cfg.n_partitions
-    want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts * TRAIN_STEPS,
-            "segment_sum_backward": cfg.n_mp_layers * n_parts * TRAIN_STEPS}
-    for name, n in want.items():
-        got = by_phase[name]["train"]
-        if got != n:
-            raise RuntimeError(f"train: {name} launched {got} times in "
-                               f"{TRAIN_STEPS} steps, expected {n}")
-    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
-        raise RuntimeError(f"train: losses {losses}")
-    log(f"[train] GNNConfig() full width ({cfg.hidden} hidden, "
-        f"{cfg.n_mp_layers} layers, remat {cfg.remat}), levels "
-        f"{cfg.levels}, {n_parts} partitions, {len(train)} train / "
-        f"{len(test)} test samples: host data {stages['data']:.2f} s, "
-        f"partition {stages['partition']:.2f} s; steps (s): "
-        + ", ".join(f"{t:.3f}" for t in stages["step"])
-        + f" (first, then warm); staging "
-        + ", ".join(f"{t:.4f}" for t in stages["prepare"])
-        + f" s; losses {[round(x, 6) for x in losses]}; peak memory "
-        f"{peak_gb:.2f} GB; launches segment_sum "
-        f"{by_phase['segment_sum']['train']}, backward "
-        f"{by_phase['segment_sum_backward']['train']} | {card}")
+    ck_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                   dir=ROOT / "build"))
+    try:
+        ck = str(ck_dir / "train.msgpack")
+        tel = Telemetry(enabled=True)
+        reset_counts()
+        model, losses, (train, test, ni, no) = train_gnn(
+            cfg, TRAIN_STEPS, TRAIN_SAMPLES, ck, log_every=1,
+            telemetry=tel, ckpt_every=1, keep_ckpts=TRAIN_KEEP_CKPTS,
+            device=dev)
+        torch.cuda.synchronize()
+        read_counts("train")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_parts = cfg.n_partitions
+        want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts * TRAIN_STEPS,
+                "segment_sum_backward":
+                    cfg.n_mp_layers * n_parts * TRAIN_STEPS}
+        for name, n in want.items():
+            got = by_phase[name]["train"]
+            if got != n:
+                raise RuntimeError(f"train: {name} launched {got} times in "
+                                   f"{TRAIN_STEPS} steps, expected {n}")
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise RuntimeError(f"train: losses {losses}")
+        hist = {k: tel.metrics.histogram(f"train_stage_{k}_seconds")
+                for k in ("data", "partition", "checkpoint")}
+        spans = tel.tracer.records()
+        step_span = {r.attrs["it"]: r.duration_s for r in spans
+                     if r.name == "step"}
+        prep_span = {int(r.trace_id.split("-")[1]): r.duration_s
+                     for r in spans if r.name == "prepare"}
+        step_s = [step_span[i] - prep_span[i] for i in range(TRAIN_STEPS)]
+        log(f"[train] GNNConfig() full width ({cfg.hidden} hidden, "
+            f"{cfg.n_mp_layers} layers, remat {cfg.remat}), levels "
+            f"{cfg.levels}, {n_parts} partitions, {len(train)} train / "
+            f"{len(test)} test samples: host data {hist['data'].sum:.2f} s, "
+            f"partition {hist['partition'].sum:.2f} s; steps (s): "
+            + ", ".join(f"{t:.3f}" for t in step_s)
+            + " (first, then warm); staging "
+            + ", ".join(f"{prep_span[i]:.4f}" for i in range(TRAIN_STEPS))
+            + f" s; losses {[round(x, 6) for x in losses]}; peak memory "
+            f"{peak_gb:.2f} GB; launches segment_sum "
+            f"{by_phase['segment_sum']['train']}, backward "
+            f"{by_phase['segment_sum_backward']['train']} | {card}")
+        kept = [st for st, _ in ckpt.retained_steps(ck)]
+        if kept != list(range(1, TRAIN_STEPS)) or not os.path.exists(ck):
+            raise RuntimeError(f"train: checkpoints at steps {kept} and "
+                               f"final {os.path.exists(ck)}; expected "
+                               f"steps 1-{TRAIN_STEPS - 1} and the final")
+        sizes = {os.path.basename(p): os.path.getsize(p)
+                 for p in [q for _, q in ckpt.retained_steps(ck)] + [ck]}
+        h = hist["checkpoint"]
+        held = [r.duration_s for r in spans if r.name == "checkpoint"]
+        log(f"[train] checkpoints (bytes): " + ", ".join(
+            f"{k} {v}" for k, v in sizes.items())
+            + f"; checkpoint stage: {h.count} writes, {h.sum:.3f} s in all, "
+            f"min {h.snapshot()['min']:.3f} s, max "
+            f"{h.snapshot()['max']:.3f} s (the last one on the loop's "
+            "thread, the others on the writer's); the loop held in its "
+            "checkpoint spans (s): " + ", ".join(f"{t:.3f}" for t in held)
+            + " | " + card)
 
-    t0 = time.perf_counter()
-    metrics = eval_gnn(cfg, model, test, ni, no)
-    eval_s = time.perf_counter() - t0
-    if not all(np.isfinite(m["rel_l2"]) and np.isfinite(m["rel_l1"])
-               for k, m in metrics.items() if k != "force_r2"):
-        raise RuntimeError(f"eval: {metrics}")
-    log(f"[train] eval_gnn on {len(test)} test sample(s) in {eval_s:.2f} s: "
-        + json.dumps(metrics))
+        t0 = time.perf_counter()
+        metrics = eval_gnn(cfg, model, test, ni, no)
+        eval_s = time.perf_counter() - t0
+        if not all(np.isfinite(m["rel_l2"]) and np.isfinite(m["rel_l1"])
+                   for k, m in metrics.items() if k != "force_r2"):
+            raise RuntimeError(f"eval: {metrics}")
+        log(f"[train] eval_gnn on {len(test)} test sample(s) in "
+            f"{eval_s:.2f} s: " + json.dumps(metrics))
+
+        # 11. resume, serve from the checkpoint, and a negative check ------
+        # (before the profiled step: torch.profiler drops launches after a
+        # profile of a whole step)
+        resume_check(dev, card, cfg, ck, model, losses, (ni, no),
+                     reset_counts, read_counts, by_phase)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
 
     # one more step, profiled by kernel (sample 0, a fresh Adam state) ------
     ps = pipe.partition_sample(cfg, s0, ni, no, parts=parts0)
@@ -958,10 +1133,29 @@ def flash_check(dev, card) -> dict:
                                               softcap=cap)
             row = by_window.setdefault(str(window), {})
             row[f"{dname}_ms"] = time_cuda(kernel, 5)
-            if dname != "bfloat16":
-                del want
-                continue
             pairs = _window_pairs(s, window)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            if dname != "bfloat16":
+                # the f32 kernel against its bound at the f32 peak, and
+                # flex_attention compiled in f32 beside it. Both by CUDA
+                # events: torch.profiler held none of 3 launches of this
+                # 31 ms kernel, and the wrapper adds only an empty_like
+                # before its one launch
+                n_bytes = 4 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+                bound = bound_ms(n_bytes, 4.0 * hd * pairs * b * h,
+                                 F32_FLOPS_PER_S)
+                row.update(float32_bound_ms=bound[0],
+                           float32_bound_by=bound[1],
+                           float32_fraction_of_bound=bound[0]
+                           / row["float32_ms"])
+                flex, out, row["float32_flex_first_call_s"] = \
+                    flex_yardstick(qt, kt, vt, cap, window)
+                row["float32_flex_max_abs_err"] = float(
+                    (out.transpose(1, 2) - want).abs().max())
+                del out
+                row["float32_flex_ms"] = time_cuda(flex, F32_REPS)
+                del qt, kt, vt, want
+                continue
             n_bytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
             bound = bound_ms(n_bytes, 4.0 * hd * pairs * b * h,
                              BF16_FLOPS_PER_S)
@@ -969,7 +1163,6 @@ def flash_check(dev, card) -> dict:
             mask = i[:, None] >= i[None, :]
             if window is not None:
                 mask &= (i[:, None] - i[None, :]) < window
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             kr, vr = (t.repeat_interleave(gs, 1) for t in (kt, vt))
             row.update(
                 device_ms=device_ms(kernel, 10, FLASH_WGMMA_KERNEL),
@@ -1002,7 +1195,14 @@ def flash_check(dev, card) -> dict:
             f"ms (first call {row['flex_first_call_s']:.1f} s, max abs err "
             f"vs plain {row['flex_max_abs_err']:.3g}); SDPA without softcap "
             f"{row['sdpa_ms']:.4f} ms, faster than SDPA: "
-            f"{row['faster_than_sdpa']}), f32 {row['float32_ms']:.3f} ms "
+            f"{row['faster_than_sdpa']}); f32 {row['float32_ms']:.3f} ms "
+            f"(events; bound {row['float32_bound_ms']:.3f} ms by "
+            f"{row['float32_bound_by']}, "
+            f"{row['float32_fraction_of_bound']:.3f} of it), flex_attention "
+            f"f32 {row['float32_flex_ms']:.3f} ms "
+            f"(events; first call "
+            f"{row['float32_flex_first_call_s']:.1f} s, max abs err vs plain "
+            f"{row['float32_flex_max_abs_err']:.3g}) "
             f"| B={b} S={s} H={h} KV={kvh} hd={hd}, "
             f"{row['pairs_per_head']} pairs per head | {card}")
     log(f"[kernels] flash_attention max abs err vs plain: " + ", ".join(
@@ -1033,6 +1233,10 @@ def flash_check(dev, card) -> dict:
         library_note="flex_attention (torch.compile) with the tanh softcap "
                      "as score_mod and the causal and window block mask",
         sdpa_ms=mean("sdpa_ms"), float32_ms=mean("float32_ms"),
+        float32_bound_ms=mean("float32_bound_ms"),
+        float32_fraction_of_bound=mean("float32_bound_ms")
+        / mean("float32_ms"),
+        float32_library_ms=mean("float32_flex_ms"),
         by_window=by_window,
         shape=f"bf16 B={b} S={s} H={h} KV={kvh} hd={hd} softcap={cap}; "
               "ms and bounds are the mean of the local and the global "

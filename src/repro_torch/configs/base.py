@@ -3,10 +3,11 @@ package.
 
 ``GNNConfig``'s field names, defaults and ``reduced()`` are identical so
 configs round-trip between the two packages. Fields the port does not act on
-yet (serving autoscaling, sharding, telemetry, cold start, checkpoints, the
-serving side of resilience, rollouts) are kept for that round-trip and
-ignored here; the trainer reads ``nonfinite_guard``, ``noise_std`` and
-``remat``. ``ModelConfig``
+yet (serving autoscaling, sharding, the serving side of telemetry and
+resilience, cold start, rollouts) are kept for that round-trip and ignored
+here; the trainer reads ``nonfinite_guard``, ``noise_std``, ``remat``,
+``keep_ckpts`` and ``telemetry``/``trace_dir``/``profile_capture``.
+``ModelConfig``
 keeps only the fields the dense decoder reads; the sharding, remat, MoE, SSM
 and frontend fields come with the slices that read them.
 """

@@ -14,10 +14,15 @@ request). ``flush`` drains the queues synchronously in ascending bucket size,
 FIFO, up to ``max_batch`` requests per batch; the rows of a batch run one
 after another, and only real requests run (no padding rows).
 
+Trained weights come from a training checkpoint of either package
+(``GNNServer.from_checkpoint``, ``--ckpt``).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --buckets 16384,65536
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
       --buckets 256,512 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
+      --buckets 256,512 --device cpu --ckpt ckpts/x.msgpack
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.graph_build import sample_surface
 from repro_torch.data import geometry as geo
@@ -39,6 +45,7 @@ from repro_torch.graphx import hashgrid
 from repro_torch.graphx.multiscale import MultiscaleSpec
 from repro_torch.graphx.pipeline import make_batched_infer_fn
 from repro_torch.models import meshgraphnet
+from repro_torch.models.convert import params_from_jax
 
 N_LEVELS = 3        # nested resolution levels per bucket, as in the paper
 
@@ -47,6 +54,31 @@ def _level_sizes(n_points: int, n_levels: int) -> Tuple[int, ...]:
     """Nested prefix sizes n/2^(L-1) ... n (the paper's 500k/1M/2M pattern)."""
     return tuple(n_points // (2 ** (n_levels - 1 - i))
                  for i in range(n_levels))
+
+
+def load_gnn_checkpoint(path: str, cfg: GNNConfig, device=None):
+    """Read a GNN training checkpoint, written by either package's
+    ``launch.train``.
+
+    Returns ``(model, norm_in, norm_out)``: the params, in the JAX layout in
+    the file, loaded into a :class:`~repro_torch.models.meshgraphnet.
+    MeshGraphNet` of ``cfg`` by ``params_from_jax`` on ``device`` (default:
+    the card), and the normalizer stats as (mean, std) numpy pairs, ready
+    for ``GNNServer(params=..., norm_in=..., norm_out=...)``.
+    """
+    tree = ckpt.restore(path)
+    if "params" not in tree:
+        raise ValueError(f"{path} is not a GNN training checkpoint "
+                         "(missing 'params')")
+
+    def stats(d):
+        if d is None:
+            return None
+        return (np.asarray(d["mean"], np.float32),
+                np.asarray(d["std"], np.float32))
+
+    return (params_from_jax(tree["params"], cfg, device=device),
+            stats(tree.get("norm_in")), stats(tree.get("norm_out")))
 
 
 @dataclass
@@ -172,6 +204,16 @@ class GNNServer:
         self._queues: Dict[int, deque] = {n: deque() for n in sizes}
         self._buckets: Dict[int, Bucket] = {n: self._build_bucket(n)
                                             for n in sizes}
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: GNNConfig,
+                        bucket_sizes: Sequence[int] = (1024,), **kw):
+        """Serve trained weights: params and normalizer stats from a
+        ``launch.train`` checkpoint of either package."""
+        model, norm_in, norm_out = load_gnn_checkpoint(
+            path, cfg, device=resolve(kw.get("device")))
+        return cls(cfg, bucket_sizes, params=model, norm_in=norm_in,
+                   norm_out=norm_out, **kw)
 
     # ------------------------------------------------------------- buckets
 
@@ -319,13 +361,21 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the params and normalizers of this "
+                    "launch.train checkpoint (either package's; its config "
+                    "must match --reduced) instead of random weights")
     args = ap.parse_args(argv)
 
     cfg = GNNConfig().reduced() if args.reduced else GNNConfig()
     buckets = tuple(int(b) for b in args.buckets.split(","))
     dev = resolve(args.device)
-    server = GNNServer(cfg, buckets, max_batch=args.max_batch,
-                       seed=args.seed, device=dev)
+    kw = dict(max_batch=args.max_batch, seed=args.seed, device=dev)
+    if args.ckpt:
+        server = GNNServer.from_checkpoint(args.ckpt, cfg, buckets, **kw)
+        print(f"loaded checkpoint {args.ckpt}")
+    else:
+        server = GNNServer(cfg, buckets, **kw)
     t0 = time.perf_counter()
     server.warmup()
     print(f"warmup ({len(buckets)} buckets): {time.perf_counter() - t0:.1f}s")

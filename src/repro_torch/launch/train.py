@@ -14,9 +14,19 @@ On the card the processor's aggregation runs the segment-sum kernel forward
 and its hand-written backward kernel; with ``cfg.remat`` each
 message-passing layer runs forward twice (once more in the backward pass).
 
+Checkpoints are the JAX trainer's (``repro_torch.ckpt.checkpoint``, the
+same msgpack tree), so a run resumes from either package's file; the loop
+records ``train_stage_*_seconds`` histograms and spans
+(``repro_torch.telemetry``) and has the ``train.batch`` fault site.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
       --reduced --steps 3 --samples 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
+      --reduced --steps 3 --samples 3 --device cpu --ckpt ckpts/x.msgpack \
+      --ckpt-every 1 --keep-ckpts 2 --telemetry --trace-dir traces/x
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
+      --reduced --steps 5 --samples 3 --device cpu --resume ckpts/x.msgpack
   PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
       --reduced --steps 100 --samples 8
 """
@@ -30,14 +40,32 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get_config
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.gradient_aggregation import aggregate_gradients
 from repro_torch.data import pipeline as pipe
 from repro_torch.device import resolve
 from repro_torch.models import meshgraphnet
+from repro_torch.models.convert import (adam_state_from_jax,
+                                        adam_state_to_jax, params_from_jax,
+                                        params_to_jax)
 from repro_torch.models.meshgraphnet import MeshGraphNet, loss_fn
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
+from repro_torch.resilience import faults
+from repro_torch.telemetry import Telemetry, default_latency_buckets
+
+# training-loop stages whose wall time lands in the metrics registry as
+# ``train_stage_<name>_seconds`` histograms, as in the JAX trainer
+TRAIN_STAGES = ("data", "partition", "prepare", "step", "eval", "checkpoint")
+
+
+def _stage_hists(tel: Telemetry) -> dict:
+    return {s: tel.metrics.histogram(
+        f"train_stage_{s}_seconds",
+        help=f"wall seconds spent in the '{s}' training stage",
+        buckets=default_latency_buckets())
+        for s in TRAIN_STAGES}
 
 
 def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig):
@@ -94,80 +122,185 @@ def _sync(dev: torch.device):
 
 
 def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
-              log_every: int = 10, opt_total_steps: Optional[int] = None,
-              noise_std: Optional[float] = None, device=None,
-              stage_seconds: Optional[dict] = None):
+              ckpt_path: Optional[str] = None, log_every: int = 10,
+              telemetry: Optional[Telemetry] = None, ckpt_every: int = 0,
+              resume: Optional[str] = None,
+              opt_total_steps: Optional[int] = None,
+              keep_ckpts: Optional[int] = None,
+              noise_std: Optional[float] = None, device=None):
     """Train X-MeshGraphNet on partitioned synthetic DrivAerML-proxy data,
     on ``device`` (default: the card).
 
-    ``opt_total_steps`` is the cosine-schedule horizon (default ``steps``).
+    Checkpointing, as the JAX trainer: ``ckpt_path`` is written after the
+    final step and, with ``ckpt_every > 0``, every that-many steps on a
+    background thread (:class:`repro_torch.ckpt.checkpoint.
+    AsyncCheckpointer`; write seconds land in the ``checkpoint`` stage
+    histogram). With ``keep_ckpts > 0`` (default ``cfg.keep_ckpts``) the
+    periodic saves go to step-tagged siblings ``<path>.stepNNNNNNNN``,
+    pruned to the newest ``keep_ckpts``. A checkpoint is the JAX trainer's
+    tree (params in the JAX layout, the Adam state ``{step, mu, nu}``, the
+    loop step, the schedule horizon, the normalizers), so either package
+    resumes the other's. ``resume=<path>`` restores it (falling back past a
+    corrupt newest file to the previous retained one) and continues the
+    optimizer trajectory exactly: training N steps equals training k and
+    resuming to N. ``opt_total_steps`` is the cosine-schedule horizon
+    (default: the checkpoint's on resume, else ``steps``).
+
     ``noise_std`` (default ``cfg.noise_std``; 0 = off) adds MGN-style
     training noise to the node features each step, drawn on the host from
     ``np.random.default_rng((0xF10A7, it))`` for global step ``it``, as the
     JAX trainer draws it. Weights come from ``torch.Generator`` seed 0.
 
-    ``stage_seconds``, when given a dict, receives the wall seconds of the
-    stages: ``data`` and ``partition`` (host), and per step ``prepare``
-    (staging on the device) and ``step`` (to the end of the update).
+    ``telemetry`` (default: from the config's ``telemetry``/``trace_dir``
+    fields) records the loop's stages as ``train_stage_<name>_seconds``
+    histograms, always, and as spans (``data``, ``partition``, ``step``
+    with ``trace_id="step-<it>"``, nested ``prepare``, ``checkpoint``) when
+    its tracer is on. A step's time runs to the end of its update on the
+    device; ``prepare`` is its batch staged on the device.
 
     Returns ``(model, losses, (train, test, norm_in, norm_out))``.
     """
     dev = resolve(device)
-    times = stage_seconds if stage_seconds is not None else {}
-    times.update(prepare=[], step=[])
-    t0 = time.perf_counter()
-    train, test, norm_in, norm_out = pipe.build_dataset(cfg, n_samples)
-    times["data"] = time.perf_counter() - t0
+    # compile_cache.enable of the JAX trainer has no counterpart here yet:
+    # the port compiles no step program (ROADMAP Queue 1 item 6, cold start)
+    tel = telemetry if telemetry is not None else Telemetry.from_config(cfg)
+    hists = _stage_hists(tel)
+    loss_gauge = tel.metrics.gauge("train_loss",
+                                   help="most recent training loss")
+    steps_ctr = tel.metrics.counter("train_steps_total",
+                                    help="optimizer steps taken")
+    with tel.span("data", n_samples=n_samples), \
+            tel.annotate("train/build_dataset"):
+        t0 = time.perf_counter()
+        train, test, norm_in, norm_out = pipe.build_dataset(cfg, n_samples)
+        hists["data"].observe(time.perf_counter() - t0)
     # one partitioning pass per sample + common padding: one shape for all
-    t0 = time.perf_counter()
-    psamples = pipe.partition_samples(cfg, train, norm_in, norm_out)
-    times["partition"] = time.perf_counter() - t0
+    with tel.span("partition", n_samples=len(train)), \
+            tel.annotate("train/partition"):
+        t0 = time.perf_counter()
+        psamples = pipe.partition_samples(cfg, train, norm_in, norm_out)
+        hists["partition"].observe(time.perf_counter() - t0)
 
     model = meshgraphnet.init(torch.Generator().manual_seed(0), cfg,
                               device=dev)
-    opt_cfg = AdamConfig(total_steps=int(opt_total_steps or steps))
+    start_step = 0
+    restored = None
+    if resume:
+        # a corrupt newest checkpoint falls back to the previous intact one
+        # of the --keep-ckpts window
+        restored, used_path, skipped_paths = ckpt.restore_with_fallback(
+            resume)
+        for p in skipped_paths:
+            print(f"WARNING: skipped corrupt checkpoint {p}", flush=True)
+        if used_path != resume:
+            print(f"resuming from retained fallback {used_path}", flush=True)
+        if "params" not in restored:
+            raise ckpt.CheckpointError(
+                f"{used_path!r} is not a training checkpoint (no 'params')")
+        model = params_from_jax(restored["params"], cfg, device=dev)
+    if opt_total_steps is None:
+        # a resumed run keeps the original cosine horizon
+        opt_total_steps = int(restored["opt_total_steps"]) \
+            if restored and "opt_total_steps" in restored else steps
+    opt_cfg = AdamConfig(total_steps=int(opt_total_steps))
     opt = adam_init([p for _, p in model.leaves()])
+    if restored is not None and "opt" in restored:
+        opt = adam_state_from_jax(restored["opt"], model)
+        start_step = int(restored.get("step", 0))
+        print(f"resumed {resume} at step {start_step} "
+              f"(schedule horizon {opt_cfg.total_steps})", flush=True)
+
+    def ckpt_tree(next_step):
+        return {"params": params_to_jax(model),
+                "opt": adam_state_to_jax(opt, model),
+                "step": int(next_step),
+                "opt_total_steps": int(opt_cfg.total_steps),
+                "norm_in": vars(norm_in), "norm_out": vars(norm_out)}
+
     step_fn = make_gnn_step_fn(cfg, opt_cfg)
+    if keep_ckpts is None:
+        keep_ckpts = int(cfg.keep_ckpts)
     if noise_std is None:
         noise_std = float(cfg.noise_std)
+    skip_ctr = tel.metrics.counter(
+        "train_nonfinite_steps_total",
+        help="optimizer steps skipped on a nonfinite loss/grad")
     nonfinite_steps = 0
     losses = []
-    for it in range(steps):
+    step_s = []
+    writer = ckpt.AsyncCheckpointer(on_write=hists["checkpoint"].observe)
+    for it in range(start_step, steps):
         # stage one sample per step: at paper scale a padded partition
-        # batch is GBs, so only the current one lives on the device
+        # batch is GBs, so only the current one lives on the device.
+        # Indexing by the GLOBAL step keeps the sample sequence identical
+        # across a crash+resume.
         _sync(dev)
-        t0 = time.perf_counter()
-        ps = psamples[it % len(psamples)]
-        stacked, denom = prepare_gnn_batch(ps, dev)
-        if noise_std > 0.0:
-            # MGN rollout-stability noise, seeded by the global step
-            nf = ps.stacked["node_feats"]
-            nrng = np.random.default_rng((0xF10A7, it))
-            stacked["node_feats"] = torch.from_numpy(
-                nf + nrng.standard_normal(nf.shape).astype(nf.dtype)
-                * noise_std).to(dev)
-        _sync(dev)
-        t1 = time.perf_counter()
-        opt, loss, gnorm, skipped = step_fn(model, opt, stacked, denom)
-        losses.append(float(loss))
-        _sync(dev)
-        t2 = time.perf_counter()
-        times["prepare"].append(t1 - t0)
-        times["step"].append(t2 - t1)
-        if skipped:
-            nonfinite_steps += 1
-            print(f"step {it:5d} SKIPPED: nonfinite loss/grads (loss "
-                  f"{losses[-1]}, {nonfinite_steps} skipped so far) - params "
-                  "and Adam state unchanged", flush=True)
+        with tel.span("step", trace_id=f"step-{it}", it=it):
+            tp0 = time.perf_counter()
+            with tel.span("prepare"):
+                ps = psamples[it % len(psamples)]
+                stacked, denom = prepare_gnn_batch(ps, dev)
+                nf = ps.stacked["node_feats"]
+                if faults.active():
+                    # chaos: poison this step's node features so the
+                    # nonfinite skip-step guard has something to catch
+                    nf = faults.corrupt("train.batch", nf)
+                if noise_std > 0.0:
+                    # MGN rollout-stability noise, seeded by the global step
+                    nrng = np.random.default_rng((0xF10A7, it))
+                    nf = nf + nrng.standard_normal(nf.shape).astype(
+                        nf.dtype) * noise_std
+                if nf is not ps.stacked["node_feats"]:
+                    stacked["node_feats"] = torch.from_numpy(nf).to(dev)
+                _sync(dev)
+            tp1 = time.perf_counter()
+            first = it == start_step
+            with tel.annotate(f"train/step{'_first' if first else ''}"):
+                opt, loss, gnorm, skipped = step_fn(model, opt, stacked,
+                                                    denom)
+                losses.append(float(loss))
+                _sync(dev)              # the update, to its end
+            if skipped:
+                nonfinite_steps += 1
+                skip_ctr.inc()
+                tel.tracer.record_span("nonfinite_skip", tp1,
+                                       time.perf_counter(), it=it)
+                print(f"step {it:5d} SKIPPED: nonfinite loss/grads (loss "
+                      f"{losses[-1]}, {nonfinite_steps} skipped so far) - "
+                      "params and Adam state unchanged", flush=True)
+        hists["prepare"].observe(tp1 - tp0)
+        step_s.append(time.perf_counter() - tp1)
+        hists["step"].observe(step_s[-1])
+        loss_gauge.set(losses[-1])
+        steps_ctr.inc()
+        if (ckpt_path and ckpt_every > 0 and (it + 1) % ckpt_every == 0
+                and it + 1 < steps):
+            # async: copied to the host here, written on the ckpt-writer
+            # thread; the loop only ever waits for the PREVIOUS write
+            with tel.span("checkpoint", path=ckpt_path, it=it):
+                if keep_ckpts > 0:
+                    writer.save(ckpt.retained_path(ckpt_path, it + 1),
+                                ckpt_tree(it + 1))
+                    # the in-flight write is not on disk yet; prunable
+                    # files are all from completed earlier saves
+                    ckpt.prune_retained(ckpt_path, keep_ckpts)
+                else:
+                    writer.save(ckpt_path, ckpt_tree(it + 1))
         if it % log_every == 0:
             # warm s/step excludes the first step (allocator and library
             # warm-up)
-            warm = times["step"][1:]
-            timing = (f"first {times['step'][0]:.2f}s" if not warm else
+            warm = step_s[1:]
+            timing = (f"first {step_s[0]:.2f}s" if not warm else
                       f"{sum(warm) / len(warm):.2f}s/step warm, first "
-                      f"{times['step'][0]:.2f}s")
+                      f"{step_s[0]:.2f}s")
             print(f"step {it:5d} loss {losses[-1]:.5f} gnorm "
                   f"{float(gnorm):.3f} ({timing})", flush=True)
+    writer.wait()                          # surface any background failure
+    if ckpt_path:
+        with tel.span("checkpoint", path=ckpt_path):
+            t0 = time.perf_counter()
+            ckpt.save(ckpt_path, ckpt_tree(steps))
+            hists["checkpoint"].observe(time.perf_counter() - t0)
     return model, losses, (train, test, norm_in, norm_out)
 
 
@@ -237,13 +370,35 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--samples", type=int, default=6)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="also write --ckpt every N steps (async, on a "
+                    "background thread), not just after the final step")
+    ap.add_argument("--keep-ckpts", type=int, default=None,
+                    help="retain the K newest periodic checkpoints as "
+                    "step-tagged siblings of --ckpt; --resume falls back "
+                    "past a corrupt newest file to the previous intact one")
+    ap.add_argument("--resume", default=None,
+                    help="continue training from this checkpoint (either "
+                    "package's): params, Adam state, step and LR-schedule "
+                    "horizon are restored")
     ap.add_argument("--total-steps", type=int, default=None,
                     help="cosine-schedule horizon when it differs from "
-                    "--steps")
+                    "--steps (a resumed run keeps the checkpoint's horizon "
+                    "by default)")
     ap.add_argument("--noise-std", type=float, default=None,
                     help="MGN-style training noise: gaussian std added to "
                     "node features each step for rollout stability "
                     "(default: cfg.noise_std, i.e. off)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="enable the span tracer + profiler annotations")
+    ap.add_argument("--trace-dir", default=None,
+                    help="export trace.jsonl / trace_chrome.json / "
+                    "metrics.prom / metrics.json here on exit "
+                    "(implies --telemetry)")
+    ap.add_argument("--profile", action="store_true",
+                    help="additionally capture a torch.profiler trace "
+                    "under <trace-dir>/torch_profile")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
@@ -252,11 +407,27 @@ def main(argv=None):
                          "(LLM training) is still to port, see ROADMAP.md")
     if args.reduced:
         cfg = cfg.reduced()
-    model, losses, (train, test, ni, no) = train_gnn(
-        cfg, args.steps, args.samples, opt_total_steps=args.total_steps,
-        noise_std=args.noise_std, device=args.device)
-    metrics = eval_gnn(cfg, model, test, ni, no)
+    if args.telemetry or args.trace_dir:
+        cfg = cfg.replace(telemetry=True, trace_dir=args.trace_dir or "",
+                          profile_capture=args.profile)
+    tel = Telemetry.from_config(cfg)
+    with tel.capture():
+        model, losses, (train, test, ni, no) = train_gnn(
+            cfg, args.steps, args.samples, args.ckpt, telemetry=tel,
+            ckpt_every=args.ckpt_every, resume=args.resume,
+            opt_total_steps=args.total_steps, keep_ckpts=args.keep_ckpts,
+            noise_std=args.noise_std, device=args.device)
+        with tel.span("eval", n_samples=len(test)):
+            t0 = time.perf_counter()
+            metrics = eval_gnn(cfg, model, test, ni, no)
+            tel.metrics.histogram(
+                "train_stage_eval_seconds",
+                help="wall seconds spent in the 'eval' training stage",
+            ).observe(time.perf_counter() - t0)
     print(json.dumps(metrics, indent=2))
+    if args.trace_dir:
+        paths = tel.export()
+        print("telemetry artifacts: " + ", ".join(sorted(paths.values())))
 
 
 if __name__ == "__main__":

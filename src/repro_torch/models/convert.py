@@ -7,7 +7,7 @@ unstacked into the module list (``params_to_jax`` restacks it). Decoder
 transformer: its ``blocks`` leaves carry a leading group axis. Any missing
 or extra key, and any shape mismatch, raises. A JAX ``AdamState`` loads into
 the port's (``adam_state_from_jax``), its moments in the order of
-``MeshGraphNet.leaves()``.
+``MeshGraphNet.leaves()``, and ``adam_state_to_jax`` writes it back.
 """
 from __future__ import annotations
 
@@ -100,18 +100,13 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return lists(root)
 
 
-def params_to_jax(model: MeshGraphNet, grads: bool = False) -> dict:
-    """The inverse of :func:`params_from_jax`: the model's parameters, or
-    with ``grads`` their ``.grad``, as the JAX pytree of numpy arrays, with
+def _restack(named: Dict[str, np.ndarray]) -> dict:
+    """``MeshGraphNet`` parameter names -> the JAX pytree, with
     ``proc_edge``/``proc_node`` restacked on a leading ``n_mp_layers``
-    axis."""
+    axis (the layers come in order: ``named`` follows the model's)."""
     flat: Dict[str, np.ndarray] = {}
     stacked: Dict[str, list] = {}
-    for name, p in model.named_parameters():
-        t = p.grad if grads else p
-        if t is None:
-            raise ValueError(f"{name} has no gradient")
-        arr = t.detach().cpu().numpy()
+    for name, arr in named.items():
         top, *rest = name.split(".")
         if top in _STACKED:
             stacked.setdefault(".".join([top, *rest[1:]]), []).append(arr)
@@ -121,21 +116,54 @@ def params_to_jax(model: MeshGraphNet, grads: bool = False) -> dict:
     return _unflatten(flat)
 
 
+def params_to_jax(model: MeshGraphNet, grads: bool = False) -> dict:
+    """The inverse of :func:`params_from_jax`: the model's parameters, or
+    with ``grads`` their ``.grad``, as the JAX pytree of numpy arrays, with
+    ``proc_edge``/``proc_node`` restacked on a leading ``n_mp_layers``
+    axis."""
+    named: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"{name} has no gradient")
+        named[name] = t.detach().cpu().numpy()
+    return _restack(named)
+
+
+def _opt_field(state, name: str):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
 def adam_state_from_jax(state, model: MeshGraphNet) -> AdamState:
-    """A JAX ``AdamState`` (``step``, ``mu``, ``nu``; numpy trees) as the
+    """A JAX ``AdamState`` (``step``, ``mu``, ``nu``; numpy trees), or the
+    ``{"step", "mu", "nu"}`` dict a training checkpoint holds, as the
     port's, its moments in ``model.leaves()`` order on the model's
     device."""
     n = model.cfg.n_mp_layers
-    mu = state_dict_from_jax(state.mu, n)
-    nu = state_dict_from_jax(state.nu, n)
+    mu = state_dict_from_jax(_opt_field(state, "mu"), n)
+    nu = state_dict_from_jax(_opt_field(state, "nu"), n)
     names = [name for name, _ in model.leaves()]
     dev = next(model.parameters()).device
     if sorted(mu) != sorted(names) or sorted(nu) != sorted(names):
         raise KeyError("Adam state does not match the model's parameters")
     return AdamState(
-        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
-                          device=dev),
+        step=torch.tensor(int(np.asarray(_opt_field(state, "step"))),
+                          dtype=torch.int32, device=dev),
         mu=[mu[k].to(dev) for k in names], nu=[nu[k].to(dev) for k in names])
+
+
+def adam_state_to_jax(state: AdamState, model: MeshGraphNet) -> dict:
+    """The inverse of :func:`adam_state_from_jax`: ``{"step": () int32,
+    "mu": tree, "nu": tree}``, the moments as params-shaped numpy trees in
+    the JAX layout (as :func:`params_to_jax` lays out the params), the
+    layout of a training checkpoint's ``opt``."""
+    names = [name for name, _ in model.leaves()]
+
+    def tree(moments):
+        return _restack({k: m.detach().cpu().numpy()
+                         for k, m in zip(names, moments)})
+    return {"step": np.asarray(int(state.step), np.int32),
+            "mu": tree(state.mu), "nu": tree(state.nu)}
 
 
 def transformer_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:

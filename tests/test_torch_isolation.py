@@ -1,5 +1,6 @@
 """The port stands alone: importing all of ``repro_torch`` loads neither JAX
-nor the JAX package, and no source line imports them."""
+nor the JAX package, nor ``msgpack`` or ``ml_dtypes`` (the card's machine
+has neither), and no source line imports them."""
 import json
 import os
 import re
@@ -18,7 +19,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                    "ml_dtypes"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -35,13 +37,18 @@ def test_import_loads_no_jax_or_repro():
     assert "repro_torch.launch.serve" in res["modules"]
     assert "repro_torch.kernels.flash_attention.ops" in res["modules"]
     for name in ("launch.train", "optim.adam", "data.pipeline", "core.halo",
-                 "core.partitioning", "core.gradient_aggregation"):
+                 "core.partitioning", "core.gradient_aggregation",
+                 "ckpt.checkpoint", "ckpt._msgpack", "resilience.faults",
+                 "telemetry.metrics", "telemetry.trace",
+                 "telemetry.profiler"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|from\s+repro\."
-    r"|from\s+repro\s+import|import\s+repro\s*$)", re.MULTILINE)
+    r"|from\s+repro\s+import|import\s+repro\s*$"
+    r"|import\s+(msgpack|ml_dtypes)\b|from\s+(msgpack|ml_dtypes)\b)",
+    re.MULTILINE)
 
 
 def test_sources_import_no_jax_or_repro():

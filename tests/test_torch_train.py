@@ -27,6 +27,7 @@ from repro_torch.models import meshgraphnet as mgn
 from repro_torch.models.convert import (adam_state_from_jax, params_from_jax,
                                         params_to_jax)
 from repro_torch.optim import adam as padam
+from repro_torch.telemetry import Telemetry
 
 # Loss and gradients of one sample, summed over its partitions: f32 on both
 # sides, matmuls and reductions summed in other orders.
@@ -296,12 +297,16 @@ def test_train_gnn_losses_match_jax(data, monkeypatch, size, noise_std):
     _, want, _ = jtrain.train_gnn(jcfg, steps=3, n_samples=3,
                                   log_every=100, shard_devices=1,
                                   noise_std=noise_std)
-    times = {}
+    tel = Telemetry(enabled=True)
     _, got, _ = ptrain.train_gnn(cfg, steps=3, n_samples=3, log_every=100,
                                  noise_std=noise_std, device="cpu",
-                                 stage_seconds=times)
+                                 telemetry=tel)
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
-    assert len(times["step"]) == 3 and times["data"] > 0
+    hist = tel.metrics.histogram
+    assert hist("train_stage_step_seconds").count == 3
+    assert hist("train_stage_data_seconds").sum > 0
+    assert [r.attrs["it"] for r in tel.tracer.records()
+            if r.name == "step"] == [0, 1, 2]
 
 
 def test_nonfinite_step_is_skipped_bit_for_bit(data):
