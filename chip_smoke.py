@@ -33,7 +33,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    rows zero, at the shape of a training partition (65,536 points, 8
    partitions: one partition of sample 0), with
    ``torch.index_select(grad_out, 0, recv)`` times the edge mask as its
-   yardstick; it runs after phase 8, before phase 9;
+   yardstick; so is the gathers' backward (``gather_rows_backward``: the
+   segment-sum kernel over the sender CSR, reading a column slice of an
+   (E, 3 x 512) gradient in place), bit-equal to its plain version over
+   both CSRs, its bound from the valid edges, with ``index_add_`` and
+   ``index_put_(accumulate=True)`` (the sort-based path it replaces) as
+   yardsticks, each CSR's longest and mean run logged, and the segment-sum
+   forward timed at the same shape; these run after phase 8, before
+   phase 9;
 4. whole path: one 2,048-point request through the full-width model
    (``GNNConfig()``) on the card and on the CPU (plain versions), same
    params; edges must be equal and fields agree to 1e-4;
@@ -64,20 +71,25 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    steps, telemetry on, checkpointing every step into a temporary directory
    under build/ (removed at the end) and keeping 2 step-tagged files;
    finite losses; the launch counters must show 2 x 15 x 8 segment-sum
-   forwards (forward and remat recompute) and 15 x 8 backwards a step; the
+   forwards (forward and remat recompute), 15 x 8 backwards and 2 x 15 x 8
+   gathers' backwards (``gather_rows``: senders and receivers) a step; the
    step-1 and step-2 files and the final one must exist (sizes and the
    ``checkpoint`` histogram's write seconds logged; step times from the
    ``step`` spans); then ``eval_gnn`` on the test sample (Table I metrics);
 11. resume and serve from the checkpoint: ``train_gnn`` resumed from the
    step-2 file takes the last step again, and its loss and every parameter
    must be bit-equal to phase 10's (restore seconds logged; launches 2 x 15
-   x 8 and 15 x 8); ``GNNServer.from_checkpoint`` of the final file serves
+   x 8, 15 x 8 and 2 x 15 x 8); ``GNNServer.from_checkpoint`` of the final
+   file serves
    one 16,384-point demo request, whose fields must be bit-equal to those of
    a server built from phase 10's model and normalizers (15 segment-sum and
    3 kNN launches); the step-1 file resumed to step 1 must compare unequal
    to phase 10's model. Then one more training step profiled by kernel
    (after phase 11: a profile of a whole step makes torch.profiler drop
-   later launches).
+   later launches): it must hold no ``indexing_backward`` kernel (the
+   gathers' backward runs the segment-sum kernel), and the time of the
+   kernels launched under ``GatherRowsBackward`` is logged on a line of its
+   own.
 
 The GNN serving phases (3-6) run inside one function, so their tensors are
 freed before the LLM phases (the flash row of 3, then 7 and 8); the training
@@ -150,6 +162,11 @@ F32_REPS = 3
 FLASH_SASS = ("HGMMA", "UTMALDG")
 # the segment-sum backward kernel's name in the profiler
 SEG_BWD_KERNEL = "segment_sum_backward_kernel"
+# the autograd node of the gathers h[senders], h[receivers] in the profiler,
+# and PyTorch's sort-based backward of an indexing gather, which the
+# training step must no longer launch
+GATHER_BWD_NODE = "GatherRowsBackward"
+INDEXING_BWD_KERNEL = "indexing_backward"
 # Phase 10: the paper's model at full width on 65,536-point clouds (the
 # paper's 2M-point levels do not fit a run of this script's length).
 TRAIN_LEVELS, TRAIN_PARTITIONS = (16384, 32768, 65536), 8
@@ -623,6 +640,106 @@ def seg_backward_check(dev, cfg, ps) -> dict:
     return row
 
 
+def gather_rows_check(dev, cfg, ps) -> dict:
+    """Phase 3 for the gathers' backward at the shape of one training
+    partition (partition 0 of ``ps``): the segment-sum kernel over the sender
+    CSR, reading its column slice of an (E, 3 D) gradient in place, held
+    bit-equal to its plain version over both CSRs, and timed with the bound
+    of the valid edges and two yardsticks: ``index_add_`` and today's
+    sort-based ``index_put_(accumulate=True)``."""
+    import torch
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg import ref as seg_ref
+
+    send, recv, emask = (torch.from_numpy(ps.stacked[k][0]).to(dev) for k in
+                         ("senders", "receivers", "edge_mask"))
+    n_pad, e_pad = ps.stacked["node_feats"].shape[1], send.numel()
+    d = cfg.hidden
+    csrs = {"senders": seg_ops.prepare(send, n_pad, emask),
+            "receivers": seg_ops.prepare(recv, n_pad, emask)}
+    runs = {}
+    for name, csr in csrs.items():
+        deg = (csr.row_ptr[1:] - csr.row_ptr[:-1]).float()
+        runs[name] = (int(deg.max()), float(deg.mean()))
+    log("[kernels] CSR runs at the training shape (longest, mean): "
+        + ", ".join(f"{k} {m} / {a:.3f}" for k, (m, a) in runs.items()))
+    # the gradient of torch.cat([h[send], h[recv], e]): masked rows zero, as
+    # the edge mask makes them in the model
+    wide = torch.randn((e_pad, 3 * d),
+                       generator=torch.Generator().manual_seed(0)).to(dev) \
+        * emask[:, None]
+    slices = {"senders": wide[:, :d], "receivers": wide[:, d:2 * d]}
+    err = 0.0
+    for name, csr in csrs.items():
+        g = slices[name]
+        if g.stride() != (3 * d, 1) or seg_ops._float4_rows(g) is not g:
+            raise RuntimeError(f"gather_rows_backward: the {name} slice "
+                               f"(strides {g.stride()}) is not read in place")
+        got = seg_ops.gather_rows_backward(csr, g)
+        torch.cuda.synchronize()
+        want = seg_ref.segment_sum_csr(g, csr.perm, csr.row_ptr)
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"gather_rows_backward over the {name} CSR: "
+                               f"differs from the plain version by {err}")
+    prep, g = csrs["senders"], slices["senders"]
+    send_long = send.long()
+    got = seg_ops.gather_rows_backward(prep, g)
+
+    def index_put():
+        return torch.zeros((n_pad, d), device=dev).index_put_(
+            (send_long,), g, accumulate=True)
+
+    def index_add():
+        return torch.zeros((n_pad, d), device=dev).index_add_(0, send_long, g)
+
+    lib_err = max(float((got - f()).abs().max()) for f in (index_add,
+                                                           index_put))
+    valid = int(prep.row_ptr[-1])
+    n_bytes = valid * d * 4 + n_pad * d * 4 + valid * 4 + (n_pad + 1) * 4
+    bound = bound_ms(n_bytes, valid * d)
+    row = dict(
+        name="gather_rows_backward", route="cuda",
+        source="src/repro_torch/kernels/segment_agg/csrc/segment_sum.cu",
+        replaces="src/repro/models/meshgraphnet.py:129",
+        replaces_note="no TPU kernel: XLA's transpose of the gathers "
+                      "h[senders], h[receivers] (a scatter-add); the port "
+                      "runs its segment-sum kernel (the port of _agg_kernel, "
+                      "src/repro/kernels/segment_agg/kernel.py:28) over a "
+                      "sender and a receiver CSR",
+        max_abs_err=err,
+        **timed_row(lambda: seg_ops.gather_rows_backward(prep, g),
+                    SEG_KERNEL,
+                    lambda: seg_ref.segment_sum_csr(g, prep.perm,
+                                                    prep.row_ptr),
+                    index_add, bound, plain_reps=5),
+        library_note="torch.zeros(N, D).index_add_(0, send, grad)",
+        index_put_device_ms=device_ms(index_put, 20),
+        index_put_ms=time_cuda(index_put, 20),
+        index_put_note="torch.zeros(N, D).index_put_((send,), grad, "
+                       "accumulate=True): the sort-based indexing_backward "
+                       "the training step ran before",
+        runs={k: {"longest": m, "mean": a} for k, (m, a) in runs.items()},
+        shape=f"E={e_pad} (valid {valid}) N={n_pad} D={d}, a column slice "
+              f"of ({e_pad}, {3 * d}); max abs diff vs index_add_ / "
+              f"index_put_ {lib_err:.3g}")
+    log_row(row, "index_add_")
+    log(f"[kernels] gather_rows_backward: index_put_(accumulate=True) "
+        f"device {row['index_put_device_ms']:.4f} ms, call "
+        f"{row['index_put_ms']:.4f} ms")
+    # the aggregation (segment_sum_prepared, contiguous rows) at this shape
+    msgs = slices["receivers"].contiguous()
+    fwd_ms = device_ms(lambda: seg_ops.segment_sum_prepared(
+        csrs["receivers"], msgs), 50, SEG_KERNEL)
+    row["forward_at_this_shape"] = dict(device_ms=fwd_ms,
+                                        bound_ms=bound[0],
+                                        fraction_of_bound=bound[0] / fwd_ms)
+    log(f"[kernels] segment_sum forward at the training shape: device "
+        f"{fwd_ms:.4f} ms, {bound[0] / fwd_ms:.3f} of its bound "
+        f"{bound[0]:.4f} ms by {bound[1]}")
+    return row
+
+
 def _near_zero_split(got, want, grads):
     """(max |got - want| where |grad| >= TRAIN_NEAR_ZERO, the same where
     below, share of elements below), over lists of CPU tensors."""
@@ -684,7 +801,8 @@ def train_whole_path(dev, card, reset_counts, read_counts, by_phase):
     g, c = out["gpu"], out["cpu"]
     n_parts = ps.stacked["senders"].shape[0]
     want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts,
-            "segment_sum_backward": cfg.n_mp_layers * n_parts}
+            "segment_sum_backward": cfg.n_mp_layers * n_parts,
+            "gather_rows_backward": 2 * cfg.n_mp_layers * n_parts}
     for name, n in want.items():
         got = by_phase[name]["train_whole_path_gpu"]
         if got != n:
@@ -732,7 +850,9 @@ def train_whole_path(dev, card, reset_counts, read_counts, by_phase):
         f"{near:.3g} on the {share:.2%} with gradient below "
         f"{TRAIN_NEAR_ZERO}; launches segment_sum "
         f"{by_phase['segment_sum']['train_whole_path_gpu']}, backward "
-        f"{by_phase['segment_sum_backward']['train_whole_path_gpu']}; card "
+        f"{by_phase['segment_sum_backward']['train_whole_path_gpu']}, "
+        f"gathers' backward "
+        f"{by_phase['gather_rows_backward']['train_whole_path_gpu']}; card "
         f"{g['s']:.3f} s (first step), CPU {c['s']:.2f} s | {card}")
 
 
@@ -774,7 +894,8 @@ def resume_check(dev, card, cfg, ck, model, losses, norms, reset_counts,
     read_counts("resume")
     n_parts = cfg.n_partitions
     want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts,
-            "segment_sum_backward": cfg.n_mp_layers * n_parts}
+            "segment_sum_backward": cfg.n_mp_layers * n_parts,
+            "gather_rows_backward": 2 * cfg.n_mp_layers * n_parts}
     for name, n in want.items():
         if by_phase[name]["resume"] != n:
             raise RuntimeError(f"resume: {name} launched "
@@ -795,7 +916,8 @@ def resume_check(dev, card, cfg, ck, model, losses, norms, reset_counts,
         f"step {last}, every parameter bit-equal; train_gnn with resume "
         f"{resume_s:.2f} s (data and partitioning included); launches "
         f"segment_sum {by_phase['segment_sum']['resume']}, backward "
-        f"{by_phase['segment_sum_backward']['resume']} | {card}")
+        f"{by_phase['segment_sum_backward']['resume']}, gathers' backward "
+        f"{by_phase['gather_rows_backward']['resume']} | {card}")
 
     # serve the final checkpoint, against a server of the model in memory --
     verts, faces = geo.car_surface(geo.sample_params(1))
@@ -849,9 +971,10 @@ def resume_check(dev, card, cfg, ck, model, losses, norms, reset_counts,
         f"must; phase 11 took {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
-def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
-    """The backward kernel's row (phase 3), phases 9 and 10; returns the
-    row. Its tensors are freed when it returns."""
+def train_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
+    """The training kernels' rows (phase 3: the segment-sum backward and the
+    gathers' backward), phases 9 to 11 and the profiled step; returns the
+    rows. Its tensors are freed when it returns."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -873,7 +996,7 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
     log(f"[kernels] training partitions of sample 0 built on the host in "
         f"{time.perf_counter() - t0:.2f} s")
     reset_counts()
-    row = seg_backward_check(dev, cfg, ps0)
+    rows = [seg_backward_check(dev, cfg, ps0), gather_rows_check(dev, cfg, ps0)]
     torch.cuda.synchronize()
     read_counts("kernel_check")
 
@@ -900,7 +1023,9 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
         n_parts = cfg.n_partitions
         want = {"segment_sum": 2 * cfg.n_mp_layers * n_parts * TRAIN_STEPS,
                 "segment_sum_backward":
-                    cfg.n_mp_layers * n_parts * TRAIN_STEPS}
+                    cfg.n_mp_layers * n_parts * TRAIN_STEPS,
+                "gather_rows_backward":
+                    2 * cfg.n_mp_layers * n_parts * TRAIN_STEPS}
         for name, n in want.items():
             got = by_phase[name]["train"]
             if got != n:
@@ -924,10 +1049,11 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
             + ", ".join(f"{t:.3f}" for t in step_s)
             + " (first, then warm); staging "
             + ", ".join(f"{prep_span[i]:.4f}" for i in range(TRAIN_STEPS))
-            + f" s; losses {[round(x, 6) for x in losses]}; peak memory "
+            + f" s; losses {losses!r} (bit-exact); peak memory "
             f"{peak_gb:.2f} GB; launches segment_sum "
             f"{by_phase['segment_sum']['train']}, backward "
-            f"{by_phase['segment_sum_backward']['train']} | {card}")
+            f"{by_phase['segment_sum_backward']['train']}, gathers' "
+            f"backward {by_phase['gather_rows_backward']['train']} | {card}")
         kept = [st for st, _ in ckpt.retained_steps(ck)]
         if kept != list(range(1, TRAIN_STEPS)) or not os.path.exists(ck):
             raise RuntimeError(f"train: checkpoints at steps {kept} and "
@@ -975,23 +1101,40 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> dict:
         step(model, opt, stacked, denom)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = device_rows(prof.key_averages())
-    total = sum(ms for _, ms, _ in rows)
+    kernels = device_rows(prof.key_averages())
+    total = sum(ms for _, ms, _ in kernels)
     if not total > 0:
         raise RuntimeError("train breakdown: the profile shows no device time")
-    gemm = sum(ms for k, ms, _ in rows
+    sorting = [(k[:80], n) for k, _, n in kernels if INDEXING_BWD_KERNEL in k]
+    if sorting:
+        raise RuntimeError(f"train breakdown: the step still launches "
+                           f"PyTorch's sort-based gather backward: {sorting}")
+    gemm = sum(ms for k, ms, _ in kernels
                if re.search(r"gemm|gemv|nvjet|cutlass|xmma", k, re.I))
-    seg_f = sum(ms for k, ms, _ in rows if SEG_KERNEL in k)
-    seg_b = sum(ms for k, ms, _ in rows if SEG_BWD_KERNEL in k)
+    seg = [(ms, n) for k, ms, n in kernels if SEG_KERNEL in k]
+    seg_f, seg_n = sum(ms for ms, _ in seg), sum(n for _, n in seg)
+    seg_b = sum(ms for k, ms, _ in kernels if SEG_BWD_KERNEL in k)
+    # the gathers' backward launches the segment-sum kernel too: its share
+    # is what ran under the GatherRowsBackward autograd nodes
+    gather = [e for e in prof.events() if e.name == GATHER_BWD_NODE]
+    gather_ms = sum(e.device_time_total for e in gather) / 1e3
+    gather_n = sum(1 for e in gather for k in e.kernels
+                   if SEG_KERNEL in k.name)
     log(f"[train_breakdown] one warm step (profiled, wall {wall:.3f} s): "
-        f"device kernel time {total:.1f} ms in {sum(n for *_, n in rows)} "
-        f"launches ({total / 1e3 / wall:.1%} of the wall), of which GEMMs "
-        f"{gemm:.1f} ms ({gemm / total:.1%}), segment_sum {seg_f:.2f} ms, "
-        f"segment_sum_backward {seg_b:.2f} ms, other "
-        f"{total - gemm - seg_f - seg_b:.1f} ms")
-    for k, ms, n in rows[:10]:
+        f"device kernel time {total:.1f} ms in "
+        f"{sum(n for *_, n in kernels)} launches ({total / 1e3 / wall:.1%} "
+        f"of the wall), of which GEMMs {gemm:.1f} ms ({gemm / total:.1%}), "
+        f"segment_sum_kernel {seg_f:.2f} ms in {seg_n} launches (the "
+        f"aggregation and the gathers' backward), segment_sum_backward "
+        f"{seg_b:.2f} ms, other {total - gemm - seg_f - seg_b:.1f} ms; no "
+        f"{INDEXING_BWD_KERNEL} kernel")
+    log(f"[train_breakdown] gathers' backward: {gather_ms:.2f} ms of device "
+        f"time under {len(gather)} {GATHER_BWD_NODE} nodes, {gather_n} "
+        f"segment_sum_kernel launches ({gather_ms / total:.2%} of the "
+        f"step's device time) | {card}")
+    for k, ms, n in kernels[:10]:
         log(f"[train_breakdown]   {ms:10.3f} ms  x{n:<5d} {k[:110]}")
-    return row
+    return rows
 
 
 def _window_pairs(s: int, window) -> int:
@@ -1422,6 +1565,7 @@ def main() -> int:
     dev = torch.device("cuda")
     counters = {"segment_sum": seg_ops.segment_sum_prepared,
                 "segment_sum_backward": seg_ops.segment_sum_backward,
+                "gather_rows_backward": seg_ops.gather_rows,
                 "knn_topk": knn_ops.topk_neighbors,
                 "flash_attention": fa_ops.mha}
     by_phase = {name: {} for name in counters}
@@ -1504,10 +1648,11 @@ def main() -> int:
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later
     # flash-attention profiles in the same process
-    kernels.append(train_phases(dev, card, reset_counts, read_counts,
+    kernels.extend(train_phases(dev, card, reset_counts, read_counts,
                                 by_phase))
 
     main_phase = {"segment_sum": "serve", "segment_sum_backward": "train",
+                  "gather_rows_backward": "train",
                   "knn_topk": "serve", "flash_attention": "llm_serve"}
     for kr in kernels:
         kr["launches"] = by_phase[kr["name"]][main_phase[kr["name"]]]

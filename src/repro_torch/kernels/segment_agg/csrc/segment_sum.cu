@@ -2,6 +2,13 @@
 // receiver-sorted edges: out[n] = sum over j in [row_ptr[n], row_ptr[n+1])
 // of msg[perm[j]], in f32, for msg (E, D) f32 and out (N, D) f32.
 //
+// The same kernel is also the transpose of a row gather, for training: the
+// gradient of h[idx] with respect to h is the segment-sum of the gathered
+// rows' gradient over a CSR sorted by idx (a sender CSR for h[senders], the
+// receiver CSR for h[receivers]). Autograd hands that gradient over as a
+// column slice of the gradient of torch.cat, so msg rows are `stride` float4s
+// apart and are read in place; the aggregation passes stride == cols.
+//
 // Replaces the TPU kernel `_agg_kernel` / `segment_agg_call` in
 // src/repro/kernels/segment_agg/kernel.py. That kernel computes the sum as a
 // one-hot MXU matmul over edges packed into a fixed per-node-block budget,
@@ -18,7 +25,8 @@
 // edge order. No atomics and no budget: the result does not depend on run
 // order, every node row is written (zeros for an empty run), and the sum
 // order equals the plain version's. Masked padding edges are left out of the
-// CSR by the caller, so no node carries a long serial run.
+// CSR by the caller, so no node carries a long serial run. A strided msg
+// costs no more bytes: only the slice's D columns of each row are read.
 #include <cuda_runtime.h>
 
 namespace {
@@ -34,7 +42,7 @@ __global__ void segment_sum_kernel(const float4* __restrict__ msg,
                                    const int* __restrict__ perm,
                                    const int* __restrict__ row_ptr,
                                    float4* __restrict__ out, int n_nodes,
-                                   int cols) {
+                                   int cols, int stride) {
   const int node = blockIdx.x * blockDim.y + threadIdx.y;
   if (node >= n_nodes) return;
   const int beg = row_ptr[node];
@@ -42,7 +50,7 @@ __global__ void segment_sum_kernel(const float4* __restrict__ msg,
   for (int c = threadIdx.x; c < cols; c += blockDim.x) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = beg; j < end; ++j) {
-      add4(acc, msg[static_cast<size_t>(perm[j]) * cols + c]);
+      add4(acc, msg[static_cast<size_t>(perm[j]) * stride + c]);
     }
     out[static_cast<size_t>(node) * cols + c] = acc;
   }
@@ -101,20 +109,23 @@ __global__ void segment_sum_backward_kernel(
 
 }  // namespace
 
-// msg (E, d) f32, perm (>= row_ptr[n_nodes],) i32, row_ptr (n_nodes + 1,)
-// i32, out (n_nodes, d) f32, all contiguous; d % 4 == 0 and msg, out 16-byte
-// aligned. Returns cudaGetLastError().
+// msg (E, d) f32 with rows `stride` floats apart, perm (>= row_ptr[n_nodes],)
+// i32, row_ptr (n_nodes + 1,) i32, out (n_nodes, d) f32 contiguous;
+// d % 4 == 0, stride % 4 == 0, stride >= d, msg and out 16-byte aligned.
+// Returns cudaGetLastError().
 extern "C" int segment_sum_f32(const void* msg, const void* perm,
                                const void* row_ptr, void* out, int n_nodes,
-                               int d, int threads_x, int threads_y,
-                               void* stream) {
-  if (d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                               int d, int stride, int threads_x,
+                               int threads_y, void* stream) {
+  if (d % 4 != 0 || stride % 4 != 0 || stride < d) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 block(threads_x, threads_y);
   const dim3 grid((n_nodes + threads_y - 1) / threads_y);
   segment_sum_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(msg), static_cast<const int*>(perm),
       static_cast<const int*>(row_ptr), static_cast<float4*>(out), n_nodes,
-      d / 4);
+      d / 4, stride / 4);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,11 +3,12 @@
 
 Encoder -> ``n_mp_layers`` message-passing layers (distinct params, residual
 edge and node updates, MLPs with trailing LayerNorm) -> decoder. The
-processor's receiver scatter-add goes through ``kernels.segment_agg``: its
-CSR is built once per graph (:func:`make_aggregator`), outside the layer
-loop, and each layer runs the CUDA kernel on the card or its plain version
-on the CPU, forward and backward. ``masked_mse`` and ``loss_fn`` are the
-training loss.
+processor's receiver scatter-add and the backward of its two edge gathers
+(``h[senders]``, ``h[receivers]``) go through ``kernels.segment_agg``: a
+receiver CSR and a sender CSR are built once per graph, outside the layer
+loop and the remat boundary, and each layer runs the CUDA kernels on the
+card or their plain versions on the CPU. ``masked_mse`` and ``loss_fn`` are
+the training loss.
 """
 from __future__ import annotations
 
@@ -54,7 +55,10 @@ class MeshGraphNet(nn.Module):
         """
         n_nodes = node_feats.shape[0]
         send, recv = senders.long(), receivers.long()
-        aggregate = make_aggregator(receivers, n_nodes, edge_mask)
+        # the CSRs, once per graph: masked edges are left out of both (their
+        # messages, and their rows of the gathers' gradient, are zero)
+        send_csr = segops.prepare(senders, n_nodes, edge_mask)
+        recv_csr = segops.prepare(receivers, n_nodes, edge_mask)
         m = None if edge_mask is None else edge_mask[:, None].to(
             edge_feats.dtype)
         h = self.node_encoder(node_feats)
@@ -63,11 +67,13 @@ class MeshGraphNet(nn.Module):
             e = e * m
 
         def mp_layer(pe, pn, h, e):
-            msg_in = torch.cat([h[send], h[recv], e], dim=-1)
+            msg_in = torch.cat([segops.gather_rows(h, send, send_csr),
+                                segops.gather_rows(h, recv, recv_csr), e],
+                               dim=-1)
             e_new = e + pe(msg_in)
             if m is not None:
                 e_new = e_new * m
-            agg = aggregate(e_new)
+            agg = segops.segment_sum_prepared(recv_csr, e_new)
             return h + pn(torch.cat([h, agg], dim=-1)), e_new
 
         # activation checkpointing (paper SV-D), as jax.checkpoint with
@@ -131,18 +137,6 @@ def init(generator: torch.Generator, cfg: GNNConfig,
     """Random weights from ``generator`` (a CPU generator, so the numbers do
     not depend on the device), moved to ``device`` (default: the card)."""
     return MeshGraphNet(cfg, generator=generator).to(resolve(device))
-
-
-def make_aggregator(receivers, n_nodes: int,
-                    edge_mask: Optional[torch.Tensor] = None):
-    """Build ``agg(messages) -> (n_nodes, D)`` once per graph.
-
-    The CSR (stable argsort of receivers, bincount/cumsum row pointers) is
-    built here, outside the layer loop. Masked edges are left out of the CSR
-    (their messages are zeroed before aggregation, so the sum is the same).
-    """
-    prep = segops.prepare(receivers, n_nodes, edge_mask)
-    return lambda msgs: segops.segment_sum_prepared(prep, msgs)
 
 
 def masked_mse(pred, target, mask, denom=None):

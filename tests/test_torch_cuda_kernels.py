@@ -185,6 +185,96 @@ def test_segment_sum_backward_kernel_reads_a_column_slice(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,e,d,stride", [(300, 2000, 64, 64),
+                                          (300, 2000, 64, 192),
+                                          (97, 700, 12, 36),
+                                          (64, 800, 512, 1536)])
+def test_segment_sum_kernel_reads_strided_rows(cuda, n, e, d, stride):
+    """Bit-equal at stride == cols (the aggregation) and stride > cols (a
+    column slice of a wider tensor, as the gathers' gradient), read in
+    place: the wrapper launches on the slice itself."""
+    msg, recv, mask = (t.to(cuda) for t in _seg_case(n + d, n, e, d))
+    wide = torch.randn((e, stride), generator=torch.Generator().manual_seed(
+        stride)).to(cuda)
+    wide[:, stride - d:] = msg
+    view = wide[:, stride - d:]
+    assert view.stride() == (stride, 1)
+    prep = seg_ops.prepare(recv, n, mask)
+    before = seg_ops.segment_sum_prepared.launches
+    got = seg_ops.segment_sum_prepared(prep, view)
+    assert seg_ops.segment_sum_prepared.launches == before + 1
+    want = seg_ref.segment_sum_csr(msg, prep.perm, prep.row_ptr)
+    assert torch.equal(got, want)
+    assert seg_ops._float4_rows(view) is view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_rows_gradient_on_the_card_matches_the_cpu(cuda, masked):
+    """h[send] and h[recv] through gather_rows into torch.cat, as in the
+    message-passing layer: the gradient of h on the card equals the CPU's
+    bit for bit (both sum each CSR run in edge order), with one kernel
+    launch per gather, each on its column slice of the cat's gradient."""
+    n, e, d = 300, 2000, 64
+    _, recv, mask = _seg_case(4, n, e, d)
+    rng = np.random.default_rng(5)
+    send = torch.from_numpy(np.where(mask.numpy(), rng.integers(0, n, e),
+                                     0).astype(np.int32))
+    if not masked:
+        mask = None
+    h0 = torch.randn((n, d), generator=torch.Generator().manual_seed(6))
+    e_feat = torch.randn((e, d), generator=torch.Generator().manual_seed(7))
+    g = torch.randn((e, 3 * d), generator=torch.Generator().manual_seed(8))
+    if masked:
+        g = g * mask[:, None]
+    grads = {}
+    for dev in ("cpu", cuda):
+        s, r = send.to(dev), recv.to(dev)
+        m = None if mask is None else mask.to(dev)
+        h = h0.detach().to(dev).requires_grad_()
+        before = seg_ops.gather_rows.launches
+        msg = torch.cat([
+            seg_ops.gather_rows(h, s.long(), seg_ops.prepare(s, n, m)),
+            seg_ops.gather_rows(h, r.long(), seg_ops.prepare(r, n, m)),
+            e_feat.to(dev)], -1)
+        msg.backward(g.to(dev))
+        assert seg_ops.gather_rows.launches == before + (
+            2 if dev == cuda else 0)
+        grads[str(dev)] = h.grad.cpu()
+    assert torch.equal(grads["cuda"], grads["cpu"])
+    assert grads["cuda"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["misaligned", "transposed",
+                                    "odd_stride"])
+def test_gather_rows_backward_copies_what_it_cannot_read(cuda, layout):
+    """A gradient the kernel cannot read as float4 rows (misaligned,
+    stride(1) != 1, a row stride not a multiple of 4) is copied once and
+    still goes through the kernel, bit-equal; never the plain version."""
+    n, e, d = 97, 700, 16
+    msg, recv, mask = (t.to(cuda) for t in _seg_case(9, n, e, d))
+    if layout == "misaligned":
+        buf = torch.empty(e * d + 1, device=cuda)
+        grad = buf[1:].view(e, d)
+        grad.copy_(msg)
+        assert grad.data_ptr() % 16
+    elif layout == "transposed":
+        grad = msg.t().contiguous().t()
+        assert grad.stride(1) != 1
+    else:
+        grad = torch.zeros((e, d + 2), device=cuda)[:, :d]
+        grad.copy_(msg)
+        assert grad.stride(0) % 4
+    prep = seg_ops.prepare(recv, n, mask)
+    before = seg_ops.gather_rows.launches
+    got = seg_ops.gather_rows_backward(prep, grad)
+    assert seg_ops.gather_rows.launches == before + 1
+    want = seg_ref.segment_sum_csr(msg, prep.perm, prep.row_ptr)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_segment_sum_gradient_on_the_card_matches_the_cpu(cuda):
     """Autograd through SegmentSum on the card: the messages' gradient and,
     through a small MeshGraphNet, every parameter's gradient equal the
@@ -222,12 +312,15 @@ def test_segment_sum_gradient_on_the_card_matches_the_cpu(cuda):
     cpu = mgn.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     card = copy.deepcopy(cpu).to(cuda)
     before = (seg_ops.segment_sum_prepared.launches,
-              seg_ops.segment_sum_backward.launches)
+              seg_ops.segment_sum_backward.launches,
+              seg_ops.gather_rows.launches)
     for model, dev in ((cpu, "cpu"), (card, cuda)):
         mgn.loss_fn(model, {k: v.to(dev) for k, v in batch.items()}).backward()
-    # remat: each layer's forward runs twice on the card, its backward once
+    # remat: each layer's forward runs twice on the card, its backward once;
+    # the two gathers' backward runs the segment-sum kernel, counted apart
     assert seg_ops.segment_sum_prepared.launches == before[0] + 4
     assert seg_ops.segment_sum_backward.launches == before[1] + 2
+    assert seg_ops.gather_rows.launches == before[2] + 4
     for (name, pc), (_, pg) in zip(cpu.named_parameters(),
                                    card.named_parameters()):
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-5,

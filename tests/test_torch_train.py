@@ -149,7 +149,9 @@ def test_partition_loss_and_grads_match_jax(data):
 def test_remat_on_equals_off_and_counts_the_recompute(data, monkeypatch):
     """Remat recomputes each layer in the backward pass: the same loss, the
     same gradients to REMAT_TOL, and twice the segment-sum forwards
-    (2 x L x P) against L x P backwards."""
+    (2 x L x P) against L x P backwards. The backward of the two edge
+    gathers is a segment-sum too: 2 x L x P more calls of the plain
+    segment-sum, with remat on or off."""
     calls = {"fwd": 0, "bwd": 0}
     fwd, bwd = seg_ref.segment_sum_csr, seg_ref.segment_sum_csr_backward
 
@@ -167,7 +169,7 @@ def test_remat_on_equals_off_and_counts_the_recompute(data, monkeypatch):
     for remat in (True, False):
         calls.update(fwd=0, bwd=0)
         out[remat] = _port_loss_and_grads(_model(data, remat=remat), ps)
-        assert calls["fwd"] == (2 if remat else 1) * n_layers * n_parts
+        assert calls["fwd"] == ((2 if remat else 1) + 2) * n_layers * n_parts
         assert calls["bwd"] == n_layers * n_parts
     assert out[True][0] == out[False][0]
     _close(out[True][1], out[False][1], atol=REMAT_TOL, rtol=REMAT_TOL)
