@@ -18,9 +18,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    65,536-point bucket, full width; flash attention: gemma2-9b prefill of
    2 x 4,608 tokens, with the 4,096 window and without, softcap 50, bf16
    through the wgmma kernel and f32 through the CUDA-core kernel; bf16 also
-   per row, where the plain version with a key tile dropped must fail), and
-   time each (f32 flash too, by CUDA events: its time, its bound at 67
-   TFLOP/s and ``flex_attention`` compiled in f32): the kernel's device
+   per row, where the plain version with a key tile dropped must fail; f32
+   per row logged), and time each (f32 flash too, by CUDA events: its time,
+   its bound at 67 TFLOP/s, its TFLOP/s, ``flex_attention`` compiled in
+   f32, and its ``torch.profiler`` device time if a profile of 10 launches
+   holds them all, else how many it held): the kernel's device
    time (``device_ms``, ``torch.profiler`` by kernel name), the wrapper's
    call on CUDA events (``call_ms``: host work plus kernels), the plain
    version, one library call for the same
@@ -156,8 +158,10 @@ KEY_TILE = 64    # the wgmma kernel's K/V tile
 # kernels
 FLASH_WGMMA_KERNEL = "flash_wgmma_kernel"
 FLASH_KERNEL_RE = re.compile(r"flash_(wgmma_)?kernel")
-# calls timed of flex_attention compiled in f32
+# calls timed of flex_attention compiled in f32, and profiled of the f32
+# kernel
 F32_REPS = 3
+F32_PROFILE_REPS = 10
 # SASS that shows the bf16 flash kernel runs on the tensor cores and TMA
 FLASH_SASS = ("HGMMA", "UTMALDG")
 # the segment-sum backward kernel's name in the profiler
@@ -243,16 +247,9 @@ def device_rows(averages):
                   key=lambda r: -r[1])
 
 
-def device_ms(fn, reps: int = 50, kernel=None) -> float:
-    """Device milliseconds per call of ``fn``, from ``torch.profiler`` over
-    ``reps`` back-to-back calls after two unprofiled ones: the self device
-    time of the kernel whose name matches the regex ``kernel`` (one launch a
-    call), or, with no ``kernel``, of every device kernel the calls launch.
-    Each kernel counts as its mean time per launch held in the profile, times
-    its launches per call: a profile that holds fewer launches than were made
-    (seen with the flash kernels) still gives the time of a call."""
-    import math
-
+def profiled_rows(fn, reps: int):
+    """``device_rows`` of a ``torch.profiler`` run over ``reps``
+    back-to-back calls of ``fn``, after two unprofiled ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -263,7 +260,20 @@ def device_ms(fn, reps: int = 50, kernel=None) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = device_rows(prof.key_averages())
+    return device_rows(prof.key_averages())
+
+
+def device_ms(fn, reps: int = 50, kernel=None) -> float:
+    """Device milliseconds per call of ``fn``, from ``torch.profiler`` over
+    ``reps`` back-to-back calls after two unprofiled ones: the self device
+    time of the kernel whose name matches the regex ``kernel`` (one launch a
+    call), or, with no ``kernel``, of every device kernel the calls launch.
+    Each kernel counts as its mean time per launch held in the profile, times
+    its launches per call: a profile that holds fewer launches than were made
+    (seen with the flash kernels) still gives the time of a call."""
+    import math
+
+    rows = profiled_rows(fn, reps)
     seen = [r for r in rows if kernel is None or re.search(kernel, r[0])]
     launches = sum(n for *_, n in seen)
     if not seen or (kernel is not None and launches > reps):
@@ -1248,8 +1258,11 @@ def flash_check(dev, card) -> dict:
                     f"flash_attention {dname} window={window}: max abs "
                     f"error {err}, beyond {atol} + {rtol} |want|")
             del diff
-            if dname == "bfloat16":
-                rows = row_rel_err(got, want)
+            rows = row_rel_err(got, want)
+            if dname == "float32":
+                row_errs[f"float32 {window}"] = dict(
+                    max=float(rows.max()), median=float(rows.median()))
+            else:
                 wrong = plain_dropping_a_tile(qf, kf, vf, gs, window, cap)
                 wrong = row_rel_err(
                     wrong.reshape(b, h, s, hd).transpose(1, 2), want)
@@ -1257,7 +1270,7 @@ def flash_check(dev, card) -> dict:
                     max=float(rows.max()), median=float(rows.median()),
                     tile_dropped_max=float(wrong.max()),
                     tile_dropped_median=float(wrong.median()))
-                del rows, wrong
+                del wrong
                 if not e["max"] <= FLASH_ROW_RTOL:
                     raise RuntimeError(
                         f"flash_attention bf16 window={window}: row relative "
@@ -1268,29 +1281,44 @@ def flash_check(dev, card) -> dict:
                         "version with one key tile per row dropped passes "
                         f"the row check ({e['tile_dropped_max']} <= "
                         f"{FLASH_ROW_RTOL}); it cannot fail a wrong kernel")
-            del got
+            del got, rows
 
             def kernel():
                 return fa_ops.flash_attention(qf, kf, vf, group_size=gs,
                                               causal=True, window=window,
                                               softcap=cap)
+
+            def plain():
+                return fa_ref.attention(qf, kf, vf, group_size=gs,
+                                        causal=True, window=window,
+                                        softcap=cap)
             row = by_window.setdefault(str(window), {})
             row[f"{dname}_ms"] = time_cuda(kernel, 5)
             pairs = _window_pairs(s, window)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             if dname != "bfloat16":
                 # the f32 kernel against its bound at the f32 peak, and
-                # flex_attention compiled in f32 beside it. Both by CUDA
-                # events: torch.profiler held none of 3 launches of this
-                # 31 ms kernel, and the wrapper adds only an empty_like
-                # before its one launch
+                # flex_attention compiled in f32 beside it, both by CUDA
+                # events (the wrapper adds only an empty_like before its one
+                # launch). A torch.profiler run may hold fewer launches than
+                # were made (4-10 of 10 seen): its device time goes on the
+                # row only if the profile holds every launch
                 n_bytes = 4 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-                bound = bound_ms(n_bytes, 4.0 * hd * pairs * b * h,
-                                 F32_FLOPS_PER_S)
+                flops = 4.0 * hd * pairs * b * h
+                bound = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+                held = [(ms, n) for name, ms, n in
+                        profiled_rows(kernel, F32_PROFILE_REPS)
+                        if FLASH_KERNEL_RE.search(name)]
+                n_held = sum(n for _, n in held)
                 row.update(float32_bound_ms=bound[0],
                            float32_bound_by=bound[1],
                            float32_fraction_of_bound=bound[0]
-                           / row["float32_ms"])
+                           / row["float32_ms"],
+                           float32_tflops=flops / row["float32_ms"] / 1e9,
+                           float32_profile_launches=n_held,
+                           float32_device_ms=sum(ms for ms, _ in held)
+                           / n_held if n_held == F32_PROFILE_REPS else None,
+                           float32_plain_ms=time_cuda(plain, 3, warmup=1))
                 flex, out, row["float32_flex_first_call_s"] = \
                     flex_yardstick(qt, kt, vt, cap, window)
                 row["float32_flex_max_abs_err"] = float(
@@ -1310,9 +1338,7 @@ def flash_check(dev, card) -> dict:
             row.update(
                 device_ms=device_ms(kernel, 10, FLASH_WGMMA_KERNEL),
                 call_ms=time_cuda(kernel, 10),
-                plain_ms=time_cuda(lambda: fa_ref.attention(
-                    qf, kf, vf, group_size=gs, causal=True, window=window,
-                    softcap=cap), 3, warmup=1),
+                plain_ms=time_cuda(plain, 3, warmup=1),
                 sdpa_ms=time_cuda(lambda: F.scaled_dot_product_attention(
                     qt, kr, vr, attn_mask=mask, scale=1.0 / math.sqrt(hd)),
                     10),
@@ -1341,7 +1367,11 @@ def flash_check(dev, card) -> dict:
             f"{row['faster_than_sdpa']}); f32 {row['float32_ms']:.3f} ms "
             f"(events; bound {row['float32_bound_ms']:.3f} ms by "
             f"{row['float32_bound_by']}, "
-            f"{row['float32_fraction_of_bound']:.3f} of it), flex_attention "
+            f"{row['float32_fraction_of_bound']:.3f} of it, "
+            f"{row['float32_tflops']:.2f} TFLOP/s; the profile held "
+            f"{row['float32_profile_launches']} of {F32_PROFILE_REPS} "
+            f"launches, device {row['float32_device_ms']} ms; plain "
+            f"{row['float32_plain_ms']:.3f} ms), flex_attention "
             f"f32 {row['float32_flex_ms']:.3f} ms "
             f"(events; first call "
             f"{row['float32_flex_first_call_s']:.1f} s, max abs err vs plain "
@@ -1355,7 +1385,10 @@ def flash_check(dev, card) -> dict:
             f"window={w}: kernel max {e['max']:.3g} median {e['median']:.3g}, "
             f"plain with a key tile dropped max {e['tile_dropped_max']:.3g} "
             f"median {e['tile_dropped_median']:.3g}"
-            for w, e in row_errs.items()))
+            for w, e in row_errs.items() if "float32" not in w))
+    log("[kernels] flash_attention f32 row relative error: " + "; ".join(
+        f"window={w.split()[1]}: max {e['max']:.3g} median "
+        f"{e['median']:.3g}" for w, e in row_errs.items() if "float32" in w))
 
     def mean(key):
         return sum(r[key] for r in by_window.values()) / len(by_window)
@@ -1367,7 +1400,7 @@ def flash_check(dev, card) -> dict:
                        "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:30",
         max_abs_err=max(e for c, e in errs.items() if "bfloat16" in c),
-        max_abs_err_by_case=errs, row_rel_err_bf16=row_errs,
+        max_abs_err_by_case=errs, row_rel_err=row_errs,
         ms=mean("device_ms"), device_ms=mean("device_ms"),
         call_ms=mean("call_ms"), plain_ms=mean("plain_ms"),
         bound_ms=mean("bound_ms"), bound_by=by_window["None"]["bound_by"],
@@ -1379,6 +1412,8 @@ def flash_check(dev, card) -> dict:
         float32_bound_ms=mean("float32_bound_ms"),
         float32_fraction_of_bound=mean("float32_bound_ms")
         / mean("float32_ms"),
+        float32_tflops=mean("float32_tflops"),
+        float32_plain_ms=mean("float32_plain_ms"),
         float32_library_ms=mean("float32_flex_ms"),
         by_window=by_window,
         shape=f"bf16 B={b} S={s} H={h} KV={kvh} hd={hd} softcap={cap}; "

@@ -4,8 +4,8 @@
 //                . v[bh / group, j]
 // with the mask j <= i (causal) and i - j < window, f32 accumulation, and
 // the products on the bf16 tensor cores. q, k, v, out are (rows, S, 256),
-// contiguous; Skv == Sq. The f32 path is the CUDA-core kernel in
-// flash_attention.cu.
+// contiguous; Skv == Sq. The f32 path is the register-tiled CUDA-core
+// kernel in flash_attention.cu.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py, which walks (128, hd) query

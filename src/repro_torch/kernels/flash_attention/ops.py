@@ -2,7 +2,9 @@
 version for tensors on the CPU (dispatch by device; there is no other
 switch). On the card, bf16 goes to the tensor-core kernel
 (``csrc/flash_attention_wgmma.cu``: wgmma, TMA-fed K/V ring) and f32 to the
-CUDA-core kernel (``csrc/flash_attention.cu``); nothing falls back.
+CUDA-core kernel (``csrc/flash_attention.cu``: IEEE f32 FMAs, register
+tiles of S and O per thread, cp.async-fed K/V tiles); nothing falls back.
+``ablate`` times that kernel's parts on the card.
 
 ``flash_attention`` takes flattened heads, ``mha`` the model layout (the
 reshapes of ``repro.kernels.flash_attention.ops.mha``). ``mha.launches``

@@ -337,12 +337,15 @@ def _fa_case(seed: int, b: int, s: int, h: int, kvh: int, hd: int = 256):
 
 
 # (dtype, B, S, H, KV, causal, window, softcap). bf16 runs the wgmma kernel
-# (128-row blocks, 64-key tiles), f32 the CUDA-core kernel (16-row blocks,
-# 64-key tiles, 32-key chunks). S = 640 with window 100 skips whole tiles
-# before the window; S = 200, 300 and 1,000 end in a ragged tile, and S = 200
-# inside one 128-row block; window 300 at S = 1,000 puts the window's edge
-# inside a key tile; S = 4,608 with window 4,096 is the serve shape at B = 1,
-# H = 4.
+# (128-row blocks, 64-key tiles), f32 the CUDA-core kernel (64-row blocks of
+# 256 threads, 64-key tiles, register tiles of S and O). S = 640 with window
+# 100 skips whole tiles before the window; S = 200, 300 and 1,000 end in a
+# ragged tile, and S = 200 inside one 128-row block; window 300 at S = 1,000
+# puts the window's edge inside a key tile; S = 4,608 with window 4,096 is
+# the serve shape at B = 1. The f32 edges of its tiling: S = 1 and 17 (under
+# one tile), 65 and 129 (one row past a 64- or 128-row block), window 1
+# (each row sees only itself), window 40 (under a block's rows), non-causal
+# with a window, group 8.
 FA_CASES = [
     ("bfloat16", 2, 300, 4, 2, True, None, 50.0),
     ("float32", 2, 300, 4, 2, True, None, 50.0),
@@ -356,6 +359,15 @@ FA_CASES = [
     ("bfloat16", 1, 130, 2, 2, False, 64, 50.0),
     ("bfloat16", 1, 256, 2, 2, True, None, 50.0),
     ("bfloat16", 2, 640, 4, 2, True, None, None),
+    ("float32", 1, 1, 2, 1, True, None, 50.0),
+    ("float32", 2, 17, 4, 2, True, None, 50.0),
+    ("float32", 1, 65, 2, 1, True, None, 50.0),
+    ("float32", 1, 129, 4, 2, True, 100, 50.0),
+    ("float32", 1, 300, 2, 1, True, 1, 50.0),
+    ("float32", 1, 300, 2, 1, True, 40, 50.0),
+    ("float32", 1, 257, 2, 1, False, 40, 50.0),
+    ("float32", 1, 300, 8, 1, True, None, 50.0),
+    ("float32", 1, 4608, 2, 1, True, 4096, 50.0),
 ]
 # Elementwise atol and rtol. f32: the same function, sums in another order.
 # bf16: the tolerance of tests/test_kernels.py.

@@ -25,6 +25,19 @@ CASES = [
     (2, 384, 384, 8, 8, 64, True, 128, 30.0),         # everything at once
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The card's f32 kernel is built for hd = 256 only, with 64-row blocks and
+# 64-key tiles: its plain version at that width, over the edges of that
+# tiling (the card tests hold the kernel to the plain version there).
+EDGE_CASES = [
+    (1, 1, 1, 2, 1, 256, True, None, 50.0),        # S = 1
+    (2, 17, 17, 4, 2, 256, True, None, 50.0),      # under one tile
+    (1, 65, 65, 2, 1, 256, True, None, 50.0),      # one row past 64
+    (1, 129, 129, 4, 2, 256, True, 100, 50.0),     # one row past 128
+    (1, 200, 200, 2, 1, 256, True, 1, 50.0),       # each row sees itself
+    (1, 160, 160, 2, 1, 256, True, 40, 50.0),      # window under 64 rows
+    (1, 150, 150, 2, 1, 256, False, 40, 50.0),     # non-causal window
+    (1, 96, 96, 8, 1, 256, True, None, 50.0),      # group 8
+]
 
 
 def _inputs(case, seed):
@@ -73,6 +86,30 @@ def test_mha_matches_jax_ref(case, dtype):
                          ids=["gqa", "everything"])
 def test_mha_matches_jax_pallas_interpret(case):
     q, k, v = _inputs(case, 10 + CASES.index(case))
+    *_, causal, window, cap = case
+    want = np.asarray(jfa_ops.mha(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window, softcap=cap,
+                                  interpret=True))
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"), want,
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("case", EDGE_CASES,
+                         ids=["s1", "s17", "s65", "s129", "window1",
+                              "window40", "noncausal_window", "group8"])
+def test_mha_matches_jax_ref_at_kernel_width(case):
+    q, k, v = _inputs(case, 20 + EDGE_CASES.index(case))
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"),
+                               _jax_ref(q, k, v, case, jnp.float32),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_mha_matches_jax_pallas_interpret_at_kernel_width():
+    """Group 8 at hd = 256 against the Pallas kernel in interpret mode (S =
+    96 is one of its blocks)."""
+    case = EDGE_CASES[-1]
+    q, k, v = _inputs(case, 30)
     *_, causal, window, cap = case
     want = np.asarray(jfa_ops.mha(jnp.asarray(q), jnp.asarray(k),
                                   jnp.asarray(v), causal=causal,
