@@ -52,6 +52,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    included;
 6. breakdown: where one 65,536-point request's time goes, and one row's
    time through each bucket's pipeline;
+12. the serving engine at full width (after phase 6, same weights): (a) the
+   4 requests of phase 5 through ``flush(async_mode=False)`` and
+   ``flush(async_mode=True)`` of two servers, fields bit-equal to each
+   other and to phase 5's, the first 65,536-point dispatch's event still
+   pending when ``_dispatch`` returns (the host's lead over the card, the
+   flush times, ``stage_report()`` and peak memory logged), and the
+   operations one 16,384-point row queues on the card (``torch.profiler``)
+   logged; (b) the auto ladder on the same traffic (ladder logged, fields
+   bit-equal), then ``max_live_buckets=1``: evict and rebuild, bit-equal,
+   no new calibration; (c) the background worker, ``start(deadline_s=0.05)``,
+   the requests submitted from 2 threads in turn and collected with
+   ``result(rid, timeout=...)``, bit-equal, ``health()`` alive, then not
+   after ``stop()``, no waiter left; with telemetry on, every host stage
+   histogram observed, ``compile``/``cache_load`` empty, the trace
+   exported under build/ and removed; (d) on the 16,384-point bucket: a
+   harvest corrupted in one row of 2 errors that request only (the other
+   bit-equal), a ``bucket.build`` failure quarantines 16,384 and the
+   65,536 bucket serves its batch (one fallback), and an expired request
+   and one shed by admission (``max_queue_depth=1``) launch nothing; (e)
+   15 segment-sum and 3 kNN launches per row run, and no other kernel,
+   in every part;
 7. LLM whole path: gemma2-9b at full width cut to 2 layers (one local and
    one global), f32, initialised once on the card and copied to the CPU;
    2 requests of 128 tokens prefilled and decoded 4 steps on both; tokens
@@ -93,7 +114,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    kernels launched under ``GatherRowsBackward`` is logged on a line of its
    own.
 
-The GNN serving phases (3-6) run inside one function, so their tensors are
+The GNN serving phases (3-6, 12) run inside one function, so their tensors are
 freed before the LLM phases (the flash row of 3, then 7 and 8); the training
 phases (the backward row of 3, then 9 to 11) run last, in another. It then
 prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
@@ -111,6 +132,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -539,14 +561,16 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
         f"{peak_gb:.2f} GB | launches segment_sum "
         f"{by_phase['segment_sum']['serve']}, knn_topk "
         f"{by_phase['knn_topk']['serve']} for {rows} requests run | {card}")
-    # 2 requests per bucket: p50 and p95 are the mean and near the larger of
-    # the two, not a spread. submit->result includes the wait behind the
-    # flush's earlier (smaller-bucket) batch; batch run does not.
+    # 2 requests per bucket: the mean is what an exact p50 of two is; the
+    # histograms' p50 and p95 interpolate inside a ~23 % bucket. submit->
+    # result includes the wait behind the flush's earlier (smaller-bucket)
+    # batch; batch run (CUDA events around the batch) does not.
     for n, bb in rep["by_bucket"].items():
         log(f"[serve] bucket {n}: {bb['requests']} requests | "
-            f"submit->result p50 {bb['p50_ms']:.1f} ms p95 "
-            f"{bb['p95_ms']:.1f} ms | batch run p50 {bb['run_p50_ms']:.1f} "
-            f"ms p95 {bb['run_p95_ms']:.1f} ms")
+            f"submit->result mean {bb['mean_ms']:.1f} ms (p50 "
+            f"{bb['p50_ms']:.1f}, p95 {bb['p95_ms']:.1f}) | batch run mean "
+            f"{bb['run_mean_ms']:.1f} ms (p50 {bb['run_p50_ms']:.1f}, p95 "
+            f"{bb['run_p95_ms']:.1f})")
 
     # 6. breakdown of one 65,536-point request ------------------------------
     b = server._buckets[n_big]
@@ -594,7 +618,294 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
     log("[breakdown] one row through a bucket's pipeline, seconds: "
         + ", ".join(f"{n} points {t:.4f}" for n, t in row_s.items()))
 
+    # 12. the serving engine ------------------------------------------------
+    serve_engine(dev, card, cfg, server.params, reqs,
+                 {r.request_id: r for r in results}, reset_counts,
+                 read_counts, by_phase)
     return kernels
+
+
+def _same_result(got, want, what: str):
+    if got.error is not None or not (
+            np.array_equal(got.points, want.points)
+            and np.array_equal(got.fields, want.fields)):
+        diff = (np.abs(got.fields - want.fields).max()
+                if got.fields.shape == want.fields.shape else "shape")
+        raise RuntimeError(f"engine: {what}: request {got.request_id} is not "
+                           f"bit-equal to the reference (error {got.error!r}, "
+                           f"max abs diff {diff})")
+
+
+def serve_engine(dev, card, cfg, params, reqs, phase5, reset_counts,
+                 read_counts, by_phase):
+    """Phase 12 (see the module docstring): the rest of ``GNNServer`` on the
+    card, on phase 5's weights and traffic (request ids 0-3: cars 1-4 at
+    16,384, 65,536, 16,384, 65,536 points)."""
+    import threading
+
+    import torch
+    from repro_torch.launch.serve_gnn import SERVE_STAGES, GNNServer
+    from repro_torch.resilience import FAULTS
+
+    t_phase = time.perf_counter()
+    n_small, n_big = BUCKETS
+    rows_total = 0
+
+    def server(buckets=BUCKETS, c=cfg, **kw):
+        return GNNServer(c, buckets, max_batch=2, seed=0, params=params, **kw)
+
+    def counted(phase, rows):
+        """Every kernel of the path launched per row run, no other."""
+        nonlocal rows_total
+        torch.cuda.synchronize()
+        read_counts(phase)
+        want = {name: 0 for name in by_phase}
+        want.update(segment_sum=cfg.n_mp_layers * rows, knn_topk=3 * rows)
+        got = {name: by_phase[name][phase] for name in by_phase}
+        if got != want:
+            raise RuntimeError(f"engine {phase}: launches {got}, expected "
+                               f"{want} for {rows} rows")
+        rows_total += rows
+        reset_counts()
+
+    # (a) sync against async ------------------------------------------------
+    flushed = {}
+    for mode, async_mode in (("sync", False), ("async", True)):
+        srv = server()
+        probe = {}
+        orig_dispatch, orig_harvest = srv._dispatch, srv._harvest
+
+        def dispatch(b, *a, probe=probe, orig=orig_dispatch):
+            t0 = time.perf_counter()
+            fl = orig(b, *a)
+            if b.n_points == n_big and "fl" not in probe:
+                probe.update(fl=fl, t_ret=time.perf_counter(),
+                             dispatch_s=time.perf_counter() - t0,
+                             pending=not fl.event.query())
+            return fl
+
+        def harvest(fl, probe=probe, orig=orig_harvest):
+            if probe.get("fl") is fl and "lead_s" not in probe:
+                fl.event.synchronize()
+                probe["lead_s"] = time.perf_counter() - probe["t_ret"]
+            return orig(fl)
+
+        srv._dispatch, srv._harvest = dispatch, harvest
+        for v, f, n in reqs:
+            srv.submit(v, f, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = srv.flush(async_mode=async_mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted(f"engine_{mode}", len(reqs))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        flushed[mode] = {r.request_id: r for r in res}
+        if sorted(flushed[mode]) != [0, 1, 2, 3]:
+            raise RuntimeError(f"engine {mode}: results "
+                               f"{sorted(flushed[mode])}")
+        for rid, r in flushed[mode].items():
+            _same_result(r, phase5[rid], f"{mode} flush against phase 5")
+        if not probe.get("pending"):
+            raise RuntimeError(f"engine {mode}: the 65,536-point batch's "
+                               "event was complete when _dispatch returned")
+        stages = srv.stats.stage_report()
+        log(f"[engine] (a) {mode} flush of 4 requests: {wall:.3f} s, peak "
+            f"memory {peak:.2f} GB; first 65,536-point dispatch returned "
+            f"after {probe['dispatch_s']:.4f} s with its event pending, the "
+            f"card finished {probe['lead_s']:.4f} s later | {card}")
+        log(f"[engine] (a) {mode} stages: " + "; ".join(
+            f"{k} n={v['count']} mean {v['mean_ms']:.1f} ms total "
+            f"{v['total_s']:.3f} s" for k, v in stages.items() if v["count"]))
+        by_b = srv.stats.report()["by_bucket"]
+        log(f"[engine] (a) {mode} by bucket: " + "; ".join(
+            f"{n}: submit->result mean {b['mean_ms']:.1f} ms, batch run "
+            f"mean {b['run_mean_ms']:.1f} ms" for n, b in by_b.items()))
+        del srv, res
+    for rid in range(4):
+        _same_result(flushed["async"][rid], flushed["sync"][rid],
+                     "async against sync")
+    ref = flushed["sync"]
+
+    # what one row puts on the card's launch queue (about 1,024 deep)
+    from torch.profiler import ProfilerActivity, profile
+    srv = server((n_small,))
+    p_np, n_np = srv._sample_reference(n_small)
+    row = (torch.from_numpy(p_np[None]).to(dev),
+           torch.from_numpy(n_np[None]).to(dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv._buckets[n_small].infer(params, *row, [n_small])
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    on_card = sum(n for *_, n in device_rows(averages))
+    api = {e.key: e.count for e in averages
+           if re.match(r"cu(da)?(LaunchKernel|Memcpy|Memset)", e.key)}
+    counted("engine_profile", 1)
+    log(f"[engine] one {n_small}-point row: {on_card} operations on the "
+        f"card in its profile; runtime calls {api}")
+    del srv, row
+
+    # (b) the auto ladder, then evict -> rebuild ---------------------------
+    srv = server("auto")
+    for v, f, n in reqs:
+        srv.submit(v, f, n)
+    res = srv.flush()
+    counted("engine_auto", len(reqs))
+    if srv.ladder() != BUCKETS:
+        raise RuntimeError(f"engine auto: ladder {srv.ladder()}")
+    for r in res:
+        _same_result(r, ref[r.request_id], "auto ladder")
+    rep = srv.stats.report()
+    log(f"[engine] (b) auto ladder grown to {list(srv.ladder())} (grown "
+        f"{rep['grown_buckets']}, misses {rep['bucket_misses']}, "
+        f"calibrations {rep['bucket_calibrations']}); fields bit-equal")
+    del srv, res
+    srv = server("auto", c=cfg.replace(max_live_buckets=1))
+    got = []
+    for i in range(3):                  # 16,384, 65,536 (evicts), 16,384
+        before = srv.stats.bucket_calibrations
+        got += srv.serve([reqs[i]])
+    rep = srv.stats.report()
+    if (rep["bucket_evictions"], rep["bucket_misses"],
+            rep["bucket_calibrations"]) != (2, 3, 2) \
+            or before != rep["bucket_calibrations"]:
+        raise RuntimeError(f"engine evict: {rep}")
+    counted("engine_evict", 3)
+    for r in got:
+        _same_result(r, ref[r.request_id], "evict -> rebuild")
+    log(f"[engine] (b) max_live_buckets=1: evictions "
+        f"{rep['bucket_evictions']}, misses {rep['bucket_misses']}, "
+        f"calibrations {rep['bucket_calibrations']} (none on the rebuild); "
+        f"the rebuilt 16,384 bucket's fields bit-equal")
+    del srv, got
+
+    # (c) the background worker, telemetry on (f) --------------------------
+    trace_dir = ROOT / "build" / f"chip_smoke_trace_{os.getpid()}"
+    srv = server(c=cfg.replace(telemetry=True, trace_dir=str(trace_dir)))
+    srv.start(deadline_s=0.05)
+    turn = threading.Condition()
+    state = {"next": 0}
+    bg, errors = {}, []
+
+    def client(k):
+        try:
+            mine = []
+            for i in range(k, len(reqs), 2):
+                with turn:
+                    turn.wait_for(lambda: state["next"] == i, timeout=60)
+                    mine.append(srv.submit(*reqs[i]))
+                    state["next"] += 1
+                    turn.notify_all()
+            for rid in mine:
+                bg[rid] = srv.result(rid, timeout=300)
+        except Exception as e:          # raised below, in the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    alive = srv.health()["worker_alive"]
+    srv.stop()
+    health = srv.health()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"engine background: {errors or 'a client hung'}")
+    if not alive or health["worker_alive"] or srv._waiting or srv._done:
+        raise RuntimeError(f"engine background: alive {alive}, after stop "
+                           f"{health}, waiting {srv._waiting}")
+    counted("engine_background", len(reqs))
+    if sorted(bg) != [0, 1, 2, 3]:
+        raise RuntimeError(f"engine background: results {sorted(bg)}")
+    for rid, r in bg.items():
+        _same_result(r, ref[rid], "background worker")
+    stages = srv.stats.stage_report()
+    empty = [k for k in SERVE_STAGES[:5] if not stages[k]["count"]]
+    if empty or stages["compile"]["count"] or stages["cache_load"]["count"]:
+        raise RuntimeError(f"engine telemetry: stages {stages}")
+    paths = srv.telemetry.export()
+    spans = [json.loads(line) for line in open(paths["trace_jsonl"])]
+    traced = {s["trace_id"] for s in spans if s["name"] == "request"}
+    shutil.rmtree(trace_dir)
+    if traced != {f"req-{rid}" for rid in range(4)}:
+        raise RuntimeError(f"engine telemetry: request spans {traced}")
+    log(f"[engine] (c) background worker: 4 requests from 2 threads in "
+        f"{wall:.3f} s, batches {srv.stats.batch_sizes}, fields bit-equal; "
+        f"alive {alive}, after stop {health['worker_alive']}; telemetry: "
+        f"{len(spans)} spans, stages " + ", ".join(
+            f"{k} {stages[k]['count']}" for k in SERVE_STAGES))
+    del srv, bg
+
+    # (d) resilience on the 16,384-point bucket ----------------------------
+    shape, frac = (2, n_small, cfg.node_out), 1.0 / (n_small * cfg.node_out)
+    seed = next(sd for sd in range(10_000) if [
+        bool(m.any()) for m in
+        np.random.default_rng((sd, 1)).random(shape) < frac] == [True, False])
+    srv = server()
+    rid0 = srv.submit(*reqs[0])
+    rid1 = srv.submit(*reqs[1], timeout_s=1e-3)
+    rid2 = srv.submit(*reqs[2])
+    time.sleep(0.01)
+    FAULTS.arm("serve.harvest", mode="corrupt", frac=frac, seed=seed)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res = {r.request_id: r for r in srv.flush()}
+    finally:
+        FAULTS.reset()
+    counted("engine_chaos", 2)
+    if "deadline exceeded" not in (res[rid1].error or "") \
+            or "nonfinite" not in (res[rid0].error or "") \
+            or srv.stats.nonfinite_results != 1:
+        raise RuntimeError(f"engine chaos: {res[rid0].error!r}, "
+                           f"{res[rid1].error!r}")
+    _same_result(res[rid2], ref[rid2], "the corrupt row's neighbour")
+    del srv, res
+    srv = server("auto")
+    small = srv.submit(*reqs[0])            # grows 16,384, then 65,536
+    expired = srv.submit(*reqs[1], timeout_s=1e-3)
+    time.sleep(0.01)
+    FAULTS.arm("bucket.build", nth=1, times=1)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res = {r.request_id: r for r in srv.flush()}
+    finally:
+        FAULTS.reset()
+    counted("engine_quarantine", 1)
+    rep = srv.stats.report()
+    r = res[small]
+    if r.error is not None or r.bucket != n_big \
+            or not np.isfinite(r.fields).all() \
+            or (rep["quarantined_buckets"], rep["bucket_fallbacks"],
+                rep["timed_out_requests"]) != (1, 1, 1) \
+            or sorted(srv._quarantined) != [n_small] \
+            or res[expired].error is None:
+        raise RuntimeError(f"engine quarantine: {r.error!r}, bucket "
+                           f"{r.bucket}, {rep}")
+    del srv, res
+    srv = server((n_small,), max_queue_depth=1)
+    srv.submit(*reqs[0])
+    shed = srv.submit(*reqs[2])
+    counted("engine_shed", 0)
+    if "queue full" not in (srv._done[shed].error or "") \
+            or srv.stats.rejected_overload != 1 or srv.pending() != 1:
+        raise RuntimeError("engine admission: the second submit was not "
+                           "shed")
+    del srv
+    log(f"[engine] (d) a harvest corrupted in row 0 of 2 (seed {seed}): "
+        f"that request errors, its neighbour bit-equal; bucket.build on "
+        f"{n_small}: quarantined, served by {n_big} (1 fallback); expired "
+        f"and shed requests launched nothing")
+    log(f"[engine] (e) {rows_total} rows run, each {cfg.n_mp_layers} "
+        f"segment-sum and 3 kNN launches; phase 12 took "
+        f"{time.perf_counter() - t_phase:.1f} s | {card}")
 
 
 def seg_backward_check(dev, cfg, ps) -> dict:

@@ -28,15 +28,14 @@ Always pair ``arm`` with ``reset``/``disarm`` (or use the ``armed``
 context manager); each test file that arms a site resets it in a fixture.
 
 Known sites (grep for the literal to find the hook). The port has hooks at
-``ckpt.write``, ``ckpt.rename`` (``repro_torch.ckpt.checkpoint.save``) and
-``train.batch`` (``repro_torch.launch.train.train_gnn``) so far; the serving
-and bucket sites come with the rest of ``GNNServer``, and are listed so a
-chaos test arms the same names in both packages:
+every site but ``shard.plan``, which comes with sharded serving and is
+listed so a chaos test arms the same names in both packages:
 
 ====================  =====================================================
 ``serve.dispatch``    per-batch device dispatch (``_dispatch_inner``)
-``serve.compile``     the jitted bucket call (``_call_compiled``) —
-                      simulates a compile/OOM failure
+``serve.compile``     the bucket call (``_call_bucket``; JAX's
+                      ``_call_compiled``) — simulates an out-of-memory or
+                      build failure raised by the call
 ``serve.harvest``     harvested device output (corrupt site: NaN-fill)
 ``serve.worker``      top of each background worker iteration
 ``shard.plan``        per-geometry shard planning in the sharded dispatch

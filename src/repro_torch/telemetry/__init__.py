@@ -1,7 +1,7 @@
 """``repro_torch.telemetry``: spans, metrics, and ``torch.profiler`` hooks.
 
-The port of ``repro.telemetry``, one import for the trainer's (and later
-the server's) observability:
+The port of ``repro.telemetry``, one import for the trainer's and the GNN
+server's observability:
 
 * :class:`~repro_torch.telemetry.trace.Tracer`: nestable, thread-safe spans
   with a per-step or per-request ``trace_id``; JSONL and Chrome
@@ -45,7 +45,8 @@ PROFILE_SUBDIR = "torch_profile"
 
 
 class Telemetry:
-    """The bundle a trainer owns: tracer + metrics + capture flags.
+    """The bundle a trainer or a server owns: tracer + metrics + capture
+    flags.
 
     ``enabled`` gates the span tracer and the ``record_function`` regions;
     the metrics registry stays live either way. ``trace_dir`` is where

@@ -83,6 +83,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         meshgraphnet.init(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_gnn.main(["--reduced", "--buckets", "256"])
+    # the autoscaler, the background worker and checkpoint serving too: no
+    # server exists on the card to start, and none falls back to the CPU
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GNNServer(cfg, "auto").start()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GNNServer(cfg.replace(bucket_policy="auto"), (256,),
+                  async_flush=False).start(deadline_s=0.01)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GNNServer.from_checkpoint("unused.msgpack", cfg, "auto")
+    for flags in (["--buckets", "auto"], ["--buckets", "256", "--sync"],
+                  ["--buckets", "256", "--request-timeout", "1",
+                   "--telemetry"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_gnn.main(["--reduced", *flags])
 
 
 def test_main_runs_on_cpu(capsys):
