@@ -73,6 +73,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and one shed by admission (``max_queue_depth=1``) launch nothing; (e)
    15 segment-sum and 3 kNN launches per row run, and no other kernel,
    in every part;
+13. rollouts at full width (last, after phase 11's profiled step; phase
+   5's weights and seed,
+   servers at both buckets, ``max_batch`` 2): (a) a fresh server's
+   ``rollout(car 1, 16384, steps=1)`` bit-equal to phase 5's request 0,
+   with 3 kNN and 15 segment-sum launches; (b) residual, 2 steps a flush,
+   4 slots: fixed clouds rolled out 3, 5 and 8 steps in the 16,384 table, 2
+   in the 65,536 table, and a 4-step 16,384 arrival after the first flush,
+   each bit-equal to its solo run on a fresh server, the 5-step one to 5
+   one-step rollouts chained through ``init_state``, step 5 unequal to step
+   1; exactly 3 kNN launches per prefill and 15 segment-sum per lane-step
+   advanced; prefill and lane-step seconds per bucket, steps/s, the slot
+   tables' bytes and peak memory (beside phase 5's) logged; (c) state
+   feedback (``rollout_state_feats``, 28 node inputs), residual, full width
+   cut to one 2,048-point bucket, fresh ``torch.Generator`` weights: a
+   4-step rollout on the card and on the CPU must build equal edges and
+   agree to 1e-4; (d) a ``rollout.generate`` raise fails the 16,384
+   table's rollout (the table dropped) and leaves a 65,536 rollout in
+   flight bit-equal to its solo run, a NaN ``rollout.insert`` aborts its
+   own slot (the neighbour bit-equal to solo), a ``rollout.harvest``
+   corruption is caught by the guard, and a queued rollout past its
+   deadline and one rejected by admission launch nothing;
 7. LLM whole path: gemma2-9b at full width cut to 2 layers (one local and
    one global), f32, initialised once on the card and copied to the CPU;
    2 requests of 128 tokens prefilled and decoded 4 steps on both; tokens
@@ -112,11 +133,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    later launches): it must hold no ``indexing_backward`` kernel (the
    gathers' backward runs the segment-sum kernel), and the time of the
    kernels launched under ``GatherRowsBackward`` is logged on a line of its
-   own.
+   own;
+14. the ``graphx`` training-graph source (after phase 9, before phase 10):
+   ``build_sample(cfg, 0, source="graphx")`` at phase 10's levels on the
+   card must give the host cKDTree build's edge set and level tags, with 3
+   kNN launches and no other kernel; both builds' seconds logged.
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
-freed before the LLM phases (the flash row of 3, then 7 and 8); the training
-phases (the backward row of 3, then 9 to 11) run last, in another. It then
+freed before the LLM phases (the flash row of 3, then 7 and 8), all but phase
+5's weights; the training phases (the backward row of 3, then 9, 14, 10 and
+11) run in another, and phase 13 runs last, on phase 5's weights. It then
 prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
 {...}}`` line. It needs one card and imports nothing of JAX.
 """
@@ -410,9 +436,11 @@ def knn_check(dev, card) -> dict:
     return kr
 
 
-def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
-    """Phases 3 (GNN kernels) to 6; returns the two kernels' rows. Its
-    tensors, the server's included, are freed when it returns."""
+def gnn_phases(dev, card, reset_counts, read_counts, by_phase):
+    """Phases 3 (GNN kernels) to 6 and 12; returns the two kernels' rows,
+    and phase 5's config, weights, requests, results and peak memory for
+    phase 13. Its other tensors, the server's included, are freed when it
+    returns."""
     import torch
     from repro_torch.configs.base import GNNConfig
     from repro_torch.core.graph_build import sample_surface
@@ -619,10 +647,12 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
         + ", ".join(f"{n} points {t:.4f}" for n, t in row_s.items()))
 
     # 12. the serving engine ------------------------------------------------
-    serve_engine(dev, card, cfg, server.params, reqs,
-                 {r.request_id: r for r in results}, reset_counts,
+    phase5 = {r.request_id: r for r in results}
+    serve_engine(dev, card, cfg, server.params, reqs, phase5, reset_counts,
                  read_counts, by_phase)
-    return kernels
+    # what phase 13, at the end, needs of phase 5
+    return kernels, dict(cfg=cfg, params=server.params, reqs=reqs,
+                         phase5=phase5, peak5=peak_gb)
 
 
 def _same_result(got, want, what: str):
@@ -906,6 +936,293 @@ def serve_engine(dev, card, cfg, params, reqs, phase5, reset_counts,
     log(f"[engine] (e) {rows_total} rows run, each {cfg.n_mp_layers} "
         f"segment-sum and 3 kNN launches; phase 12 took "
         f"{time.perf_counter() - t_phase:.1f} s | {card}")
+
+
+def _same_rollout(got, want, what: str):
+    if got.error is not None or want.error is not None \
+            or got.steps_done != want.steps_done or not (
+                np.array_equal(got.points, want.points)
+                and np.array_equal(got.fields, want.fields)):
+        diff = (np.abs(got.fields - want.fields).max()
+                if got.fields.shape == want.fields.shape else "shape")
+        raise RuntimeError(f"rollout: {what}: rollout {got.rollout_id} is not "
+                           f"bit-equal to the reference (errors {got.error!r}"
+                           f", {want.error!r}; steps {got.steps_done}, "
+                           f"{want.steps_done}; max abs diff {diff})")
+
+
+def rollout_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
+                  params, reqs, phase5, peak5):
+    """Phase 13 (see the module docstring): the transient-rollout engine at
+    full width, on phase 5's weights (``params``) and seed."""
+    import torch
+    from repro_torch.core.graph_build import sample_surface
+    from repro_torch.data import geometry as geo
+    from repro_torch.graphx.pipeline import make_step_fn
+    from repro_torch.launch.serve_gnn import GNNServer
+    from repro_torch.models import meshgraphnet
+    from repro_torch.resilience import FAULTS
+
+    t_phase = time.perf_counter()
+    n_small, n_big = BUCKETS
+    verts, faces = reqs[0][:2]
+
+    def server(c=cfg, buckets=BUCKETS, **kw):
+        return GNNServer(c, buckets, max_batch=2, seed=0, params=params, **kw)
+
+    def counted(part, prefills, lane_steps):
+        """3 kNN launches per prefill, n_mp_layers segment-sum launches per
+        lane-step advanced, and no other kernel."""
+        torch.cuda.synchronize()
+        read_counts(part)
+        want = {name: 0 for name in by_phase}
+        want.update(knn_topk=3 * prefills,
+                    segment_sum=cfg.n_mp_layers * lane_steps)
+        got = {name: by_phase[name][part] for name in by_phase}
+        if got != want:
+            raise RuntimeError(f"rollout {part}: launches {got}, expected "
+                               f"{want} ({prefills} prefills, {lane_steps} "
+                               "lane-steps)")
+        reset_counts()
+
+    def cloud(n, car):
+        v, f = geo.car_surface(geo.sample_params(car))
+        return sample_surface(v, f, n, np.random.default_rng((0, 100 + car)))
+
+    # (a) T = 1 is single-shot serving -------------------------------------
+    reset_counts()
+    r = server().rollout(*reqs[0], steps=1)
+    counted("rollout_t1", 1, 1)
+    if r.rollout_id != 0 or r.bucket != n_small:
+        raise RuntimeError(f"rollout T = 1: id {r.rollout_id}, bucket "
+                           f"{r.bucket}")
+    if not (np.array_equal(r.points, phase5[0].points)
+            and np.array_equal(r.fields, phase5[0].fields)) \
+            or r.error is not None or r.steps_done != 1:
+        raise RuntimeError(f"rollout T = 1: not bit-equal to phase 5's "
+                           f"request 0 (error {r.error!r})")
+    log(f"[rollout] (a) a fresh server's rollout(car 1, {n_small}, steps=1) "
+        "is bit-equal to phase 5's request 0, points and fields; 3 kNN, "
+        f"{cfg.n_mp_layers} segment-sum launches")
+
+    # (b) interleaving in two tables ---------------------------------------
+    cfg_b = cfg.replace(rollout_integrator="residual",
+                        rollout_steps_per_flush=2, rollout_slots=4)
+    # (steps, bucket, cloud): three in the 16,384 table from the start, one
+    # in the 65,536 table, and one 16,384 arrival after the first flush
+    plan = [(3, n_small, cloud(n_small, 1)), (5, n_small, cloud(n_small, 2)),
+            (8, n_small, cloud(n_small, 3)), (2, n_big, cloud(n_big, 2))]
+    late = (4, n_small, cloud(n_small, 4))
+    lane_total = sum(t for t, _, _ in plan) + late[0]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    srv = server(cfg_b)
+    eng = srv.rollout_engine()
+    t0 = time.perf_counter()
+    rids = [eng.submit(verts, faces, n, steps=t, cloud=c) for t, n, c in plan]
+    eng.generate()
+    rids.append(eng.submit(verts, faces, late[1], steps=late[0],
+                           cloud=late[2]))
+    flushes = 1 + eng.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    table_bytes = eng.table_bytes()
+    inter = [eng.result(rid) for rid in rids]
+    if eng._c_steps.value != lane_total or eng._c_done.value != 5:
+        raise RuntimeError(f"rollout interleaved: {eng._c_steps.value} "
+                           f"steps, {eng._c_done.value} completed")
+    counted("rollout_interleaved", 5, lane_total)
+    stages = srv.stats.stage_report()
+    del srv, eng
+    solo = []
+    for t, n, c in plan + [late]:
+        solo.append(server(cfg_b).rollout(verts, faces, n, steps=t, cloud=c))
+    counted("rollout_solo", 5, lane_total)
+    for got, want in zip(inter, solo):
+        _same_rollout(got, want, "interleaved against solo")
+        if not np.isfinite(got.fields).all() or got.fields.shape != (
+                got.bucket, cfg.node_out):
+            raise RuntimeError(f"rollout: bad fields for {got.rollout_id}")
+    # the 5-step rollout against 5 one-step rollouts chained by init_state
+    t5, n5, c5 = plan[1]
+    srv = server(cfg_b)
+    state = np.zeros((n5, cfg.node_out), np.float32)
+    chain = []
+    for _ in range(t5):
+        res = srv.rollout(verts, faces, n5, steps=1, cloud=c5,
+                          init_state=state)
+        chain.append(res)
+        state = res.fields
+    counted("rollout_chained", t5, t5)
+    if any(r.error for r in chain) or not (
+            np.array_equal(inter[1].points, chain[-1].points)
+            and np.array_equal(inter[1].fields, chain[-1].fields)):
+        raise RuntimeError("rollout: 5 steps are not bit-equal to 5 chained "
+                           "single steps")
+    if np.array_equal(chain[0].fields, chain[-1].fields):
+        raise RuntimeError("rollout: the state did not evolve (step 5 equals "
+                           "step 1)")
+    # one prefill and two lane-steps per bucket, each synchronised
+    step = make_step_fn(cfg_b)
+    prefill_s, lane_s = {}, {}
+    for n, c in ((n_small, plan[0][2]), (n_big, plan[3][2])):
+        prefill, _ = srv.rollout_engine()._programs(n)
+        pts, nrm = (torch.from_numpy(a).to(dev) for a in c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = prefill(pts, nrm, n)
+        torch.cuda.synchronize()
+        prefill_s[n] = time.perf_counter() - t0
+        st = torch.zeros((n, cfg.node_out), device=dev)
+        lane_s[n] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            st = step(params, graph, st)
+            torch.cuda.synchronize()
+            lane_s[n].append(time.perf_counter() - t0)
+        del graph, st
+    counted("rollout_timing", 2, 4)
+    del srv
+    log(f"[rollout] (b) {len(rids)} rollouts (3, 5, 8 steps and a 4-step "
+        f"arrival after the first flush at {n_small}; 2 steps at {n_big}), "
+        f"residual, {cfg_b.rollout_steps_per_flush} steps a flush, "
+        f"{cfg_b.rollout_slots} slots: {flushes} flushes, {lane_total} "
+        f"lane-steps in {wall:.3f} s ({lane_total / wall:.3f} steps/s, "
+        f"prefills included); each bit-equal to its solo run on a fresh "
+        f"server, the 5-step one to 5 chained single steps, and step 5 "
+        f"differs from step 1; launches {cfg.n_mp_layers} segment-sum per "
+        f"lane-step, 3 kNN per prefill | {card}")
+    log(f"[rollout] (b) prefill s per bucket: " + ", ".join(
+        f"{n} {t:.4f}" for n, t in prefill_s.items())
+        + "; s per lane-step per bucket: " + ", ".join(
+            f"{n} " + " / ".join(f"{t:.4f}" for t in ts)
+            for n, ts in lane_s.items())
+        + "; slot-table bytes: " + ", ".join(
+            f"{n} {b}" for n, b in table_bytes.items())
+        + f"; peak memory {peak:.2f} GB (phase 5: {peak5:.2f} GB) | {card}")
+    log("[rollout] (b) stages: " + "; ".join(
+        f"{k} n={v['count']} mean {v['mean_ms']:.1f} ms total "
+        f"{v['total_s']:.3f} s" for k, v in stages.items() if v["count"]))
+
+    # (c) state feedback, card against CPU ---------------------------------
+    n_w = WHOLE_PATH_POINTS
+    cfg_c = cfg.replace(rollout_state_feats=True,
+                        rollout_integrator="residual")
+    model_cpu = meshgraphnet.init(torch.Generator().manual_seed(0), cfg_c,
+                                  device="cpu")
+    models = {"card": copy.deepcopy(model_cpu).to(dev), "cpu": model_cpu}
+    out = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        s_c = GNNServer(cfg_c, (n_w,), max_batch=2, seed=0,
+                        params=models[where], device=d)
+        t0 = time.perf_counter()
+        res = s_c.rollout(verts, faces, n_w, steps=4)
+        secs = time.perf_counter() - t0
+        tbl = s_c.rollout_engine()._tables[n_w]
+        edges = [tbl.graph[k][0].cpu()
+                 for k in ("senders", "receivers", "emask")]
+        out[where] = (res, edges, secs)
+        if where == "card":
+            counted("rollout_card_cpu", 1, 4)
+    (rg, eg, tg), (rc, ec, tc) = out["card"], out["cpu"]
+    if any(not torch.equal(a, b) for a, b in zip(eg, ec)):
+        raise RuntimeError("rollout card against CPU: different edge sets")
+    if rg.error or rc.error or rg.steps_done != 4 \
+            or not np.isfinite(rg.fields).all() \
+            or not np.array_equal(rg.points, rc.points):
+        raise RuntimeError(f"rollout card against CPU: {rg.error!r}, "
+                           f"{rc.error!r}")
+    err = float(np.abs(rg.fields - rc.fields).max())
+    if err > WHOLE_PATH_ATOL:
+        raise RuntimeError(f"rollout card against CPU: max abs error {err} "
+                           f"> {WHOLE_PATH_ATOL}")
+    if not np.abs(rg.fields).max() > 0:
+        raise RuntimeError("rollout card against CPU: zero state")
+    log(f"[rollout] (c) state feedback ({cfg_c.node_in_eff} node inputs), "
+        f"residual, full width at {n_w} points, 4 steps: edges equal, "
+        f"fields max abs err {err:.3g} (atol {WHOLE_PATH_ATOL}, largest "
+        f"element {np.abs(rc.fields).max():.3f}); card {tg:.3f} s, CPU "
+        f"{tc:.2f} s")
+    del models, model_cpu, out
+
+    # (d) chaos on the card ------------------------------------------------
+    small, big = plan[0], plan[3]
+    reset_counts()
+    srv = server(cfg_b)
+    eng = srv.rollout_engine()
+    FAULTS.arm("rollout.generate", nth=1, times=1)
+    try:
+        r_s = eng.submit(verts, faces, n_small, steps=2, cloud=small[2])
+        r_b = eng.submit(verts, faces, n_big, steps=big[0], cloud=big[2])
+        res_s, res_b = eng.result(r_s), eng.result(r_b)
+    finally:
+        FAULTS.reset()
+    counted("rollout_chaos_generate", 2, big[0])
+    if "generate flush failed" not in (res_s.error or "") \
+            or res_s.steps_done != 0 or eng._tables[n_small].state is not None:
+        raise RuntimeError(f"rollout chaos generate: {res_s.error!r}")
+    _same_rollout(res_b, solo[3], "65,536 rollout beside a failed flush")
+    before = eng._c_steps.value
+    FAULTS.arm("rollout.insert", mode="corrupt", nth=1, times=1)
+    try:
+        r_bad = eng.submit(verts, faces, n_small, steps=small[0],
+                           cloud=small[2])
+        r_ok = eng.submit(verts, faces, n_small, steps=small[0],
+                          cloud=small[2])
+        res_bad, res_ok = eng.result(r_bad), eng.result(r_ok)
+    finally:
+        FAULTS.reset()
+    # both lanes advance the first flush (2 steps), the poisoned one is
+    # aborted at its harvest, the other takes its third step alone
+    if eng._c_steps.value - before != 5:
+        raise RuntimeError(f"rollout chaos insert: "
+                           f"{eng._c_steps.value - before} lane-steps")
+    counted("rollout_chaos_insert", 2, 5)
+    if "nonfinite" not in (res_bad.error or ""):
+        raise RuntimeError(f"rollout chaos insert: {res_bad.error!r}")
+    _same_rollout(res_ok, solo[0], "the poisoned slot's neighbour")
+    FAULTS.arm("rollout.harvest", mode="corrupt", nth=1, times=1)
+    try:
+        res_h = srv.rollout(verts, faces, n_small, steps=1, cloud=small[2])
+    finally:
+        FAULTS.reset()
+    counted("rollout_chaos_harvest", 1, 1)
+    if "nonfinite output" not in (res_h.error or ""):
+        raise RuntimeError(f"rollout chaos harvest: {res_h.error!r}")
+    rid = eng.submit(verts, faces, n_small, steps=100, timeout_s=1e-3)
+    time.sleep(0.01)
+    res_t = eng.result(rid)
+    adm = server(cfg_b, max_queue_depth=1).rollout_engine()
+    adm.submit(verts, faces, n_small, steps=2)
+    res_r = adm.result(adm.submit(verts, faces, n_small, steps=2),
+                       drive=False)
+    counted("rollout_chaos_shed", 0, 0)
+    if "timed out" not in (res_t.error or "") or res_t.steps_done != 0 \
+            or "rejected" not in (res_r.error or "") \
+            or adm._c_reject.value != 1:
+        raise RuntimeError(f"rollout deadline / admission: {res_t.error!r}, "
+                           f"{res_r.error!r}")
+    aborted = eng._c_abort.value
+    del srv, eng, adm
+    log(f"[rollout] (d) a rollout.generate raise failed the {n_small} "
+        f"table's rollout and dropped the table, the {n_big} rollout in "
+        f"flight bit-equal to its solo run; a NaN rollout.insert aborted "
+        f"its own slot, its neighbour bit-equal to solo; a rollout.harvest "
+        f"corruption caught by the guard ({aborted:.0f} aborted); an "
+        f"expired and a rejected rollout launched nothing")
+    log(f"[rollout] phase 13 took {time.perf_counter() - t_phase:.1f} s | "
+        f"{card}")
+
+
+def _edge_keys(g):
+    """A graph's (sender, receiver) pairs as sorted int64 keys, with their
+    level tags in the same order: equal outputs mean equal edge sets."""
+    key = g.senders.astype(np.int64) * g.n_nodes + g.receivers
+    order = np.argsort(key, kind="stable")
+    return key[order], g.level_of_edge[order]
 
 
 def seg_backward_check(dev, cfg, ps) -> dict:
@@ -1323,6 +1640,34 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
 
     # 9. one step, card against CPU ----------------------------------------
     train_whole_path(dev, card, reset_counts, read_counts, by_phase)
+
+    # 14. the graphx training-graph source ---------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    sx = pipe.build_sample(cfg, 0, source="graphx", device=dev)
+    torch.cuda.synchronize()
+    t_graphx = time.perf_counter() - t0
+    read_counts("graphx_source")
+    got = {name: by_phase[name]["graphx_source"] for name in by_phase}
+    want = {name: 0 for name in by_phase}
+    want["knn_topk"] = len(cfg.levels)
+    if got != want:
+        raise RuntimeError(f"graphx source: launches {got}, expected {want}")
+    t0 = time.perf_counter()
+    sh = pipe.build_sample(cfg, 0, source="host")
+    t_host = time.perf_counter() - t0
+    kx, kh = _edge_keys(sx.graph), _edge_keys(sh.graph)
+    if not (all(np.array_equal(a, b) for a, b in zip(kx, kh))
+            and np.array_equal(sx.node_feats, sh.node_feats)
+            and np.array_equal(sx.targets, sh.targets)):
+        raise RuntimeError(f"graphx source: {sx.graph.n_edges} edges against "
+                           f"the host's {sh.graph.n_edges}, not the same set")
+    log(f"[graphx_source] build_sample(source='graphx') of sample 0 at "
+        f"levels {cfg.levels} on the card: {sx.graph.n_edges} edges, the "
+        f"host cKDTree build's edge set and level tags, 3 kNN launches; "
+        f"graphx {t_graphx:.3f} s, host {t_host:.3f} s (both include the "
+        f"surface sampling and features) | {card}")
+    del sx, sh
 
     # 10. training at full width: the main path, counted --------------------
     gc.collect()
@@ -1962,7 +2307,8 @@ def main() -> int:
         raise RuntimeError(f"flash_attention_wgmma: SASS lacks "
                            f"{[op for op, n in found.items() if not n]}")
 
-    kernels = gnn_phases(dev, card, reset_counts, read_counts, by_phase)
+    kernels, rollout_ctx = gnn_phases(dev, card, reset_counts, read_counts,
+                                      by_phase)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[llm] GNN phases done and freed: "
@@ -1996,6 +2342,14 @@ def main() -> int:
     # flash-attention profiles in the same process
     kernels.extend(train_phases(dev, card, reset_counts, read_counts,
                                 by_phase))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. rollouts, last: after its tens of thousands of launches,
+    # torch.profiler held none of the flash check's 10 launches in the same
+    # process (PERF.md, section 6), and every later phase profiles
+    rollout_phase(dev, card, reset_counts, read_counts, by_phase,
+                  **rollout_ctx)
 
     main_phase = {"segment_sum": "serve", "segment_sum_backward": "train",
                   "gather_rows_backward": "train",

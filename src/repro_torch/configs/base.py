@@ -3,13 +3,15 @@ package.
 
 ``GNNConfig``'s field names, defaults and ``reduced()`` are identical so
 configs round-trip between the two packages. Fields the port does not act on
-yet (sharding, cold start, rollouts) are kept for that round-trip and
-ignored here; the trainer reads ``nonfinite_guard``, ``noise_std``,
+yet (sharding, cold start) are kept for that round-trip and ignored here;
+the trainer reads ``graph_source``, ``nonfinite_guard``, ``noise_std``,
 ``remat``, ``keep_ckpts`` and ``telemetry``/``trace_dir``/``profile_capture``,
-and the GNN server the ``bucket_*`` autoscaling knobs,
-``max_live_buckets``, the resilience knobs (``request_timeout_s``,
-``max_queue_depth``, ``shed_policy``, ``worker_*``, ``nonfinite_guard``)
-and the telemetry fields.
+the GNN server the ``bucket_*`` autoscaling knobs, ``max_live_buckets``,
+the resilience knobs (``request_timeout_s``, ``max_queue_depth``,
+``shed_policy``, ``worker_*``, ``nonfinite_guard``) and the telemetry
+fields, and its rollout engine ``rollout_slots``,
+``rollout_steps_per_flush``, ``rollout_timeout_s``, and (through
+``MeshGraphNet.step``) ``rollout_state_feats`` and ``rollout_integrator``.
 ``ModelConfig``
 keeps only the fields the dense decoder reads; the sharding, remat, MoE, SSM
 and frontend fields come with the slices that read them.

@@ -3,9 +3,10 @@
 stacked batches ready for the trainer.
 
 Host numpy, copied from the JAX package (``repro.data.pipeline``) so that
-both packages train on bit-equal arrays. Only the host graph build
-(``source='host'``, cKDTree) is ported; ``'graphx'`` waits for the device
-multi-scale edge build of the rollout slice.
+both packages train on bit-equal arrays. The graph is built on the host
+(``source='host'``, cKDTree) or by the hash-grid edge union serving uses
+(``source='graphx'``, ``graphx.pipeline.device_multiscale_edges``: the kNN
+kernel on the card), which gives the same edge set.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.core import halo as halo_lib
 from repro_torch.core import partitioning
 from repro_torch.core.gradient_aggregation import padded_partition_batches
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import Graph, relative_edge_features
 from repro_torch.core.graph_build import (node_input_features, sample_surface,
                                           vertex_normals)
 from repro_torch.core.multiscale import build_multiscale_from_points
@@ -67,13 +68,14 @@ class GraphSample:
 
 def build_sample(cfg: GNNConfig, sample_id: int,
                  use_idw: bool = False,
-                 source: Optional[str] = None) -> GraphSample:
+                 source: Optional[str] = None, device=None) -> GraphSample:
     """One geometry -> multi-scale graph + features + analytic targets.
 
     ``source`` (default ``cfg.graph_source``) selects the graph
-    construction: ``"host"`` is the cKDTree multi-scale build. The JAX
-    package's ``"graphx"`` (the device hash-grid union serving uses) is not
-    ported yet and raises.
+    construction: ``"host"`` is the cKDTree multi-scale build; ``"graphx"``
+    runs the hash-grid union serving uses on ``device`` (default: the card;
+    mesh-free, no cKDTree in the edge build) and compacts its edge list to
+    the host. Both give the same edge set, so training is source-agnostic.
     """
     params = geo.sample_params(sample_id)
     verts, faces = geo.car_surface(params)
@@ -82,15 +84,19 @@ def build_sample(cfg: GNNConfig, sample_id: int,
     points, normals = sample_surface(verts, faces, n_fine, rng)
     source = source or cfg.graph_source
     if source == "graphx":
-        raise NotImplementedError(
-            "graph_source='graphx' needs device_multiscale_edges, which the "
-            "port has not yet (ROADMAP.md, still to port: the rollout "
-            "engine's edge functions); use 'host'")
-    if source != "host":
+        from repro_torch.graphx.pipeline import device_multiscale_edges
+        s, r, lvl = device_multiscale_edges(points, cfg.levels,
+                                            cfg.k_neighbors, device=device)
+        g = Graph(positions=points, senders=s, receivers=r, normals=normals,
+                  level_of_edge=lvl)
+        g.edge_feats = relative_edge_features(points, s, r)
+        g.validate()
+    elif source == "host":
+        g = build_multiscale_from_points(points, cfg.levels, cfg.k_neighbors,
+                                         normals=normals)
+    else:
         raise ValueError(f"unknown graph_source {source!r} "
                          "(expected 'host' | 'graphx')")
-    g = build_multiscale_from_points(points, cfg.levels, cfg.k_neighbors,
-                                     normals=normals)
     feats = node_input_features(points, normals, cfg.fourier_freqs)
     if use_idw:
         # pipeline-faithful path: evaluate the field on the raw mesh
@@ -203,10 +209,12 @@ def split_test_ids(drags: np.ndarray, test_frac: float = 0.1,
     return sorted(ood), sorted(iid)
 
 
-def build_dataset(cfg: GNNConfig, n_samples: int, test_frac: float = 0.1):
+def build_dataset(cfg: GNNConfig, n_samples: int, test_frac: float = 0.1,
+                  device=None):
     """Paper SV-B split: 10% test, of which 20% out-of-distribution by the
-    force coefficient (extreme low/high drag proxies)."""
-    samples = [build_sample(cfg, i) for i in range(n_samples)]
+    force coefficient (extreme low/high drag proxies). ``device`` is where
+    a ``graph_source='graphx'`` build runs (default: the card)."""
+    samples = [build_sample(cfg, i, device=device) for i in range(n_samples)]
     norm_in = Normalizer.fit([s.node_feats for s in samples])
     norm_out = Normalizer.fit([s.targets for s in samples])
     drags = np.array([integrated_force(s)[0] for s in samples])

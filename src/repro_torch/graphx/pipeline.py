@@ -6,6 +6,13 @@ kNN at every level (the kNN kernel), the multi-scale edge union,
 featurization, and the MeshGraphNet forward (the segment-sum kernel in every
 layer). The device is the inputs' device. The model is passed to each call,
 as the JAX functions take ``params``.
+
+The rollout halves split that pipeline for the transient-rollout engine
+(``launch.rollout``): :func:`make_prefill_fn` builds the graph and its
+step-invariant features once per geometry, :func:`make_generate_fn`
+advances a slot table's active lanes, one graph at a time.
+:func:`device_multiscale_edges` is the same edge build for the training
+data path (``graph_source='graphx'``).
 """
 from __future__ import annotations
 
@@ -15,7 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.device import resolve
 from repro_torch.graphx import features as fx
+from repro_torch.graphx import hashgrid
 from repro_torch.graphx.multiscale import MultiscaleSpec, multiscale_edges
 
 Stats = Optional[Tuple[np.ndarray, np.ndarray]]
@@ -49,7 +58,8 @@ def make_featurizer(cfg: GNNConfig, *, norm_in: Stats = None):
 
 def make_step_fn(cfg: GNNConfig, *, norm_out: Stats = None):
     """``step(model, graph, state)`` -> next state (N, node_out): model
-    forward + output denorm + state integration."""
+    forward + output denorm + state integration, by ``cfg``'s
+    ``rollout_integrator`` and ``rollout_state_feats`` (not the model's)."""
 
     @torch.no_grad()
     def step(model, graph, state):
@@ -57,7 +67,7 @@ def make_step_fn(cfg: GNNConfig, *, norm_out: Stats = None):
         return model.step(nf, graph["edge_feats"], graph["senders"],
                           graph["receivers"], state,
                           edge_mask=graph["emask"].to(nf.dtype),
-                          out_stats=_stats_on(norm_out, nf.device))
+                          out_stats=_stats_on(norm_out, nf.device), cfg=cfg)
 
     return step
 
@@ -112,3 +122,95 @@ def make_batched_infer_fn(cfg: GNNConfig, ms: MultiscaleSpec, **kw):
                             for i in range(points.shape[0])])
 
     return batched
+
+
+def make_edges_fn(ms: MultiscaleSpec):
+    """Graph construction alone: ``edges(points, n_valid) -> (senders,
+    receivers, emask)`` with the fixed-shape layout of ``multiscale_edges``.
+    Eager: the JAX version's ``jit`` and its memoization per spec have
+    nothing to compile here."""
+
+    @torch.no_grad()
+    def edges(points, n_valid):
+        return multiscale_edges(points.float(), n_valid, ms)
+
+    return edges
+
+
+def device_multiscale_edges(points: np.ndarray, level_sizes, k: int, *,
+                            device=None):
+    """One-shot edge build for a host-resident nested cloud, on ``device``
+    (default: the card).
+
+    Calibrates the per-level grids on this cloud, on the host (so the
+    hash-grid kNN finds the exact cKDTree neighbours), runs the fixed-shape
+    union once on the device and compacts it to numpy ``(senders,
+    receivers, level_of_edge)``, int32. The edge set equals the host
+    cKDTree build ``core.multiscale.build_multiscale_from_points`` (slot
+    order differs): the training data path's ``graph_source='graphx'``.
+    """
+    pts = np.asarray(points, np.float32)
+    levels = tuple(level_sizes)
+    if pts.shape[0] != levels[-1]:
+        raise ValueError(f"points ({pts.shape[0]}) must match finest level "
+                         f"({levels[-1]})")
+    grids = tuple(hashgrid.calibrate_spec(pts[:n], k, n_points=n)
+                  for n in levels)
+    ms = MultiscaleSpec(level_sizes=levels, k=k, grids=grids)
+    s, r, em = make_edges_fn(ms)(
+        torch.from_numpy(pts).to(resolve(device)), levels[-1])
+    em = em.cpu().numpy()
+    return (s.cpu().numpy()[em].astype(np.int32),
+            r.cpu().numpy()[em].astype(np.int32),
+            ms.level_of_edge[em])
+
+
+def make_prefill_fn(cfg: GNNConfig, ms: MultiscaleSpec, *,
+                    norm_in: Stats = None):
+    """Rollout prefill: ``prefill(points, normals, n_valid)`` -> graph dict.
+
+    The multi-scale edge set (the kNN kernel, once per level) and the
+    step-invariant features: the graph-once half of graph-once/step-many,
+    in the :func:`make_featurizer` layout the rollout engine parks in its
+    slot table. The same operations as :func:`make_infer_fn` up to the
+    model, so a one-step rollout is bit-equal to single-shot serving.
+    """
+    featurize = make_featurizer(cfg, norm_in=norm_in)
+
+    @torch.no_grad()
+    def prefill(points, normals, n_valid):
+        points = points.float()
+        senders, receivers, emask = multiscale_edges(points, n_valid, ms)
+        return featurize(points, normals, senders, receivers, emask)
+
+    return prefill
+
+
+def make_generate_fn(cfg: GNNConfig, *, steps: int, norm_out: Stats = None):
+    """Rollout generate: ``gen(model, graph, state, remaining) -> (state,
+    remaining')``.
+
+    Every graph leaf carries a leading slot axis S, ``state`` is (S, N,
+    node_out) and ``remaining`` (S,) host integers count the steps still
+    owed per slot. Each lane with ``remaining > 0`` advances
+    ``min(remaining, steps)`` physics steps through :func:`make_step_fn`,
+    one lane at a time (the JAX package's vmap lanes, written as a loop:
+    one lane-step's edge activations are the only large buffer), and its
+    slot of ``state`` is overwritten in place. Frozen lanes are skipped, so
+    they keep their state and launch nothing. ``remaining'`` is
+    ``max(remaining - steps, 0)``, computed on the host.
+    """
+    step = make_step_fn(cfg, norm_out=norm_out)
+
+    @torch.no_grad()
+    def gen(model, graph, state, remaining):
+        rem = np.asarray(remaining, np.int64)
+        for s in np.flatnonzero(rem > 0):
+            lane = {k: v[s] for k, v in graph.items()}
+            st = state[s]
+            for _ in range(min(int(rem[s]), steps)):
+                st = step(model, lane, st)
+            state[s].copy_(st)
+        return state, np.maximum(rem - steps, 0)
+
+    return gen

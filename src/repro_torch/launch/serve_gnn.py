@@ -57,6 +57,10 @@ timings into histograms of the server's ``telemetry.metrics``; with
 Trained weights come from a training checkpoint of either package
 (``GNNServer.from_checkpoint``, ``--ckpt``).
 
+T-step rollouts (``rollout``, ``submit_rollout``, ``rollout_result``,
+``--rollout-steps``) run through the server's ``RolloutEngine``
+(``repro_torch.launch.rollout``), on the same ladder, ids and device.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --buckets 16384,65536
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
@@ -65,6 +69,9 @@ Usage:
       --buckets auto --device cpu --sync --request-timeout 30
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
       --buckets 256,512 --device cpu --ckpt ckpts/x.msgpack
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
+      --buckets 256 --device cpu --rollout-steps 20 --rollout-slots 4 \
+      --integrator residual
 """
 from __future__ import annotations
 
@@ -526,6 +533,7 @@ class GNNServer:
         self._worker_dead = False         # supervision gave up: every submit
                                           # resolves to an immediate error
         self._restarts = 0
+        self._rollout = None              # lazy RolloutEngine (rollout_engine)
         # grid specs are calibrated from a reference geometry representative
         # of the traffic; pass (verts, faces) to match your fleet
         self._reference = reference if reference is not None else \
@@ -1419,6 +1427,42 @@ class GNNServer:
                 trace_id=f"req-{request_id}")
         return out
 
+    # ------------------------------------------------------------- rollouts
+
+    def rollout_engine(self, **kw):
+        """The server's transient-rollout engine (built on first use).
+
+        One engine per server: it shares the bucket ladder, calibration
+        cache, request-id space, device, telemetry registry and resilience
+        knobs (see ``repro_torch.launch.rollout``). Keyword overrides
+        (``slots``, ``steps_per_flush``) apply only on first construction.
+        """
+        if self._rollout is None:
+            from repro_torch.launch.rollout import RolloutEngine
+            self._rollout = RolloutEngine(self, **kw)
+        return self._rollout
+
+    def submit_rollout(self, verts: np.ndarray, faces: np.ndarray,
+                       n_points: Optional[int] = None, *, steps: int = 1,
+                       **kw) -> int:
+        """Enqueue a T-step rollout; returns its id (see
+        ``RolloutEngine.submit``). Collect with ``rollout_result``."""
+        return self.rollout_engine().submit(verts, faces, n_points,
+                                            steps=steps, **kw)
+
+    def rollout_result(self, rollout_id: int):
+        """Drive the engine until ``rollout_id`` resolves; returns its
+        ``RolloutResult``."""
+        return self.rollout_engine().result(rollout_id)
+
+    def rollout(self, verts: np.ndarray, faces: np.ndarray,
+                n_points: Optional[int] = None, *, steps: int = 1, **kw):
+        """Submit one rollout and drive it to completion. Single-shot
+        serving is exactly ``steps=1`` from a zero state (bit-equal under
+        the default config)."""
+        rid = self.submit_rollout(verts, faces, n_points, steps=steps, **kw)
+        return self.rollout_result(rid)
+
     def _worker_main(self):
         """Worker supervisor: restart a crashed ``_serve_loop`` with capped
         exponential backoff; past the restart budget mark the server dead.
@@ -1561,6 +1605,25 @@ def main(argv=None):
                     help="per-request deadline in seconds; requests that "
                     "wait longer are dropped before any device work and "
                     "resolve to an error Result (0 = no deadline)")
+    ap.add_argument("--rollout-steps", type=int, default=0,
+                    help="serve the demo traffic as T-step autoregressive "
+                    "rollouts through the prefill/insert/generate engine "
+                    "(0 = single-shot serving)")
+    ap.add_argument("--rollout-slots", type=int, default=None,
+                    help="concurrent rollouts per bucket slot table "
+                    "(default cfg.rollout_slots)")
+    ap.add_argument("--steps-per-flush", type=int, default=None,
+                    help="physics steps per generate flush "
+                    "(default cfg.rollout_steps_per_flush)")
+    ap.add_argument("--state-feats", action="store_true",
+                    help="feed the field state back into the node features "
+                    "(rollout_state_feats; random weights are sized for it)")
+    ap.add_argument("--integrator", default=None,
+                    choices=["direct", "residual"],
+                    help="rollout state integrator (default: the config's)")
+    ap.add_argument("--rollout-timeout", type=float, default=None,
+                    help="per-rollout end-to-end deadline in seconds "
+                    "(0 = none)")
     args = ap.parse_args(argv)
 
     cfg = GNNConfig().reduced() if args.reduced else GNNConfig()
@@ -1579,6 +1642,16 @@ def main(argv=None):
         cfg = cfg.replace(shed_policy=args.shed_policy)
     if args.request_timeout is not None:
         cfg = cfg.replace(request_timeout_s=args.request_timeout)
+    if args.state_feats:
+        cfg = cfg.replace(rollout_state_feats=True)
+    if args.integrator is not None:
+        cfg = cfg.replace(rollout_integrator=args.integrator)
+    if args.rollout_slots is not None:
+        cfg = cfg.replace(rollout_slots=args.rollout_slots)
+    if args.steps_per_flush is not None:
+        cfg = cfg.replace(rollout_steps_per_flush=args.steps_per_flush)
+    if args.rollout_timeout is not None:
+        cfg = cfg.replace(rollout_timeout_s=args.rollout_timeout)
     auto = args.buckets.strip().lower() == "auto"
     buckets = "auto" if auto else \
         tuple(int(b) for b in args.buckets.split(","))
@@ -1608,6 +1681,9 @@ def main(argv=None):
     for i in range(args.requests):
         verts, faces = geo.car_surface(geo.sample_params(i))
         reqs.append((verts, faces, int(rng.choice(req_sizes))))
+    if args.rollout_steps > 0:
+        _rollout_demo(server, reqs, args)
+        return
     with server.telemetry.capture():
         results = server.serve(reqs)
     rep = server.stats.report()
@@ -1642,6 +1718,35 @@ def main(argv=None):
         cp = r.fields[:, 0]
         print(f"  req {r.request_id}: bucket {r.bucket}, "
               f"cp range [{cp.min():.2f}, {cp.max():.2f}]")
+
+
+def _rollout_demo(server: GNNServer, reqs, args):
+    """``main``'s rollout mode: every demo geometry as an
+    ``--rollout-steps`` rollout, submitted at once and collected in id
+    order; prints steps/s."""
+    server.rollout_engine()               # construct before timing
+    with server.telemetry.capture():
+        t_roll = time.perf_counter()
+        rids = [server.submit_rollout(v, f, n, steps=args.rollout_steps)
+                for v, f, n in reqs]
+        rollouts = [server.rollout_result(rid) for rid in rids]
+        dt = time.perf_counter() - t_roll
+    done = sum(r.steps_done for r in rollouts)
+    errs = sum(1 for r in rollouts if r.error)
+    print(f"rolled out {len(rollouts)} geometries x {args.rollout_steps} "
+          f"steps ({done} total) on {server.device} in {dt:.2f}s | "
+          f"{done / max(dt, 1e-9):.1f} steps/s | {errs} errors")
+    for r in rollouts[:3]:
+        if r.error is not None:
+            print(f"  rollout {r.rollout_id}: {r.error}")
+            continue
+        cp = r.fields[:, 0]
+        print(f"  rollout {r.rollout_id}: bucket {r.bucket}, "
+              f"steps {r.steps_done}/{r.steps}, "
+              f"cp range [{cp.min():.2f}, {cp.max():.2f}]")
+    if args.trace_dir:
+        paths = server.telemetry.export()
+        print("telemetry artifacts: " + ", ".join(sorted(paths.values())))
 
 
 if __name__ == "__main__":

@@ -28,6 +28,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
       --reduced --steps 5 --samples 3 --device cpu --resume ckpts/x.msgpack
   PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
+      --reduced --steps 2 --samples 3 --device cpu --graph-source graphx
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
       --reduced --steps 100 --samples 8
 """
 from __future__ import annotations
@@ -127,9 +129,14 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
               resume: Optional[str] = None,
               opt_total_steps: Optional[int] = None,
               keep_ckpts: Optional[int] = None,
-              noise_std: Optional[float] = None, device=None):
+              noise_std: Optional[float] = None,
+              graph_source: Optional[str] = None, device=None):
     """Train X-MeshGraphNet on partitioned synthetic DrivAerML-proxy data,
     on ``device`` (default: the card).
+
+    ``graph_source`` (default ``cfg.graph_source``) selects the training
+    graph build: ``"host"`` (cKDTree) or ``"graphx"`` (the hash-grid union,
+    its kNN kernel on ``device``); both give the same edge set.
 
     Checkpointing, as the JAX trainer: ``ckpt_path`` is written after the
     final step and, with ``ckpt_every > 0``, every that-many steps on a
@@ -161,6 +168,8 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
     Returns ``(model, losses, (train, test, norm_in, norm_out))``.
     """
     dev = resolve(device)
+    if graph_source is not None:
+        cfg = cfg.replace(graph_source=graph_source)
     # compile_cache.enable of the JAX trainer has no counterpart here yet:
     # the port compiles no step program (ROADMAP Queue 1 item 6, cold start)
     tel = telemetry if telemetry is not None else Telemetry.from_config(cfg)
@@ -172,7 +181,8 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
     with tel.span("data", n_samples=n_samples), \
             tel.annotate("train/build_dataset"):
         t0 = time.perf_counter()
-        train, test, norm_in, norm_out = pipe.build_dataset(cfg, n_samples)
+        train, test, norm_in, norm_out = pipe.build_dataset(cfg, n_samples,
+                                                            device=dev)
         hists["data"].observe(time.perf_counter() - t0)
     # one partitioning pass per sample + common padding: one shape for all
     with tel.span("partition", n_samples=len(train)), \
@@ -399,6 +409,10 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="additionally capture a torch.profiler trace "
                     "under <trace-dir>/torch_profile")
+    ap.add_argument("--graph-source", choices=("host", "graphx"),
+                    default=None,
+                    help="training-graph build: host cKDTree or the graphx "
+                    "hash-grid union on the device (mesh-free)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
@@ -416,7 +430,8 @@ def main(argv=None):
             cfg, args.steps, args.samples, args.ckpt, telemetry=tel,
             ckpt_every=args.ckpt_every, resume=args.resume,
             opt_total_steps=args.total_steps, keep_ckpts=args.keep_ckpts,
-            noise_std=args.noise_std, device=args.device)
+            noise_std=args.noise_std, graph_source=args.graph_source,
+            device=args.device)
         with tel.span("eval", n_samples=len(test)):
             t0 = time.perf_counter()
             metrics = eval_gnn(cfg, model, test, ni, no)

@@ -104,15 +104,18 @@ class MeshGraphNet(nn.Module):
         return sorted(self.named_parameters(), key=lambda kv: key(kv[0]))
 
     def step(self, node_feats, edge_feats, senders, receivers, state, *,
-             edge_mask: Optional[torch.Tensor] = None, out_stats=None):
+             edge_mask: Optional[torch.Tensor] = None, out_stats=None,
+             cfg: Optional[GNNConfig] = None):
         """One autoregressive physics step: state (N, node_out) -> state'.
 
         With ``cfg.rollout_state_feats`` the state, normalized by
         ``out_stats`` (mean, std), is appended to the node features; the
         prediction is denormalized by ``out_stats`` before integration
         (``'direct'``: state' = pred, ``'residual'``: state' = state + pred).
+        ``cfg`` (default: the model's) supplies the two rollout fields, as
+        the JAX ``step(params, cfg, ...)`` takes the caller's config.
         """
-        cfg = self.cfg
+        cfg = self.cfg if cfg is None else cfg
         feats = node_feats
         if cfg.rollout_state_feats:
             s = state

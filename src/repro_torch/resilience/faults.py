@@ -3,7 +3,8 @@
 
 A small registry of **named injection sites** threaded through the hot
 paths (serving dispatch/compile/harvest, the background worker loop,
-bucket build/calibration, checkpoint write/rename, the training batch).
+bucket build/calibration, the rollout slot table, checkpoint write/rename,
+the training batch).
 Production code calls :func:`fire` / :func:`corrupt` at each site; with
 nothing armed both are a single boolean check — the harness costs nothing
 until a test arms it.
@@ -43,6 +44,13 @@ listed so a chaos test arms the same names in both packages:
                       firing plan resolves that request to ``Result.error``
 ``bucket.build``      bucket construction (``_build_bucket``)
 ``bucket.calibrate``  grid calibration (``_calibrate``)
+``rollout.prefill``   per-rollout prefill, before sampling
+                      (``RolloutEngine._insert_rollout``)
+``rollout.insert``    the slot-table insert: fires after the prefill, and
+                      corrupts the host start state before it (NaN-fill)
+``rollout.generate``  one generate flush of a slot table
+                      (``_advance_table``): fails that table's rollouts
+``rollout.harvest``   a finished rollout's fields (corrupt site: NaN-fill)
 ``ckpt.write``        checkpoint payload write (before the temp file)
 ``ckpt.rename``       the atomic rename publishing a checkpoint
 ``train.batch``       prepared training batch (corrupt site: NaN-fill)

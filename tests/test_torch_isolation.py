@@ -36,7 +36,7 @@ def test_import_loads_no_jax_or_repro():
     assert "repro_torch.kernels._build" in res["modules"]
     assert "repro_torch.launch.serve" in res["modules"]
     assert "repro_torch.kernels.flash_attention.ops" in res["modules"]
-    for name in ("launch.train", "optim.adam", "data.pipeline", "core.halo",
+    for name in ("launch.train", "launch.rollout", "optim.adam", "data.pipeline", "core.halo",
                  "core.partitioning", "core.gradient_aggregation",
                  "ckpt.checkpoint", "ckpt._msgpack", "resilience.faults",
                  "telemetry.metrics", "telemetry.trace",
