@@ -137,12 +137,36 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 14. the ``graphx`` training-graph source (after phase 9, before phase 10):
    ``build_sample(cfg, 0, source="graphx")`` at phase 10's levels on the
    card must give the host cKDTree build's edge set and level tags, with 3
-   kNN launches and no other kernel; both builds' seconds logged.
+   kNN launches and no other kernel; both builds' seconds logged;
+15. sharded serving and sharded rollouts at full width (after phase 13, on
+   phase 5's weights and seed): (a) ``GNNServer(..., max_batch=2,
+   shard_devices=4)`` (residual, 2 steps a flush, for (c)) serves phase 5's
+   4 requests, each in 4 shards one after another with the ``geometric``
+   planner as JAX serves them: fields within SHARD_ATOL of phase 5's on
+   every point, exactly 3 x 4 kNN and 15 x 4 segment-sum launches a
+   request, Nmax, replication, halo fraction, latency per bucket and peak
+   memory logged; then a ``shard.plan`` raise rejects its request only, its
+   batch neighbour bit-equal to its unfaulted run and the rejected request
+   launching nothing; (c) that server's engine rolls out fixed clouds of car
+   1 at 16,384 points for 3 steps and car 2 at 65,536 for 2, each within
+   SHARD_ATOL of the unsharded engine's rollout, with 3 kNN launches per
+   shard per flush and 15 segment-sum per shard per lane-step; state
+   feedback at phase 13 (c)'s size and weights in 4 shards clamps
+   ``steps_per_flush`` to 1 with its warning and must agree after 4 steps
+   with phase 13 (c)'s CPU and card runs; (b) 262,144 points of car 1,
+   sampled as the server samples, planned with the ``graph`` planner in 8
+   and in 4 shards and run through ``make_sharded_infer_fn`` at full width:
+   the two agree within SHARD_ATOL on every point, 3 kNN and 15 segment-sum
+   launches a shard; one shard's kNN is bit-equal to its plain version at
+   its three level shapes and its segment-sum within SEG_ATOL at its edge
+   count; Nmax, peak memory, host planning and run seconds logged, and the
+   ``geometric`` plan's Nmax for the same request (not run).
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
 freed before the LLM phases (the flash row of 3, then 7 and 8), all but phase
 5's weights; the training phases (the backward row of 3, then 9, 14, 10 and
-11) run in another, and phase 13 runs last, on phase 5's weights. It then
+11) run in another, and phases 13 and 15 run last, on phase 5's weights,
+each in a function of its own. It then
 prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
 {...}}`` line. It needs one card and imports nothing of JAX.
 """
@@ -183,6 +207,15 @@ WHOLE_PATH_POINTS = 2048
 # abs error on O(1) outputs, in three runs; 1e-4 leaves room for other BLAS
 # builds and still fails on any real divergence.
 WHOLE_PATH_ATOL = 1e-4
+# Phase 15: sharded fields against unsharded ones (and 8 against 4 shards)
+# on every point. Owned rows see the full graph's edges, so only the order
+# of f32 sums differs (each shard's CSR and matmuls are smaller); the same
+# 1e-4 as the whole path, which any missing halo edge exceeds (the CPU tests
+# show 1.4e-3 with one hop fewer at 3 layers).
+SHARD_ATOL = 1e-4
+SHARD_DEVICES = 4                  # (a) and (c): the server's shard count
+SHARDED_POINTS = 262144            # (b): four times the top bucket
+SHARDED_SPLITS = (8, 4)
 SEG_ATOL, SEG_RTOL = 1e-4, 1e-5
 # kNN d2 against its plain version: bit-equal, the same rounded arithmetic
 KNN_D2_ATOL = 0.0
@@ -1146,6 +1179,8 @@ def rollout_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
         f"fields max abs err {err:.3g} (atol {WHOLE_PATH_ATOL}, largest "
         f"element {np.abs(rc.fields).max():.3f}); card {tg:.3f} s, CPU "
         f"{tc:.2f} s")
+    # phase 15 (c) holds the sharded engine against both
+    feedback = dict(card=rg.fields, cpu=rc.fields, points=rc.points)
     del models, model_cpu, out
 
     # (d) chaos on the card ------------------------------------------------
@@ -1215,6 +1250,340 @@ def rollout_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
         f"expired and a rejected rollout launched nothing")
     log(f"[rollout] phase 13 took {time.perf_counter() - t_phase:.1f} s | "
         f"{card}")
+    return feedback
+
+
+def _max_err(got, want, what: str) -> float:
+    """Max abs difference of two same-shape finite field arrays, which must
+    stay within SHARD_ATOL."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise RuntimeError(f"sharded: {what}: shape {got.shape} against "
+                           f"{want.shape}, finite {np.isfinite(got).all()}")
+    err = float(np.abs(got - want).max())
+    if err > SHARD_ATOL:
+        raise RuntimeError(f"sharded: {what}: max abs error {err} > "
+                           f"{SHARD_ATOL}")
+    return err
+
+
+def _plan_stats(plan) -> str:
+    """Nmax, the replication factor (members over points, ring nodes
+    included) and the halo fraction (members not owned) of one plan."""
+    from repro_torch.core.halo import HOP_PAD
+    members = int((plan.hop < HOP_PAD).sum())
+    return (f"Nmax {plan.spec.n_points}, level caps "
+            f"{tuple(plan.spec.ms.level_sizes)}, replication "
+            f"{members / plan.n_global:.3f}, halo fraction "
+            f"{1 - int(plan.owned.sum()) / members:.3f}")
+
+
+def sharded_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
+                  params, reqs, phase5, peak5, feedback):
+    """Phase 15 (see the module docstring): sharded serving and sharded
+    rollouts at full width, on phase 5's weights (``params``) and seed;
+    ``feedback`` holds phase 13 (c)'s fields."""
+    import torch
+    from repro_torch.core.graph_build import sample_surface
+    from repro_torch.data import geometry as geo
+    from repro_torch.graphx import sharded
+    from repro_torch.launch import shard_plan
+    from repro_torch.launch.serve_gnn import GNNServer, Request, _level_sizes
+    from repro_torch.models import meshgraphnet
+    from repro_torch.resilience import FAULTS
+
+    t_phase = time.perf_counter()
+    n_small, n_big = BUCKETS
+    p_a = SHARD_DEVICES
+    layers, levels_n = cfg.n_mp_layers, 3
+
+    def counted(part, shard_graphs, shard_steps):
+        """3 kNN launches per shard graph built, n_mp_layers segment-sum
+        launches per shard step, and no other kernel."""
+        torch.cuda.synchronize()
+        read_counts(part)
+        want = {name: 0 for name in by_phase}
+        want.update(knn_topk=levels_n * shard_graphs,
+                    segment_sum=layers * shard_steps)
+        got = {name: by_phase[name][part] for name in by_phase}
+        if got != want:
+            raise RuntimeError(f"sharded {part}: launches {got}, expected "
+                               f"{want}")
+        reset_counts()
+
+    # (a) the server's sharded mode (geometric), as JAX serves it ----------
+    cfg_a = cfg.replace(rollout_integrator="residual",
+                        rollout_steps_per_flush=2)
+    t0 = time.perf_counter()
+    server = GNNServer(cfg_a, BUCKETS, max_batch=2, seed=0, params=params,
+                       shard_devices=p_a)
+    t_build = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = server.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counted("sharded_serve", p_a * len(reqs), p_a * len(reqs))
+    errs = {}
+    for r in results:
+        want = phase5[r.request_id]
+        if r.error is not None or not np.array_equal(r.points, want.points):
+            raise RuntimeError(f"sharded serve: request {r.request_id}: "
+                               f"{r.error!r}")
+        errs[r.request_id] = _max_err(r.fields, want.fields,
+                                      f"request {r.request_id} against "
+                                      "phase 5")
+    rep = server.stats.report()
+    stats = {}
+    for n in BUCKETS:
+        rid = next(i for i, q in enumerate(reqs) if q[2] == n)
+        pts, nrm = server._sample(
+            Request(reqs[rid][0], reqs[rid][1], rid, n), n)
+        b = server._buckets[n]
+        stats[n] = _plan_stats(sharded.plan_shards(
+            pts, nrm, p_a, layers, b.ms.level_sizes, cfg.k_neighbors,
+            method="geometric", spec=b.sspec))
+    log(f"[sharded] (a) GNNServer(shard_devices={p_a}, max_batch=2), "
+        f"geometric plans: phase 5's {len(reqs)} requests in {wall:.3f} s "
+        f"(server built and calibrated in {t_build:.2f} s), fields against "
+        f"phase 5 max abs err " + ", ".join(
+            f"rid {k} {v:.3g}" for k, v in sorted(errs.items()))
+        + f" (atol {SHARD_ATOL}); launches {levels_n} x {p_a} kNN and "
+        f"{layers} x {p_a} segment-sum a request; peak memory {peak:.2f} GB "
+        f"(phase 5: {peak5:.2f} GB) | {card}")
+    for n, st in stats.items():
+        bb = rep["by_bucket"][n]
+        log(f"[sharded] (a) bucket {n}: {st}; submit->result mean "
+            f"{bb['mean_ms']:.1f} ms, batch run mean {bb['run_mean_ms']:.1f} "
+            f"ms | {card}")
+    # a shard.plan raise rejects its request only; the request ids are
+    # rewound so that the unfaulted run samples the same two clouds
+    pair = [(reqs[0][0], reqs[0][1], n_small),
+            (reqs[2][0], reqs[2][1], n_small)]
+    first = server._next_id
+    FAULTS.arm("shard.plan", mode="raise", nth=1, times=1)
+    try:
+        faulted = server.serve(pair)
+    finally:
+        FAULTS.reset()
+    counted("sharded_chaos", p_a, p_a)
+    server._next_id = first
+    clean = sorted(server.serve(pair), key=lambda r: r.request_id)
+    counted("sharded_chaos_clean", 2 * p_a, 2 * p_a)
+    bad, good = sorted(faulted, key=lambda r: r.request_id)
+    if "injected fault" not in (bad.error or "") or good.error is not None \
+            or clean[1].request_id != good.request_id \
+            or not np.array_equal(clean[1].fields, good.fields):
+        raise RuntimeError(f"sharded chaos: {bad.error!r}, {good.error!r}")
+    log(f"[sharded] (a) a shard.plan raise rejected request "
+        f"{bad.request_id} only; its neighbour {good.request_id} is "
+        f"bit-equal to its unfaulted run; the rejected request launched "
+        f"nothing")
+
+    # (c) sharded rollouts on (a)'s server ---------------------------------
+    def cloud(n, car):
+        v, f = geo.car_surface(geo.sample_params(car))
+        return sample_surface(v, f, n, np.random.default_rng((0, 100 + car)))
+
+    verts, faces = reqs[0][:2]
+    plan_c = [(3, n_small, cloud(n_small, 1)), (2, n_big, cloud(n_big, 2))]
+    eng = server.rollout_engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(verts, faces, n, steps=t, cloud=c)
+            for t, n, c in plan_c]
+    flushes = eng.run_until_complete()
+    torch.cuda.synchronize()
+    t_roll = time.perf_counter() - t0
+    got = [eng.result(rid) for rid in rids]
+    spf = eng.steps_per_flush
+    graphs = sum(-(-t // spf) for t, _, _ in plan_c)
+    counted("sharded_rollout", p_a * graphs,
+            p_a * sum(t for t, _, _ in plan_c))
+    del server, eng
+    gc.collect()
+    ref_srv = GNNServer(cfg_a, BUCKETS, max_batch=2, seed=0, params=params)
+    roll_err = []
+    for (t, n, c), g in zip(plan_c, got):
+        w = ref_srv.rollout(verts, faces, n, steps=t, cloud=c)
+        if g.error or w.error or g.steps_done != t:
+            raise RuntimeError(f"sharded rollout: {g.error!r}, {w.error!r}")
+        roll_err.append(_max_err(g.fields, w.fields,
+                                 f"{t}-step rollout at {n}"))
+    reset_counts()
+    del ref_srv
+    log(f"[sharded] (c) rollouts on (a)'s engine (residual, {spf} steps a "
+        f"flush): 3 steps at {n_small} and 2 at {n_big} in {flushes} "
+        f"flushes, {t_roll:.3f} s; against the unsharded engine max abs err "
+        + " / ".join(f"{e:.3g}" for e in roll_err)
+        + f"; launches 3 kNN per shard per flush, {layers} segment-sum per "
+        f"shard per lane-step | {card}")
+    # state feedback at phase 13 (c)'s size and weights: steps_per_flush
+    # clamps to 1 with a warning, and a host halo exchange between flushes
+    n_w = WHOLE_PATH_POINTS
+    cfg_f = cfg.replace(rollout_state_feats=True,
+                        rollout_integrator="residual",
+                        rollout_steps_per_flush=2)
+    model = meshgraphnet.init(torch.Generator().manual_seed(0), cfg_f,
+                              device=dev)
+    s_f = GNNServer(cfg_f, (n_w,), max_batch=2, seed=0, params=model,
+                    shard_devices=p_a)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = s_f.rollout_engine()
+    if eng.steps_per_flush != 1 or not any(
+            "clamping" in str(w.message) for w in caught):
+        raise RuntimeError("sharded rollout with state feedback: no clamp "
+                           f"to one step a flush ({eng.steps_per_flush})")
+    res = s_f.rollout(verts, faces, n_w, steps=4)
+    counted("sharded_feedback", 4 * p_a, 4 * p_a)
+    if res.error or not np.array_equal(res.points, feedback["points"]):
+        raise RuntimeError(f"sharded feedback: {res.error!r}")
+    fb_cpu = _max_err(res.fields, feedback["cpu"], "feedback against the "
+                      "CPU")
+    fb_card = _max_err(res.fields, feedback["card"], "feedback against the "
+                       "unsharded card")
+    del s_f, eng, model
+    log(f"[sharded] (c) state feedback at {n_w} points, {p_a} shards, "
+        f"steps_per_flush clamped to 1 with the warning: 4 steps against "
+        f"phase 13 (c)'s unsharded CPU run max abs err {fb_cpu:.3g}, its "
+        f"card run {fb_card:.3g} (atol {SHARD_ATOL})")
+
+    # (b) beyond the top bucket --------------------------------------------
+    n_req = SHARDED_POINTS
+    levels = _level_sizes(n_req, levels_n)
+    pts, nrm = sample_surface(verts, faces, n_req,
+                              np.random.default_rng((0, 1)))
+    g = shard_plan.measure(pts, SHARDED_SPLITS[0], layers, levels,
+                           cfg.k_neighbors, "geometric",
+                           cfg.shard_pad_factor)
+    log(f"[sharded] (b) {n_req} points, geometric plan in "
+        f"{SHARDED_SPLITS[0]} shards (not run): Nmax {g['nmax']}, "
+        f"{g['nmax_padded']} at the server's pad factor "
+        f"{cfg.shard_pad_factor}; replication {g['replication']:.3f}, halo "
+        f"width {g['halo_width']:.5f}; {g['seconds']:.2f} s on the host")
+    fields, lines = {}, []
+    for p in SHARDED_SPLITS:
+        t0 = time.perf_counter()
+        plan = sharded.plan_shards(pts, nrm, p, layers, levels,
+                                   cfg.k_neighbors, method="graph")
+        t_plan = time.perf_counter() - t0
+        batch = plan.batch(dev)
+        if p == SHARDED_SPLITS[0]:
+            _shard_kernel_check(dev, card, plan, batch, cfg)
+        infer = sharded.make_sharded_infer_fn(cfg, plan.spec, device=dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = infer(params, batch)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counted(f"sharded_{p}", p, p)
+        fields[p] = plan.gather(out.cpu().numpy())
+        if fields[p].shape != (n_req, cfg.node_out) or \
+                not np.isfinite(fields[p]).all():
+            raise RuntimeError(f"sharded {n_req} in {p}: bad fields")
+        del out, batch, infer
+        lines.append(
+            f"{p} shards: {_plan_stats(plan)}; host plan {t_plan:.2f} s; "
+            f"request {t_run:.3f} s, {t_run / p:.3f} s a shard; peak "
+            f"memory {peak:.2f} GB")
+        del plan
+    err = _max_err(fields[SHARDED_SPLITS[0]], fields[SHARDED_SPLITS[1]],
+                   f"{n_req} points, {SHARDED_SPLITS[0]} against "
+                   f"{SHARDED_SPLITS[1]} shards")
+    for line in lines:
+        log(f"[sharded] (b) {n_req} points, graph plan, full width: "
+            f"{line} | {card}")
+    log(f"[sharded] (b) {SHARDED_SPLITS[0]} against {SHARDED_SPLITS[1]} "
+        f"shards: max abs err {err:.3g} (atol {SHARD_ATOL}) on every point; "
+        f"{levels_n} kNN and {layers} segment-sum launches a shard")
+    log(f"[sharded] phase 15 took {time.perf_counter() - t_phase:.1f} s | "
+        f"{card}")
+
+
+def _shard_kernel_check(dev, card, plan, batch, cfg):
+    """One shard of a 262,144-point plan: the kNN kernel bit-equal to its
+    plain version at the shard's three level shapes (its merged grids and
+    valid counts), and the segment-sum kernel within SEG_ATOL of its plain
+    version at the shard's edge count. At the finest level and at that
+    edge count, each kernel, its plain version and its yardstick are timed
+    by CUDA events only (after phase 13, torch.profiler may hold none of
+    a kernel's launches)."""
+    import torch
+    from repro_torch.graphx import hashgrid, sharded
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.knn import ref as knn_ref
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg import ref as seg_ref
+
+    p = int(np.argmax(plan.level_counts[:, -1]))      # the largest shard
+    ms = plan.spec.ms
+    lane = {k: batch[k][p] for k in sharded._DEVICE_KEYS}
+    counts = batch["level_counts"][p]
+    shapes, timed = [], []
+    for n_l, nv, g in zip(ms.level_sizes, counts, ms.grids):
+        q = lane["points"][:n_l].contiguous()
+        cand, cvalid, _ = hashgrid.csr_candidate_lists(q, int(nv), g)
+        args = (q, q[cand.long()], cand, cvalid, g.k)
+        ki, kd, km = knn_ops.topk_neighbors(*args)
+        pi, pd, pm = knn_ref.topk_neighbors(*args)
+        if not (torch.equal(ki, pi) and torch.equal(km, pm)
+                and torch.equal(kd, pd)):
+            raise RuntimeError(f"sharded kNN at N={n_l} (valid {nv}), "
+                               f"C={g.neigh_cap}: differs from the plain "
+                               "version")
+        shapes.append(f"N={n_l} valid {int(nv)} C={g.neigh_cap}")
+    # the finest level: q, args and cvalid are its
+    d2 = torch.where(cvalid, ((args[1] - q[:, None, :]) ** 2).sum(-1),
+                     knn_ref.BIG)
+    n_valid = int(cvalid.sum())
+    n_c, k = cand.shape[1], args[4]
+    timed.append(("knn_topk", f"N={q.shape[0]} C={n_c}, valid candidates "
+                  f"{n_valid / cand.numel():.3f}",
+                  lambda: knn_ops.topk_neighbors(*args),
+                  lambda: knn_ref.topk_neighbors(*args),
+                  lambda: torch.topk(d2, k, dim=1, largest=False),
+                  "torch.topk", bound_ms(q.shape[0] * (12 + n_c + 12 * k)
+                                         + n_valid * 12, 8.0 * n_valid)))
+    _, s, r, em = sharded._shard_edges(lane, counts, ms)
+    n_e, d = r.numel(), cfg.hidden
+    msg = torch.randn((n_e, d), generator=torch.Generator().manual_seed(0)
+                      ).to(dev) * em[:, None]
+    prep = seg_ops.prepare(r, plan.spec.n_points, em)
+    so = seg_ops.segment_sum_prepared(prep, msg)
+    sp = seg_ref.segment_sum_csr(msg, prep.perm, prep.row_ptr)
+    torch.testing.assert_close(so, sp, atol=SEG_ATOL, rtol=SEG_RTOL)
+    n_nodes, e_valid = plan.spec.n_points, int(em.sum())
+    recv = r.long()
+    timed.append(("segment_sum", f"E={n_e} N={n_nodes} D={d}",
+                  lambda: seg_ops.segment_sum_prepared(prep, msg),
+                  lambda: seg_ref.segment_sum_csr(msg, prep.perm,
+                                                  prep.row_ptr),
+                  lambda: torch.zeros_like(so).index_add_(0, recv, msg),
+                  "index_add_",
+                  bound_ms((e_valid + n_nodes) * d * 4 + e_valid * 4
+                           + (n_nodes + 1) * 4, float(e_valid) * d)))
+    for name, shape, kernel, plain, library, lib_name, bound in timed:
+        ms_k = time_cuda(kernel, 20)
+        log(f"[sharded] (b) {name} at the shard's shape {shape}: "
+            f"{ms_k:.4f} ms (CUDA events, host work included), bound "
+            f"{bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms_k:.3f} of it); "
+            f"plain {time_cuda(plain, 3, warmup=1):.3f} ms; {lib_name} "
+            f"{time_cuda(library, 20):.4f} ms | {card}")
+    del timed, d2
+    log(f"[sharded] (b) shard {p}: kNN bit-equal to its plain version at "
+        + ", ".join(shapes) + f"; segment-sum E={n_e} N={plan.spec.n_points} "
+        f"D={d} (masked {1 - int(em.sum()) / n_e:.3f}) max abs err "
+        f"{float((so - sp).abs().max()):.3g} against its plain version | "
+        f"{card}")
+    del msg, so, sp, prep
 
 
 def _edge_keys(g):
@@ -2348,8 +2717,15 @@ def main() -> int:
     # 13. rollouts, last: after its tens of thousands of launches,
     # torch.profiler held none of the flash check's 10 launches in the same
     # process (PERF.md, section 6), and every later phase profiles
-    rollout_phase(dev, card, reset_counts, read_counts, by_phase,
-                  **rollout_ctx)
+    feedback = rollout_phase(dev, card, reset_counts, read_counts,
+                             by_phase, **rollout_ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. sharded serving and sharded rollouts, after phase 13 (whose state
+    # feedback run it reuses), in a function of its own
+    sharded_phase(dev, card, reset_counts, read_counts, by_phase,
+                  feedback=feedback, **rollout_ctx)
 
     main_phase = {"segment_sum": "serve", "segment_sum_backward": "train",
                   "gather_rows_backward": "train",

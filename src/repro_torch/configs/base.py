@@ -3,10 +3,11 @@ package.
 
 ``GNNConfig``'s field names, defaults and ``reduced()`` are identical so
 configs round-trip between the two packages. Fields the port does not act on
-yet (sharding, cold start) are kept for that round-trip and ignored here;
+yet (cold start) are kept for that round-trip and ignored here;
 the trainer reads ``graph_source``, ``nonfinite_guard``, ``noise_std``,
 ``remat``, ``keep_ckpts`` and ``telemetry``/``trace_dir``/``profile_capture``,
 the GNN server the ``bucket_*`` autoscaling knobs, ``max_live_buckets``,
+``shard_pad_factor``,
 the resilience knobs (``request_timeout_s``, ``max_queue_depth``,
 ``shed_policy``, ``worker_*``, ``nonfinite_guard``) and the telemetry
 fields, and its rollout engine ``rollout_slots``,

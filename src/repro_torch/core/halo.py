@@ -1,6 +1,6 @@
 """Halo construction (paper SIII-A): make each partition self-contained.
-Copied from the JAX package (``repro.core.halo``); the point-shard exports
-of sharded serving are not ported yet.
+Copied from the JAX package (``repro.core.halo``), with the point-shard
+exports that sharded serving (``repro_torch.graphx.sharded``) plans with.
 
 For an L-layer message-passing network, node ``i``'s output depends only on its
 L-hop in-neighborhood. Define N_0 = owned nodes of a partition and
@@ -147,6 +147,69 @@ def pad_partitions(parts: Sequence[Partition],
         out["edge_mask"][i, : p.n_edges] = 1.0
         out["edge_ids"][i, : p.n_edges] = p.edge_ids
     return out
+
+
+# hop value of padding slots in point-shard exports: larger than any real
+# hop distance, so every "hop <= h" mask excludes padding
+HOP_PAD = np.int32(2 ** 30)
+
+
+def pack_point_shards(ids: Sequence[np.ndarray], hops: Sequence[np.ndarray],
+                      owned: Sequence[np.ndarray],
+                      pad_nodes: int | None = None) -> dict:
+    """Pad per-shard (global id, hop, owned) membership lists and stack.
+
+    The node-centric sibling of ``pad_partitions``: the sharded serving path
+    (``repro_torch.graphx.sharded``) rebuilds each shard's graph on the
+    device from its point buffer, so only membership is exported. Ids must
+    be sorted ascending per shard (keeps nested multi-scale level membership
+    a prefix of the local buffer).
+
+    Returns dict of numpy arrays:
+      global_ids (P, Nmax) int64   (padding slots = 0, masked)
+      hop        (P, Nmax) int32   (padding slots = HOP_PAD)
+      node_mask  (P, Nmax) bool    True for real member nodes
+      owned      (P, Nmax) bool    True for owned nodes
+      n_local    (P,)      int32   member count per shard
+    """
+    P = len(ids)
+    nmax = pad_nodes or max(max((len(i) for i in ids), default=1), 1)
+    out = {
+        "global_ids": np.zeros((P, nmax), np.int64),
+        "hop": np.full((P, nmax), HOP_PAD, np.int32),
+        "node_mask": np.zeros((P, nmax), bool),
+        "owned": np.zeros((P, nmax), bool),
+        "n_local": np.zeros((P,), np.int32),
+    }
+    for i, (gid, hop, own) in enumerate(zip(ids, hops, owned)):
+        m = len(gid)
+        if m > nmax:
+            raise ValueError(f"pad size {nmax} smaller than shard {i} "
+                             f"({m} nodes)")
+        out["global_ids"][i, :m] = gid
+        out["hop"][i, :m] = hop
+        out["node_mask"][i, :m] = True
+        out["owned"][i, :m] = own
+        out["n_local"][i] = m
+    return out
+
+
+def export_point_shards(parts: Sequence[Partition],
+                        pad_nodes: int | None = None) -> dict:
+    """Device-friendly padded export of partition *node membership*
+    (see ``pack_point_shards`` for the layout), sorted by global id."""
+    if not parts:
+        raise ValueError("export_point_shards needs at least one partition")
+    if any(p.hop_of is None for p in parts):
+        raise ValueError("partitions lack hop_of (rebuild with "
+                         "build_partition from this version)")
+    ids, hops, owned = [], [], []
+    for p in parts:
+        order = np.argsort(p.global_nodes, kind="stable")
+        ids.append(p.global_nodes[order])
+        hops.append(p.hop_of[order])
+        owned.append(p.hop_of[order] == 0)
+    return pack_point_shards(ids, hops, owned, pad_nodes)
 
 
 def halo_overhead(parts: Sequence[Partition], n_nodes: int) -> dict:

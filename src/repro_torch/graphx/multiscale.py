@@ -1,10 +1,11 @@
 """Multi-scale edge union over nested prefixes (paper SIII-C), on tensors.
 
-Port of ``repro.graphx.multiscale`` with a scalar ``n_valid``: every level is
-a fixed-shape hash-grid kNN over the first ``n_l`` points, and a fine-level
-edge is masked when the same (sender, receiver) pair exists at a coarser
-level ("keep the coarsest occurrence"), with static shapes (sum over levels
-of 2 * n_l * k edge slots).
+Port of ``repro.graphx.multiscale``: every level is a fixed-shape hash-grid
+kNN over the first ``n_l`` points, and a fine-level edge is masked when the
+same (sender, receiver) pair exists at a coarser level ("keep the coarsest
+occurrence"), with static shapes (sum over levels of 2 * n_l * k edge
+slots). The valid points of a level are a prefix, its length given by one
+count for all levels or one count per level.
 """
 from __future__ import annotations
 
@@ -48,21 +49,33 @@ def auto_multiscale_spec(level_sizes: Sequence[int],
     return MultiscaleSpec(level_sizes=sizes, k=k, grids=grids)
 
 
-def multiscale_edges(points, n_valid: int, ms: MultiscaleSpec):
+def multiscale_edges(points, n_valid, ms: MultiscaleSpec):
     """Union of per-level symmetric kNN edges with cross-level dedup masks.
 
-    points: (n_finest, 3); n_valid: scalar count of valid points, a prefix
-    (nested sampling orders them that way). Returns (senders (E,) i32,
-    receivers (E,) i32, edge_mask (E,) bool) with E = ms.n_edges; masked
-    slots have senders = receivers = 0.
+    points: (n_finest, 3); n_valid: a host integer, the count of valid
+    points, a prefix (nested sampling orders them that way), or a sequence
+    of host integers, one valid count per level (sharded serving: each
+    shard's slice of level ``l`` is its own prefix of length
+    ``n_valid[l]``, which the total does not determine). Returns (senders
+    (E,) i32, receivers (E,) i32, edge_mask (E,) bool) with E = ms.n_edges;
+    masked slots have senders = receivers = 0.
     """
     if points.shape[0] != ms.n_points:
         raise ValueError(f"points has {points.shape[0]} rows, spec expects "
                          f"{ms.n_points}")
-    n_valid = int(n_valid)
+    if np.ndim(n_valid) == 0:
+        counts = [min(int(n_valid), n_l) for n_l in ms.level_sizes]
+    elif np.ndim(n_valid) == 1:
+        counts = [int(c) for c in n_valid]
+        if len(counts) != len(ms.level_sizes):
+            raise ValueError(f"per-level n_valid has {len(counts)} entries "
+                             f"for {len(ms.level_sizes)} levels")
+    else:
+        raise ValueError(f"n_valid must be a scalar or (n_levels,) "
+                         f"sequence, got shape {np.shape(n_valid)}")
     nbrs = []
-    for n_l, gspec in zip(ms.level_sizes, ms.grids):
-        idx, _, mask = hashgrid.knn(points[:n_l], min(n_valid, n_l), gspec)
+    for n_l, nv, gspec in zip(ms.level_sizes, counts, ms.grids):
+        idx, _, mask = hashgrid.knn(points[:n_l], nv, gspec)
         nbrs.append((idx, mask))
 
     seg_s, seg_r, seg_m = [], [], []

@@ -1,8 +1,8 @@
 """Transient-rollout engine: prefill / insert / generate serving, on PyTorch.
 
-Port of ``repro.launch.rollout`` (unsharded). One request wants a T-step
-field rollout of one geometry, not a single static prediction; the engine
-splits that lifecycle as LLM decode engines do:
+Port of ``repro.launch.rollout``. One request wants a T-step field rollout
+of one geometry, not a single static prediction; the engine splits that
+lifecycle as LLM decode engines do:
 
 - **prefill**: build the multi-scale graph (the kNN kernel, once per level)
   and its step-invariant features ONCE per geometry, on the server's
@@ -45,13 +45,25 @@ histograms in ``stats.report()``, and the counters ``rollout_steps_total``,
 ``rollouts_timed_out_total``, ``rollouts_rejected_total`` and the
 ``rollout_active_slots`` gauge on the server's registry.
 
-The JAX engine's sharded mode (slots on a shard_map program's pack axis)
-comes with the sharded paths; the port's server has no ``shard_devices``.
+Sharding: under the server's ``shard_devices > 1`` the table holds each
+slot's shard plan, its buffers ``(P, S, Nmax, ...)`` with the slot on the
+pack axis, and ``graphx.sharded.make_sharded_rollout_fn`` advances every
+active lane's shards one after another; prefill is the host shard planning
+(``shard.plan``), and each flush rebuilds each shard's graph, as in JAX.
+With the default ``rollout_state_feats=False`` the field state never
+re-enters message passing, so several steps a flush stay exact on owned
+rows; with state feedback the halo rings cover exactly one step, so the
+engine clamps to one step a flush and re-scatters the gathered global state
+between flushes (``ShardPlan.gather`` then ``ShardPlan.scatter``: a halo
+exchange on the host). A slot's shards are planned at the bucket's global
+levels, as the server plans a request (JAX's engine passes the shard caps
+there, which equal the levels only while each shard holds the whole cloud).
 """
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -59,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.graphx import sharded
 from repro_torch.graphx.pipeline import make_generate_fn, make_prefill_fn
 from repro_torch.launch.serve_gnn import Request
 from repro_torch.resilience import faults
@@ -97,8 +110,12 @@ class RolloutResult:
 class _SlotTable:
     """Device-resident rollout state for ONE bucket size.
 
-    Every prefilled-graph leaf carries a leading slot axis ``(S, ...)`` and
-    ``state`` is ``(S, n, node_out)``, created as zeros on the first insert.
+    Unsharded, every prefilled-graph leaf carries a leading slot axis
+    ``(S, ...)`` and ``state`` is ``(S, n, node_out)``, created as zeros on
+    the first insert. Sharded, ``graph`` is a shard batch ``(P, S, Nmax,
+    ...)`` (its ``level_counts`` a host array), ``state`` ``(P, S, Nmax,
+    node_out)``, and ``plans`` / ``gstate`` hold each slot's ``ShardPlan``
+    and, under state feedback, its gathered global state (host numpy).
     ``remaining`` is mirrored on the host (each flush subtracts
     ``steps_per_flush`` deterministically), so freeing or aborting a slot
     never needs the card. ``lane_sum`` is the last flush's per-lane
@@ -113,6 +130,8 @@ class _SlotTable:
         self.rem = np.zeros((slots,), np.int64)
         self.reqs: List[Optional[RolloutRequest]] = [None] * slots
         self.pts: List[Optional[np.ndarray]] = [None] * slots
+        self.plans: List[Optional[sharded.ShardPlan]] = [None] * slots
+        self.gstate: List[Optional[np.ndarray]] = [None] * slots
         self.lane_sum: Optional[np.ndarray] = None
 
     def free_slot(self) -> Optional[int]:
@@ -127,6 +146,8 @@ class _SlotTable:
     def release(self, slot: int):
         self.reqs[slot] = None
         self.pts[slot] = None
+        self.plans[slot] = None
+        self.gstate[slot] = None
         self.rem[slot] = 0
 
     def nbytes(self) -> int:
@@ -134,14 +155,16 @@ class _SlotTable:
         if self.state is None:
             return 0
         return sum(t.numel() * t.element_size()
-                   for t in [self.state, *self.graph.values()])
+                   for t in [self.state, *self.graph.values()]
+                   if torch.is_tensor(t))
 
 
 class RolloutEngine:
     """Prefill/insert/generate rollout serving on top of a ``GNNServer``.
 
     The engine composes with the server: it reuses the bucket ladder and
-    routing (``_route``), the per-size calibration cache (``_calibrate``),
+    routing (``_route``), the per-size calibration caches (``_calibrate``,
+    ``_calibrate_shard``),
     the request-id space and the ``(seed, rid)`` surface sampling, the
     normalizer stats, the telemetry registry, the device and the resilience
     knobs. It is driven synchronously: every :meth:`generate` call is one
@@ -156,6 +179,16 @@ class RolloutEngine:
         self.slots = max(int(cfg.rollout_slots if slots is None else slots), 1)
         spf = int(cfg.rollout_steps_per_flush if steps_per_flush is None
                   else steps_per_flush)
+        self.sharded_mode = server.shard_devices > 1
+        if self.sharded_mode and cfg.rollout_state_feats and spf != 1:
+            # the halo rings make each shard self-contained for exactly ONE
+            # step once state re-enters message passing; more would read
+            # stale halo state. Clamp + host halo exchange between flushes.
+            warnings.warn(
+                "sharded rollouts with rollout_state_feats=True are exact "
+                "for one step per flush only (halo staleness): clamping "
+                f"steps_per_flush {spf} -> 1")
+            spf = 1
         self.steps_per_flush = max(spf, 1)
         self.timeout_s = float(cfg.rollout_timeout_s)
         self.max_pending = int(server.max_queue_depth)
@@ -184,14 +217,23 @@ class RolloutEngine:
 
     def _programs(self, size: int):
         """(prefill, generate) for one bucket size, built once and cached;
-        calibration rides the server's per-size cache."""
+        calibration rides the server's per-size caches. Sharded, prefill is
+        None: the host shard planning takes its place."""
         if size not in self._gen:
             srv = self.server
             ms = srv._calibrate(size)
-            self._prefill[size] = make_prefill_fn(srv.cfg, ms,
-                                                  norm_in=srv._norm_in)
-            self._gen[size] = make_generate_fn(
-                srv.cfg, steps=self.steps_per_flush, norm_out=srv._norm_out)
+            if self.sharded_mode:
+                self._prefill[size] = None
+                self._gen[size] = sharded.make_sharded_rollout_fn(
+                    srv.cfg, srv._calibrate_shard(size, ms),
+                    steps=self.steps_per_flush, norm_in=srv._norm_in,
+                    norm_out=srv._norm_out, pack_width=self.slots)
+            else:
+                self._prefill[size] = make_prefill_fn(srv.cfg, ms,
+                                                      norm_in=srv._norm_in)
+                self._gen[size] = make_generate_fn(
+                    srv.cfg, steps=self.steps_per_flush,
+                    norm_out=srv._norm_out)
         return self._prefill[size], self._gen[size]
 
     def _table(self, size: int) -> _SlotTable:
@@ -363,6 +405,9 @@ class RolloutEngine:
         pts, nrm = self._sample_cloud(req)
         st0 = self._init_state(req)
         st0 = faults.corrupt("rollout.insert", st0)
+        if self.sharded_mode:
+            self._insert_sharded(table, slot, req, pts, nrm, st0, t0)
+            return
         dev = srv.device
         graph = prefill(torch.from_numpy(pts).to(dev),
                         torch.from_numpy(nrm).to(dev), table.size)
@@ -380,6 +425,44 @@ class RolloutEngine:
         for k, v in graph.items():
             table.graph[k][slot].copy_(v)
         table.state[slot].copy_(torch.from_numpy(st0))
+        self._commit_slot(table, slot, req, pts, t1)
+
+    def _insert_sharded(self, table: _SlotTable, slot: int,
+                        req: RolloutRequest, pts, nrm, st0, t0: float):
+        """Sharded prefill is the host shard planning (against the bucket's
+        frozen spec, as the server plans a request); each flush builds the
+        shards' graphs on the device."""
+        srv = self.server
+        ms = srv._calibrate(table.size)
+        sspec = srv._calibrate_shard(table.size, ms)
+        faults.fire("shard.plan")
+        plan = sharded.plan_shards(
+            pts, nrm, srv.shard_devices, srv.cfg.n_mp_layers,
+            ms.level_sizes, srv.cfg.k_neighbors, method="geometric",
+            spec=sspec)
+        batch = plan.batch(srv.device)
+        st_local = torch.from_numpy(plan.scatter(st0))
+        t1 = time.perf_counter()
+        srv.stats.record_stage("rollout_prefill", t1 - t0)
+        faults.fire("rollout.insert")
+        if table.graph is None:
+            # every slot starts as a copy of the first plan: inert until a
+            # slot is inserted (remaining 0 skips a lane)
+            table.graph = {k: (np.repeat(v[:, None], self.slots, axis=1)
+                               if k == "level_counts" else
+                               v[:, None].repeat_interleave(self.slots, 1))
+                           for k, v in batch.items()}
+            table.state = torch.zeros(
+                (srv.shard_devices, self.slots) + tuple(st_local.shape[1:]),
+                dtype=torch.float32, device=srv.device)
+        for k, v in batch.items():
+            if k == "level_counts":
+                table.graph[k][:, slot] = v
+            else:
+                table.graph[k][:, slot].copy_(v)
+        table.state[:, slot].copy_(st_local)
+        table.plans[slot] = plan
+        table.gstate[slot] = np.asarray(st0)
         self._commit_slot(table, slot, req, pts, t1)
 
     def _commit_slot(self, table: _SlotTable, slot: int, req: RolloutRequest,
@@ -423,11 +506,15 @@ class RolloutEngine:
         try:
             faults.fire("rollout.generate")
             with srv.telemetry.annotate(f"rollout/generate_b{table.size}"):
-                table.state, _ = gen(srv.params, table.graph, table.state,
-                                     table.rem)
+                if self.sharded_mode:
+                    self._advance_sharded(table, gen)
+                else:
+                    table.state, _ = gen(srv.params, table.graph,
+                                         table.state, table.rem)
             # the flush's one wait for the card: S floats, the per-lane
             # verdict the harvest reads (NaN/Inf propagate through the sum)
-            table.lane_sum = table.state.abs().sum((1, 2)).cpu().numpy()
+            lanes = (0, 2, 3) if self.sharded_mode else (1, 2)
+            table.lane_sum = table.state.abs().sum(lanes).cpu().numpy()
         except Exception as e:           # noqa: BLE001 — chaos/card failure
             # a failed flush kills THIS table's in-flight rollouts (their
             # state is unrecoverable) but not the queue or other buckets'
@@ -455,6 +542,34 @@ class RolloutEngine:
                 "rollout_generate", t0, t1, bucket=table.size,
                 active=len(table.active()), steps=spf, advanced=advanced)
 
+    def _advance_sharded(self, table: _SlotTable, gen):
+        """One sharded flush. Under state feedback, each active lane's
+        global state is scattered onto its shards first, so halo rows carry
+        their owners' current values (one exact step a flush: the engine
+        clamped ``steps_per_flush`` to 1), and gathered back after."""
+        srv = self.server
+        feed = srv.cfg.rollout_state_feats
+        if feed:
+            for g, plan in enumerate(table.plans):
+                if plan is not None:
+                    table.state[:, g].copy_(torch.from_numpy(
+                        plan.scatter(table.gstate[g])))
+        table.state, _ = gen(srv.params, table.graph, table.state, table.rem)
+        if feed:
+            out = table.state.cpu().numpy()
+            for g, plan in enumerate(table.plans):
+                if plan is not None and table.rem[g] > 0:
+                    table.gstate[g] = plan.gather(out[:, g])
+
+    def _slot_fields(self, table: _SlotTable, slot: int) -> np.ndarray:
+        """A slot's final state on the host, a copy: on the CPU the slot is
+        host memory the next insert overwrites."""
+        if not self.sharded_mode:
+            return table.state[slot].to("cpu", copy=True).numpy()
+        if self.server.cfg.rollout_state_feats:
+            return np.array(table.gstate[slot])
+        return table.plans[slot].gather(table.state[:, slot].cpu().numpy())
+
     # ------------------------------------------------------------ harvest
 
     def _harvest_table(self, table: _SlotTable):
@@ -479,11 +594,8 @@ class RolloutEngine:
                 table.release(slot)
                 continue
             if table.rem[slot] == 0:
-                # a copy: on the CPU the slot is host memory the next
-                # insert overwrites
-                fields = faults.corrupt(
-                    "rollout.harvest",
-                    table.state[slot].to("cpu", copy=True).numpy())
+                fields = faults.corrupt("rollout.harvest",
+                                        self._slot_fields(table, slot))
                 if guard and not np.isfinite(fields).all():
                     srv.stats.bump("nonfinite_results")
                     self._c_abort.inc()

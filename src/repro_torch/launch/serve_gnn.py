@@ -1,7 +1,7 @@
 """GNN inference server on PyTorch: geometry in -> surface fields out.
 
-Port of ``repro.launch.serve_gnn.GNNServer`` (unsharded). Requests carry raw
-triangle geometry; the server samples a point cloud at the bucket's
+Port of ``repro.launch.serve_gnn.GNNServer``. Requests carry raw triangle
+geometry; the server samples a point cloud at the bucket's
 resolution (numpy, keyed on ``(seed, request id)`` exactly as the JAX
 server, so both sample bit-equal clouds), then runs the bucket's pipeline on
 the card: hash-grid kNN at every level (the kNN kernel), the multi-scale
@@ -54,6 +54,23 @@ the CPU.
 timings into histograms of the server's ``telemetry.metrics``; with
 ``cfg.telemetry`` the tracer records the per-request spans.
 
+Sharded serving (``shard_devices > 1``): each request is split into
+``shard_devices`` RCB shards with halo rings (``repro_torch.graphx.
+sharded``), which run one after another on the server's device, each
+building its own graph (the kNN kernel, once per level) and running the
+model over it (the segment-sum kernel in every layer); the owned rows are
+gathered back into one cloud. The JAX server runs one shard per device
+under ``shard_map``; no collective runs in either, so the fields are the
+same, and here the peak memory is one shard's. A bucket's ``ShardSpec``
+(per-shard level capacities, merged shard-local grids, the calibrated halo
+width) is derived once per size from the reference geometry and cached in
+``_shard_calib`` like ``_calib``; each request is planned against it with
+the ``geometric`` planner (host numpy). A request whose shards outgrow the
+bucket's spec, or whose plan fails, is rejected with ``Result.error``, and
+only that request. Up to ``max_batch`` geometries share one call, each its
+own lane. The deploy-artifact parts of the JAX server's sharded mode are
+not ported.
+
 Trained weights come from a training checkpoint of either package
 (``GNNServer.from_checkpoint``, ``--ckpt``).
 
@@ -72,6 +89,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
       --buckets 256 --device cpu --rollout-steps 20 --rollout-slots 4 \
       --integrator residual
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
+      --buckets 256 --device cpu --shard-devices 4
 """
 from __future__ import annotations
 
@@ -93,7 +112,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.core.graph_build import sample_surface
 from repro_torch.data import geometry as geo
 from repro_torch.device import resolve
-from repro_torch.graphx import hashgrid
+from repro_torch.graphx import hashgrid, sharded
 from repro_torch.graphx.multiscale import MultiscaleSpec
 from repro_torch.graphx.pipeline import make_batched_infer_fn
 from repro_torch.models import meshgraphnet
@@ -148,12 +167,17 @@ def load_gnn_checkpoint(path: str, cfg: GNNConfig, device=None):
 
 @dataclass
 class Bucket:
-    """One padding bucket: static shapes + its batched infer fn."""
+    """One padding bucket: static shapes + its infer fn (the batched
+    pipeline, or in sharded mode ``graphx.sharded.make_sharded_infer_fn``
+    of ``sspec``)."""
     n_points: int
     ms: MultiscaleSpec
     infer: object
     served: int = 0
     last_used: int = 0                 # LRU tick (autoscaler eviction order)
+    sspec: Optional[sharded.ShardSpec] = None   # sharded mode only
+    plan_sig: Optional[tuple] = None   # sspec.signature(): the cache key's
+                                       # second half in sharded mode
 
 
 @dataclass
@@ -427,6 +451,7 @@ class _InFlight:
     start_event: object = None         # torch.cuda.Event before the batch
     t_start: float = 0.0               # its prepare began (perf_counter)
     t_dispatched: float = 0.0          # its dispatch returned
+    plan: object = None                # sharded mode: the PackPlan
 
 
 class GNNServer:
@@ -443,9 +468,13 @@ class GNNServer:
     ``bucket_sizes`` is a static ladder or ``"auto"`` (see the module
     docstring); a ladder together with ``cfg.bucket_policy == "auto"`` seeds
     the autoscaler. The resilience knobs default to the config's fields of
-    the same names. The JAX server's ``knn_impl``, ``agg_impl``,
-    ``interpret`` and ``donate`` have no counterpart (the kernels dispatch
-    by device), nor its sharded and deploy-artifact knobs.
+    the same names. ``shard_devices > 1`` serves every request in that many
+    shards, one after another on ``device`` (JAX's name is kept: there it
+    counts devices), with ``shard_pad_factor`` (default
+    ``cfg.shard_pad_factor``) of headroom in each bucket's shard shapes.
+    The JAX server's ``knn_impl``, ``agg_impl``, ``interpret`` and
+    ``donate`` have no counterpart (the kernels dispatch by device), nor its
+    deploy-artifact knobs.
     """
 
     def __init__(self, cfg: GNNConfig,
@@ -458,7 +487,9 @@ class GNNServer:
                  max_queue_depth: Optional[int] = None,
                  shed_policy: Optional[str] = None,
                  request_timeout_s: Optional[float] = None,
-                 worker_max_restarts: Optional[int] = None, device=None):
+                 worker_max_restarts: Optional[int] = None,
+                 shard_devices: int = 1,
+                 shard_pad_factor: Optional[float] = None, device=None):
         self.device = resolve(device)
         if self.device.type == "cuda":
             # full f32 matmuls, as the JAX reference computes them (TF32
@@ -478,6 +509,10 @@ class GNNServer:
         self.cfg = cfg
         self.max_batch = int(max_batch)
         self.reject_overflow = reject_overflow
+        self.shard_devices = int(shard_devices)
+        self.shard_pad_factor = float(cfg.shard_pad_factor
+                                      if shard_pad_factor is None
+                                      else shard_pad_factor)
         self.async_flush = bool(async_flush)
         self.seed = int(seed)
         self._norm_in = norm_in
@@ -492,6 +527,9 @@ class GNNServer:
         # calibration cache: one MultiscaleSpec per size, kept across LRU
         # evictions — an evict->rebuild never recalibrates
         self._calib: Dict[int, MultiscaleSpec] = {}
+        # sharded sibling of _calib: one frozen ShardSpec per bucket size
+        # (per-shard capacities, merged grids, halo width), kept likewise
+        self._shard_calib: Dict[int, sharded.ShardSpec] = {}
         self._size_hist: deque = deque(maxlen=max(int(cfg.bucket_hist_len),
                                                   1))
         self._refit_count = 0
@@ -580,11 +618,43 @@ class GNNServer:
             self.stats.bucket_calibrations += 1
         return ms
 
+    def _calibrate_shard(self, n: int, ms: MultiscaleSpec
+                         ) -> sharded.ShardSpec:
+        """The ``ShardSpec`` of one bucket size, cached per size: per-shard
+        level capacities, merged shard-local grids and the geometric halo
+        width are functions of ``(bucket size, shard_devices, n_mp_layers,
+        shard_pad_factor)`` and the reference, so an evict->rebuild gets the
+        same signature without planning the reference again."""
+        sspec = self._shard_calib.get(n)
+        if sspec is not None:
+            return sspec
+        faults.fire("bucket.calibrate")
+        cfg = self.cfg
+        ref_pts, ref_nrm = self._sample_reference(n)
+        sspec = sharded.shard_spec_for(
+            n, self.shard_devices, cfg.n_mp_layers, self.shard_pad_factor,
+            reference_points=ref_pts, reference_normals=ref_nrm,
+            level_sizes=ms.level_sizes, k=cfg.k_neighbors, ms=ms)
+        self._shard_calib[n] = sspec
+        with self.stats.lock:
+            self.stats.bucket_calibrations += 1
+        return sspec
+
     def _build_bucket(self, n: int) -> Bucket:
         """Calibrate (cached per size) and wire one padding bucket. Nothing
         is compiled or allocated on the card here."""
         faults.fire("bucket.build")
         ms = self._calibrate(n)
+        if self.shard_devices > 1:
+            # per-shard shapes and grids are a function of the bucket size;
+            # each request is then planned against them with host numpy
+            sspec = self._calibrate_shard(n, ms)
+            infer = sharded.make_sharded_infer_fn(
+                self.cfg, sspec, norm_in=self._norm_in,
+                norm_out=self._norm_out, pack_width=self.max_batch,
+                device=self.device)
+            return Bucket(n_points=n, ms=ms, infer=infer, sspec=sspec,
+                          plan_sig=sspec.signature())
         infer = make_batched_infer_fn(self.cfg, ms, norm_in=self._norm_in,
                                       norm_out=self._norm_out)
         return Bucket(n_points=n, ms=ms, infer=infer)
@@ -683,9 +753,17 @@ class GNNServer:
         not part of the drain plan being executed (the cap is soft within a
         plan). A bucket holds host objects only, so eviction frees no device
         memory; the policy and counters are kept so that traffic gives the
-        JAX server's ladder."""
+        JAX server's ladder. Sharded servers key the cache by ``(size,
+        plan signature)``: a live bucket built for another ``ShardSpec``
+        than the size's cached one is a miss, rebuilt against the current
+        spec."""
         with self._cond:
             b = self._buckets.get(n)
+            if b is not None and self.shard_devices > 1:
+                sc = self._shard_calib.get(n)
+                if sc is not None and b.plan_sig != sc.signature():
+                    del self._buckets[n]      # stale shard plan: rebuild
+                    b = None
             if b is not None:
                 self._tick += 1
                 b.last_used = self._tick
@@ -1042,6 +1120,14 @@ class GNNServer:
             return _InFlight(bucket=b, results=pre, ok_reqs=[], host=None,
                              pts=np.zeros((0,)), record=record)
         faults.fire("serve.dispatch")
+        pack = None
+        if b.sspec is not None:
+            pre, ok_reqs, samples, pack = self._plan_shards(
+                b, pre, ok_reqs, samples, record)
+            if pack is None:
+                return _InFlight(bucket=b, results=pre, ok_reqs=[],
+                                 host=None, pts=np.zeros((0,)),
+                                 record=record)
         n = b.n_points
         # only the real requests run: no replay rows (module docstring)
         pts = np.stack([p for p, _ in samples])
@@ -1051,8 +1137,11 @@ class GNNServer:
         if on_card:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-        out = self._call_bucket(b, self._to_device(pts),
-                                self._to_device(nrm), [n] * len(ok_reqs))
+        if pack is None:
+            out = self._call_bucket(b, self._to_device(pts),
+                                    self._to_device(nrm), [n] * len(ok_reqs))
+        else:
+            out = self._call_bucket(b, pack.batch(self.device))
         host = out
         if on_card:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -1062,16 +1151,43 @@ class GNNServer:
         return _InFlight(bucket=b, results=pre, ok_reqs=ok_reqs, host=host,
                          pts=pts, record=record, event=event,
                          start_event=start,
-                         t_dispatched=time.perf_counter())
+                         t_dispatched=time.perf_counter(), plan=pack)
 
-    def _call_bucket(self, b: Bucket, pts, nrm, n_valid):
+    def _plan_shards(self, b: Bucket, pre: List[Result],
+                     ok_reqs: List[Request], samples, record: bool):
+        """Sharded mode: plan each geometry against the bucket's frozen
+        ``ShardSpec`` (``geometric``, host numpy). A failed plan (shards that
+        outgrow the spec, or an injected ``shard.plan`` fault) is the
+        request's fault: it is rejected and the others go on; the bucket is
+        never quarantined for it. Returns ``(rejections, kept requests,
+        their samples, PackPlan or None)``."""
+        kept, kept_samples, plans = [], [], []
+        for (pts, nrm), req in zip(samples, ok_reqs):
+            try:
+                faults.fire("shard.plan")
+                # the dilation is the halo width frozen into the spec
+                plan = sharded.plan_shards(
+                    pts, nrm, self.shard_devices, self.cfg.n_mp_layers,
+                    b.ms.level_sizes, self.cfg.k_neighbors,
+                    method="geometric", spec=b.sspec)
+            except Exception as e:
+                pre = pre + [self._reject(req, b.n_points,
+                                          str(e) or repr(e), pts, record)]
+                continue
+            kept.append(req)
+            kept_samples.append((pts, nrm))
+            plans.append(plan)
+        pack = sharded.pack_plans(plans, self.max_batch) if plans else None
+        return pre, kept, kept_samples, pack
+
+    def _call_bucket(self, b: Bucket, *args):
         """The bucket's pipeline on the card. What it raises synchronously
         (out of memory, a wrapper's check, a kernel that fails to build at
         first use) quarantines the bucket in ``_dispatch_item``; a fault in
         a kernel surfaces at the harvest instead."""
         faults.fire("serve.compile")      # chaos: failure at the bucket call
         with self.telemetry.annotate(f"serve/call_b{b.n_points}"):
-            return b.infer(self.params, pts, nrm, n_valid)
+            return b.infer(self.params, *args)
 
     def _padding_of(self, b: Bucket, req: Request) -> Tuple[int, int]:
         """(requested, padded-waste) point counts for one served request."""
@@ -1107,6 +1223,10 @@ class GNNServer:
                                batch=len(fl.ok_reqs))
         out = fl.host.numpy().copy()
         out = faults.corrupt("serve.harvest", out)   # chaos: device garbage
+        if fl.plan is not None:
+            # sharded: the owned rows of each geometry gathered back into
+            # one cloud; the guard below then runs per geometry
+            out = fl.plan.gather(out)
         guard = self.cfg.nonfinite_guard
         t_done = time.perf_counter()
         run_s = (fl.start_event.elapsed_time(fl.event) / 1e3
@@ -1585,6 +1705,12 @@ def main(argv=None):
                     help="serve the params and normalizers of this "
                     "launch.train checkpoint (either package's; its config "
                     "must match --reduced) instead of random weights")
+    ap.add_argument("--shard-devices", type=int, default=1,
+                    help="serve each request in this many RCB shards with "
+                    "halo rings, one after another on the device")
+    ap.add_argument("--shard-pad-factor", type=float, default=None,
+                    help="headroom of each bucket's shard shapes (default "
+                    "cfg.shard_pad_factor)")
     ap.add_argument("--telemetry", action="store_true",
                     help="enable the span tracer + profiler annotations")
     ap.add_argument("--trace-dir", default=None,
@@ -1657,7 +1783,8 @@ def main(argv=None):
         tuple(int(b) for b in args.buckets.split(","))
     dev = resolve(args.device)
     kw = dict(max_batch=args.max_batch, seed=args.seed, device=dev,
-              async_flush=not args.sync)
+              async_flush=not args.sync, shard_devices=args.shard_devices,
+              shard_pad_factor=args.shard_pad_factor)
     if args.ckpt:
         server = GNNServer.from_checkpoint(args.ckpt, cfg, buckets, **kw)
         print(f"loaded checkpoint {args.ckpt}")
@@ -1692,7 +1819,9 @@ def main(argv=None):
           f"p50 {rep['p50_ms']:.1f} ms | p95 {rep['p95_ms']:.1f} ms | "
           f"mean batch {rep['mean_batch']:.1f} | "
           f"{rep['throughput_rps']:.2f} req/s | {errors} errors "
-          f"({'sync' if args.sync else 'async'} flush)")
+          f"({'sync' if args.sync else 'async'} flush"
+          + (f", {server.shard_devices} shards a request"
+             if server.shard_devices > 1 else "") + ")")
     for n, bb in rep["by_bucket"].items():
         print(f"  bucket {n}: {bb['requests']} requests | submit->result "
               f"mean {bb['mean_ms']:.1f} ms p95 {bb['p95_ms']:.1f} ms | "

@@ -28,9 +28,8 @@ test arms a site and the production code — wherever it runs — honors it.
 Always pair ``arm`` with ``reset``/``disarm`` (or use the ``armed``
 context manager); each test file that arms a site resets it in a fixture.
 
-Known sites (grep for the literal to find the hook). The port has hooks at
-every site but ``shard.plan``, which comes with sharded serving and is
-listed so a chaos test arms the same names in both packages:
+Known sites (grep for the literal to find the hook); the port has a hook at
+every one, so a chaos test arms the same names in both packages:
 
 ====================  =====================================================
 ``serve.dispatch``    per-batch device dispatch (``_dispatch_inner``)
@@ -40,8 +39,9 @@ listed so a chaos test arms the same names in both packages:
 ``serve.harvest``     harvested device output (corrupt site: NaN-fill)
 ``serve.worker``      top of each background worker iteration
 ``shard.plan``        per-geometry shard planning in the sharded dispatch
-                      (``_dispatch_inner``, ``shard_devices > 1``) — a
-                      firing plan resolves that request to ``Result.error``
+                      (``_plan_shards``, ``shard_devices > 1``) and the
+                      sharded rollout insert — a firing plan resolves that
+                      request (or rollout) to an error
 ``bucket.build``      bucket construction (``_build_bucket``)
 ``bucket.calibrate``  grid calibration (``_calibrate``)
 ``rollout.prefill``   per-rollout prefill, before sampling

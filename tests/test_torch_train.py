@@ -333,6 +333,41 @@ def test_nonfinite_step_is_skipped_bit_for_bit(data):
     assert not skipped and int(opt.step) == 2
 
 
+@pytest.mark.parametrize("value", [np.inf, np.nan])
+def test_nonfinite_on_a_masked_edge_gets_the_same_verdict_as_jax(data,
+                                                                  value):
+    """A nonfinite value on a masked edge slot alone (its edge features):
+    JAX's guard and the port's reach the same verdict from the same
+    parameters and batch, and leave parameters and Adam state as they were.
+
+    The port's gathers' backward leaves masked edges out of its CSRs, and so
+    does its forward aggregation, so the value never reaches the port's
+    loss (finite here, JAX's NaN); it still reaches the edge encoder's
+    weight gradients (0 x inf at the masked row), so both guards skip."""
+    jcfg, cfg, params = data["jcfg"], data["cfg"], data["params"]
+    ps = data["pps"][0]
+    p, e = np.argwhere(ps.stacked["edge_mask"] == 0)[0]
+    stacked = {k: v.copy() for k, v in ps.stacked.items()}
+    stacked["edge_feats"][p, e, 0] = value
+    jstep = jtrain.make_gnn_step_fn(jcfg, jadam.AdamConfig(total_steps=4))
+    jopt = jadam.adam_init(params)
+    jparams, jopt2, jloss, _, jskipped = jstep(
+        params, jopt, {k: jnp.asarray(v) for k, v in stacked.items()},
+        jnp.asarray(ps.denom))
+    model = _model(data)
+    step = ptrain.make_gnn_step_fn(cfg, padam.AdamConfig(total_steps=4))
+    opt = padam.adam_init([q for _, q in model.leaves()])
+    new_opt, loss, _, skipped = step(
+        model, opt, {k: torch.from_numpy(v) for k, v in stacked.items()},
+        torch.tensor(ps.denom, dtype=torch.float32))
+    assert skipped and bool(jskipped)
+    assert not np.isfinite(float(jloss)) and np.isfinite(float(loss))
+    _close(params_to_jax(model), params, 0.0, what="port params")
+    _close(_np(jparams), params, 0.0, what="JAX params")
+    assert new_opt is opt and int(opt.step) == 0
+    _close(_np(jopt2), _np(jopt), 0.0, what="JAX Adam state")
+
+
 def test_predict_and_eval_match_jax(data):
     """predict_gnn and eval_gnn on train and test samples, same params."""
     jcfg, cfg = data["jcfg"], data["cfg"]
