@@ -160,13 +160,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    launches a shard; one shard's kNN is bit-equal to its plain version at
    its three level shapes and its segment-sum within SEG_ATOL at its edge
    count; Nmax, peak memory, host planning and run seconds logged, and the
-   ``geometric`` plan's Nmax for the same request (not run).
+   ``geometric`` plan's Nmax for the same request (not run);
+16. multi-process training (last): (a) a one-rank NCCL group (a
+   ``FileStore`` under build/, removed after) runs phase 9's step through
+   ``make_gnn_step_fn(group=...)``: loss, grad norm, every gradient leaf
+   and updated parameter bit-equal to phase 9's card step, one collective,
+   phase 9's launches; the distributed-MGN baseline
+   (``make_dmgn_grad_fn``) at W = 1 against the full-graph gradient of
+   phase 9's sample, 2L + 1 collectives; (b) two ranks spawned on the one
+   card (``gloo`` on CUDA tensors; time limits on the group and the join;
+   a failing rank fails the phase): both schemes at phase 9's size against
+   the full-graph card gradient within phase 9's tolerances (and the DDP
+   update against phase 9's with its near-zero split), the ranks' results
+   bit-equal, 1 and 2L + 1 collectives a step, segment-sum launches per
+   rank those of its partitions (DDP 2L / L / 2L each; the baseline L
+   forward, L backward, 3L gathers' backward); (c) ``train_gnn`` of phase
+   10's config on the two ranks (4 partitions each) for 2 steps: losses
+   within 1e-5 of phase 10's first two, 2 x 15 x 4 / 15 x 4 / 2 x 15 x 4
+   launches a step per rank; peak memory, step seconds and the
+   ``all_reduce`` seconds and bytes a step logged per rank.
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
 freed before the LLM phases (the flash row of 3, then 7 and 8), all but phase
 5's weights; the training phases (the backward row of 3, then 9, 14, 10 and
 11) run in another, and phases 13 and 15 run last, on phase 5's weights,
-each in a function of its own. It then
+each in a function of its own, then phase 16 in its own. It then
 prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
 {...}}`` line. It needs one card and imports nothing of JAX.
 """
@@ -183,6 +201,7 @@ import sys
 import tempfile
 import time
 import warnings
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -276,6 +295,12 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-5
 TRAIN_PARAM_ATOL = 1e-6
 TRAIN_NEAR_ZERO = 1e-6
+# Phase 16: multi-process training. Two ranks share the one card through
+# gloo; (c) trains phase 10's config for DIST_STEPS steps. The group's
+# timeout bounds every rendezvous and collective, the join bounds the ranks.
+DIST_WORLD, DIST_STEPS = 2, 2
+DIST_GROUP_TIMEOUT = timedelta(seconds=180)
+DIST_JOIN_TIMEOUT = 360
 LLM_ARCH = "gemma2-9b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 2, 4608, 32
 WHOLE_LLM_PROMPT, WHOLE_LLM_DECODE = 128, 4
@@ -1761,15 +1786,13 @@ def _near_zero_split(got, want, grads):
     return far, near, n_near / max(n_all, 1)
 
 
-def train_whole_path(dev, card, reset_counts, read_counts, by_phase):
-    """Phase 9: one optimizer step at full width (2 layers), card against
-    CPU, from the same parameters and the same partition batch."""
-    import torch
+def whole_train_setup():
+    """Phase 9's config, its one training sample (with the normalizers)
+    and that sample's partition batch, and its Adam config; phase 16 runs
+    the same step."""
     from repro_torch.configs.base import GNNConfig
     from repro_torch.data import pipeline as pipe
-    from repro_torch.launch.train import make_gnn_step_fn, prepare_gnn_batch
-    from repro_torch.models import meshgraphnet
-    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.optim.adam import AdamConfig
 
     cfg = GNNConfig().replace(levels=WHOLE_TRAIN_LEVELS,
                               n_partitions=WHOLE_TRAIN_PARTITIONS,
@@ -1777,10 +1800,29 @@ def train_whole_path(dev, card, reset_counts, read_counts, by_phase):
                               halo=WHOLE_TRAIN_LAYERS)
     train, _, ni, no = pipe.build_dataset(cfg, 2)
     [ps] = pipe.partition_samples(cfg, train, ni, no)
-    opt_cfg = AdamConfig(total_steps=10)
+    return cfg, (train[0], ni, no), ps, AdamConfig(total_steps=10)
+
+
+def whole_train_model(cfg):
+    """Phase 9's weights, on the CPU."""
+    import torch
+    from repro_torch.models import meshgraphnet
+    return meshgraphnet.init(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+
+
+def train_whole_path(dev, card, reset_counts, read_counts, by_phase) -> dict:
+    """Phase 9: one optimizer step at full width (2 layers), card against
+    CPU, from the same parameters and the same partition batch. Returns
+    the card's step (loss, grad norm, gradients, updated parameters) for
+    phase 16."""
+    import torch
+    from repro_torch.launch.train import make_gnn_step_fn, prepare_gnn_batch
+    from repro_torch.optim.adam import adam_init
+
+    cfg, _, ps, opt_cfg = whole_train_setup()
     step = make_gnn_step_fn(cfg, opt_cfg)
-    model_cpu = meshgraphnet.init(torch.Generator().manual_seed(0), cfg,
-                                  device="cpu")
+    model_cpu = whole_train_model(cfg)
     model_gpu = copy.deepcopy(model_cpu).to(dev)
     b_gpu = prepare_gnn_batch(ps, dev)
     b_cpu = prepare_gnn_batch(ps, "cpu")
@@ -1861,6 +1903,7 @@ def train_whole_path(dev, card, reset_counts, read_counts, by_phase):
         f"gathers' backward "
         f"{by_phase['gather_rows_backward']['train_whole_path_gpu']}; card "
         f"{g['s']:.3f} s (first step), CPU {c['s']:.2f} s | {card}")
+    return g
 
 
 def _same_params(a, b) -> bool:
@@ -1978,10 +2021,11 @@ def resume_check(dev, card, cfg, ck, model, losses, norms, reset_counts,
         f"must; phase 11 took {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
-def train_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
+def train_phases(dev, card, reset_counts, read_counts, by_phase):
     """The training kernels' rows (phase 3: the segment-sum backward and the
     gathers' backward), phases 9 to 11 and the profiled step; returns the
-    rows. Its tensors are freed when it returns."""
+    rows and what phase 16 holds its runs against (phase 9's card step,
+    phase 10's losses). Its tensors are freed when it returns."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2008,7 +2052,7 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
     read_counts("kernel_check")
 
     # 9. one step, card against CPU ----------------------------------------
-    train_whole_path(dev, card, reset_counts, read_counts, by_phase)
+    whole = train_whole_path(dev, card, reset_counts, read_counts, by_phase)
 
     # 14. the graphx training-graph source ---------------------------------
     reset_counts()
@@ -2169,7 +2213,7 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase) -> list:
         f"step's device time) | {card}")
     for k, ms, n in kernels[:10]:
         log(f"[train_breakdown]   {ms:10.3f} ms  x{n:<5d} {k[:110]}")
-    return rows
+    return rows, {"whole": whole, "train_losses": losses}
 
 
 def _window_pairs(s: int, window) -> int:
@@ -2608,6 +2652,399 @@ def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
     return rows
 
 
+def _full_graph_batch(sample, dev):
+    """A training sample's whole graph, normalized, as one batch on ``dev``
+    (the full-graph loss of phase 16)."""
+    import torch
+    s, ni, no = sample
+    g = s.graph
+    arrays = {"node_feats": ni.encode(s.node_feats).astype(np.float32),
+              "edge_feats": g.edge_feats, "senders": g.senders,
+              "receivers": g.receivers,
+              "targets": no.encode(s.targets).astype(np.float32),
+              "loss_mask": np.ones(g.n_nodes, np.float32)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in arrays.items()}
+
+
+def _dmgn_shard(sample, world: int, rank: int, dev):
+    """Rank ``rank``'s baseline shard of a sample's whole graph, labelled by
+    the trainer's partitioner into ``world`` parts."""
+    from repro_torch.core import distributed_mgn as dmgn
+    from repro_torch.core import partitioning
+    s, ni, no = sample
+    g = s.graph
+    labels = partitioning.partition(g.senders, g.receivers, g.n_nodes, world,
+                                    positions=g.positions)
+    shards = dmgn.prepare_dmgn_shards(
+        g.senders, g.receivers, labels, world,
+        ni.encode(s.node_feats).astype(np.float32), g.edge_feats,
+        no.encode(s.targets).astype(np.float32))
+    return dmgn.device_put_shards(shards, rank, dev), shards["meta"]
+
+
+def _leaf_grads(model) -> list:
+    return [p.grad.detach().cpu() for _, p in model.leaves()]
+
+
+def _grad_err(got, want) -> tuple:
+    """The worst leaf's max abs error over its own largest element, and
+    its index."""
+    worst = (0.0, -1)
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(w.abs().max())
+        worst = max(worst, (float((g - w).abs().max()) / max(scale, 1e-30),
+                            i))
+    return worst
+
+
+def _seg_counts():
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    return {"segment_sum": seg_ops.segment_sum_prepared.launches,
+            "segment_sum_backward": seg_ops.segment_sum_backward.launches,
+            "gather_rows_backward": seg_ops.gather_rows.launches}
+
+
+def _reset_seg_counts():
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    for fn in (seg_ops.segment_sum_prepared, seg_ops.segment_sum_backward,
+               seg_ops.gather_rows):
+        fn.launches = 0
+
+
+def _dist_rank(rank: int, world: int, store: str, out_dir: str):
+    """Phase 16 (b) and (c) in one of the ranks sharing the card (a spawned
+    process): writes ``rank<r>.pt``, or its traceback to
+    ``error_rank<r>.txt`` and fails."""
+    import traceback
+    try:
+        _dist_rank_work(rank, world, store, Path(out_dir))
+    except BaseException:
+        (Path(out_dir) / f"error_rank{rank}.txt").write_text(
+            f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+
+
+def _dist_rank_work(rank: int, world: int, store: str, out: Path):
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.core import distributed_mgn as dmgn
+    from repro_torch.core.gradient_aggregation import all_reduce
+    from repro_torch.launch.sharding import (init_process_group,
+                                             shard_count_for, shard_range)
+    from repro_torch.launch.train import (make_gnn_step_fn,
+                                          prepare_gnn_batch, train_gnn)
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.telemetry import Telemetry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    group = init_process_group(rank, world, f"file://{store}",
+                               backend="gloo", device=dev,
+                               timeout=DIST_GROUP_TIMEOUT)
+    res = {}
+    try:
+        # (b) both schemes at phase 9's size ---------------------------------
+        cfg, sample, ps, opt_cfg = whole_train_setup()
+        n_parts = ps.stacked["senders"].shape[0]
+        n_shards = shard_count_for(n_parts, world)
+        model = whole_train_model(cfg).to(dev)
+        step = make_gnn_step_fn(cfg, opt_cfg, group=group)
+        opt = adam_init([p for _, p in model.leaves()])
+        batch = prepare_gnn_batch(ps, dev, rank, n_shards)
+        _reset_seg_counts()
+        c0 = all_reduce.collectives
+        opt, loss, gnorm, skipped = step(model, opt, *batch)
+        torch.cuda.synchronize()
+        res["ddp"] = dict(
+            loss=float(loss), gnorm=float(gnorm), skipped=bool(skipped),
+            grads=_leaf_grads(model),
+            params=[p.detach().cpu() for _, p in model.leaves()],
+            launches=_seg_counts(), parts=len(shard_range(n_parts, rank,
+                                                          n_shards)),
+            collectives=all_reduce.collectives - c0)
+        del model, opt, batch, step
+        model = whole_train_model(cfg).to(dev)
+        shard, meta = _dmgn_shard(sample, world, rank, dev)
+        _reset_seg_counts()
+        c0 = all_reduce.collectives
+        loss = dmgn.make_dmgn_grad_fn(group, ps.denom)(model, shard)
+        torch.cuda.synchronize()
+        res["dmgn"] = dict(loss=float(loss), grads=_leaf_grads(model),
+                           launches=_seg_counts(), meta=meta,
+                           collectives=all_reduce.collectives - c0)
+        del model, shard
+
+        # (c) train_gnn at phase 10's full width -----------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = GNNConfig().replace(levels=TRAIN_LEVELS,
+                                  n_partitions=TRAIN_PARTITIONS)
+        tel = Telemetry(enabled=True)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_seg_counts()
+        c0, b0, s0 = all_reduce.collectives, all_reduce.bytes, \
+            all_reduce.seconds
+        t0 = time.perf_counter()
+        _, losses, _ = train_gnn(cfg, DIST_STEPS, TRAIN_SAMPLES,
+                                 log_every=1, telemetry=tel,
+                                 opt_total_steps=TRAIN_STEPS, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = tel.tracer.records()
+        step_span = {r.attrs["it"]: r.duration_s for r in spans
+                     if r.name == "step"}
+        prep_span = {int(r.trace_id.split("-")[1]): r.duration_s
+                     for r in spans if r.name == "prepare"}
+        res["train"] = dict(
+            losses=losses, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            step_s=[step_span[i] - prep_span[i] for i in range(DIST_STEPS)],
+            data_s=tel.metrics.histogram("train_stage_data_seconds").sum,
+            wall_s=wall, launches=_seg_counts(),
+            collectives=all_reduce.collectives - c0,
+            bytes=all_reduce.bytes - b0,
+            all_reduce_s=all_reduce.seconds - s0)
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world: int, out_dir: Path, store: str):
+    """Start ``world`` ranks (``spawn``), wait at most DIST_JOIN_TIMEOUT for
+    them, and raise, with their tracebacks, if one failed or had to be
+    killed; none is left running."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, world, store, str(out_dir)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_JOIN_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if alive or any(c != 0 for c in codes):
+        detail = "\n".join(f.read_text() for f in
+                           sorted(out_dir.glob("error_rank*.txt")))
+        raise RuntimeError(f"phase 16: ranks exited {codes}, {len(alive)} "
+                           f"killed at the {DIST_JOIN_TIMEOUT} s limit\n"
+                           f"{detail}")
+    import torch
+    return [torch.load(out_dir / f"rank{r}.pt") for r in range(world)]
+
+
+def dist_phase(dev, card, reset_counts, read_counts, by_phase, *, whole,
+               train_losses):
+    """Phase 16: multi-process training. (a) world size 1 through NCCL in
+    this process: phase 9's step through ``make_gnn_step_fn(group=...)``
+    bit-equal to phase 9's card step, and the baseline at W = 1 against the
+    full-graph gradient; (b) two ranks sharing the card through ``gloo``,
+    both schemes at phase 9's size against the full-graph gradient, with
+    their collectives and per-rank launches; (c) ``train_gnn`` of phase
+    10's config on the two ranks for DIST_STEPS steps, the losses against
+    phase 10's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.core import distributed_mgn as dmgn
+    from repro_torch.core.gradient_aggregation import all_reduce
+    from repro_torch.launch.sharding import init_process_group
+    from repro_torch.launch.train import make_gnn_step_fn, prepare_gnn_batch
+    from repro_torch.models.meshgraphnet import loss_fn
+    from repro_torch.optim.adam import adam_init
+
+    t_phase = time.perf_counter()
+    cfg, sample, ps, opt_cfg = whole_train_setup()
+    n_layers, n_parts = cfg.n_mp_layers, ps.stacked["senders"].shape[0]
+    # the full-graph gradient of phase 9's sample on the card
+    model = whole_train_model(cfg).to(dev)
+    full = loss_fn(model, _full_graph_batch(sample, dev), ps.denom)
+    full.backward()
+    full_loss, full_grads = full.item(), _leaf_grads(model)
+    del model, full
+
+    def hold(what, loss, grads):
+        rel = abs(loss - full_loss) / abs(full_loss)
+        err, i = _grad_err(grads, full_grads)
+        if rel > TRAIN_LOSS_RTOL or err > TRAIN_GRAD_RTOL:
+            raise RuntimeError(
+                f"phase 16 {what}: loss {loss} against the full graph's "
+                f"{full_loss} (relative {rel}), gradient leaf "
+                f"{whole['names'][i]} off by {err} of its largest element")
+        return f"loss relative {rel:.3g}, worst leaf {err:.3g}"
+
+    # (a) world size 1 through NCCL --------------------------------------------
+    store = ROOT / "build" / f"chip_smoke_dist_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    try:
+        group = init_process_group(0, 1, f"file://{store}", backend="nccl",
+                                   device=dev, timeout=DIST_GROUP_TIMEOUT)
+        try:
+            model = whole_train_model(cfg).to(dev)
+            step = make_gnn_step_fn(cfg, opt_cfg, group=group)
+            opt = adam_init([p for _, p in model.leaves()])
+            batch = prepare_gnn_batch(ps, dev, 0, 1)
+            reset_counts()
+            c0 = all_reduce.collectives
+            opt, loss, gnorm, skipped = step(model, opt, *batch)
+            torch.cuda.synchronize()
+            read_counts("dist_w1_ddp")
+            n_coll = all_reduce.collectives - c0
+            grads = _leaf_grads(model)
+            params = [p.detach().cpu() for _, p in model.leaves()]
+            same = (float(loss) == whole["loss"]
+                    and float(gnorm) == whole["gnorm"]
+                    and not skipped and not whole["skipped"]
+                    and all(torch.equal(a, b)
+                            for a, b in zip(grads, whole["grads"]))
+                    and all(torch.equal(a, b)
+                            for a, b in zip(params, whole["params"])))
+            if not same or n_coll != 1:
+                raise RuntimeError(
+                    f"phase 16 (a): the NCCL world-1 step is not bit-equal "
+                    f"to phase 9's (loss {float(loss)!r} against "
+                    f"{whole['loss']!r}) or made {n_coll} collectives")
+            want = {"segment_sum": 2 * n_layers * n_parts,
+                    "segment_sum_backward": n_layers * n_parts,
+                    "gather_rows_backward": 2 * n_layers * n_parts}
+            got = {k: by_phase[k]["dist_w1_ddp"] for k in want}
+            if got != want:
+                raise RuntimeError(f"phase 16 (a): launches {got}, "
+                                   f"expected {want}")
+            del model, opt, batch, step
+            model = whole_train_model(cfg).to(dev)
+            shard, meta = _dmgn_shard(sample, 1, 0, dev)
+            reset_counts()
+            c0 = all_reduce.collectives
+            loss1 = dmgn.make_dmgn_grad_fn(group, ps.denom)(model, shard)
+            torch.cuda.synchronize()
+            read_counts("dist_w1_dmgn")
+            n_coll1 = all_reduce.collectives - c0
+            if n_coll1 != 2 * n_layers + 1:
+                raise RuntimeError(f"phase 16 (a): the baseline made "
+                                   f"{n_coll1} collectives")
+            held = hold("(a) baseline W=1", float(loss1), _leaf_grads(model))
+            del model, shard
+        finally:
+            dist.destroy_process_group()
+    finally:
+        store.unlink(missing_ok=True)
+    log(f"[dist] (a) NCCL, world size 1: phase 9's step through "
+        f"make_gnn_step_fn(group=...) bit-equal to phase 9's card step "
+        f"(loss, grad norm, {len(grads)} gradient leaves, updated "
+        f"parameters), 1 collective, launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; the baseline at W=1 (B={meta['B']}) against the full-graph "
+        f"gradient: {held}, {n_coll1} collectives | {card}")
+
+    # (b) and (c): two ranks sharing the card through gloo ----------------------
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_",
+                                    dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(DIST_WORLD, out_dir, str(out_dir / "store"))
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    per_part = {"segment_sum": 2 * n_layers, "segment_sum_backward": n_layers,
+                "gather_rows_backward": 2 * n_layers}
+    per_dmgn = {"segment_sum": n_layers, "segment_sum_backward": n_layers,
+                "gather_rows_backward": 3 * n_layers}
+    lines = []
+    for r, res in enumerate(ranks):
+        ddp, dm = res["ddp"], res["dmgn"]
+        want = {k: v * ddp["parts"] for k, v in per_part.items()}
+        if ddp["launches"] != want or ddp["collectives"] != 1 \
+                or dm["launches"] != per_dmgn \
+                or dm["collectives"] != 2 * n_layers + 1 or ddp["skipped"]:
+            raise RuntimeError(
+                f"phase 16 (b) rank {r}: DDP launches {ddp['launches']} "
+                f"(expected {want}), {ddp['collectives']} collectives; "
+                f"baseline launches {dm['launches']} (expected {per_dmgn}), "
+                f"{dm['collectives']} collectives")
+        for k, v in {**{f"dist_w2_ddp_rank{r}": ddp["launches"]},
+                     **{f"dist_w2_dmgn_rank{r}": dm["launches"]}}.items():
+            for name, n in v.items():
+                by_phase[name][k] = n
+        lines.append(
+            f"rank {r}: DDP {ddp['parts']} partition(s), "
+            + hold(f"(b) DDP rank {r}", ddp["loss"], ddp["grads"])
+            + f"; baseline (B={dm['meta']['B']}, Nmax={dm['meta']['Nmax']}, "
+            f"Emax={dm['meta']['Emax']}) "
+            + hold(f"(b) baseline rank {r}", dm["loss"], dm["grads"])
+            + "; launches DDP " + ", ".join(
+                f"{k} {v}" for k, v in ddp["launches"].items())
+            + ", baseline " + ", ".join(
+                f"{k} {v}" for k, v in dm["launches"].items()))
+    r0, r1 = ranks
+    for key in ("grads", "params"):
+        if not all(torch.equal(a, b)
+                   for a, b in zip(r0["ddp"][key], r1["ddp"][key])):
+            raise RuntimeError(f"phase 16 (b): the two ranks' DDP {key} "
+                               "differ")
+    far, near, share = _near_zero_split(r0["ddp"]["params"],
+                                        whole["params"], whole["grads"])
+    if far > TRAIN_PARAM_ATOL or near > 2 * opt_cfg.lr_max:
+        raise RuntimeError(f"phase 16 (b): DDP updated params differ from "
+                           f"phase 9's by {far} (limit {TRAIN_PARAM_ATOL}), "
+                           f"near-zero gradients {near}")
+    for line in lines:
+        log(f"[dist] (b) gloo, 2 ranks on one card, phase 9's size: {line}")
+    log(f"[dist] (b) DDP updated params against phase 9's card step: max "
+        f"abs err {far:.3g} (limit {TRAIN_PARAM_ATOL}), {near:.3g} on the "
+        f"{share:.2%} with gradient below {TRAIN_NEAR_ZERO}; both ranks "
+        f"bit-equal; collectives a step: DDP 1, baseline "
+        f"{2 * n_layers + 1} (2L + 1) | {card}")
+
+    want_losses = train_losses[:DIST_STEPS]
+    for r, res in enumerate(ranks):
+        t = res["train"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(t["losses"],
+                                                       want_losses))
+        per_rank = TRAIN_PARTITIONS // DIST_WORLD
+        n_layers_full = GNNConfig().n_mp_layers
+        want = {"segment_sum": 2 * n_layers_full * per_rank * DIST_STEPS,
+                "segment_sum_backward": n_layers_full * per_rank * DIST_STEPS,
+                "gather_rows_backward":
+                    2 * n_layers_full * per_rank * DIST_STEPS}
+        if rel > TRAIN_LOSS_RTOL or t["launches"] != want \
+                or t["collectives"] != DIST_STEPS:
+            raise RuntimeError(
+                f"phase 16 (c) rank {r}: losses {t['losses']} against phase "
+                f"10's {want_losses} (relative {rel}), launches "
+                f"{t['launches']} (expected {want}), {t['collectives']} "
+                "collectives")
+        for name, n in t["launches"].items():
+            by_phase[name][f"dist_w2_train_rank{r}"] = n
+        log(f"[dist] (c) train_gnn full width ({TRAIN_PARTITIONS} partitions, "
+            f"{per_rank} a rank), rank {r} of {DIST_WORLD} on one card: "
+            f"losses {t['losses']!r} against phase 10's {want_losses!r} "
+            f"(relative {rel:.3g}, limit {TRAIN_LOSS_RTOL}); steps (s): "
+            + ", ".join(f"{x:.3f}" for x in t["step_s"])
+            + f" (first, then warm); all_reduce "
+            f"{t['all_reduce_s'] / DIST_STEPS:.4f} s and "
+            f"{t['bytes'] // DIST_STEPS} bytes a step ({t['collectives']} "
+            f"in {DIST_STEPS} steps); peak memory {t['peak_gb']:.2f} GB; "
+            f"host data {t['data_s']:.2f} s; train_gnn {t['wall_s']:.2f} s; "
+            "launches " + ", ".join(f"{k} {v}" for k, v in
+                                     t["launches"].items()) + f" | {card}")
+    log(f"[dist] phase 16 took {time.perf_counter() - t_phase:.1f} s (the "
+        f"two ranks {spawn_s:.1f} s, spawn to join) | {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2709,8 +3146,9 @@ def main() -> int:
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later
     # flash-attention profiles in the same process
-    kernels.extend(train_phases(dev, card, reset_counts, read_counts,
-                                by_phase))
+    rows, dist_ctx = train_phases(dev, card, reset_counts, read_counts,
+                                  by_phase)
+    kernels.extend(rows)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2726,6 +3164,13 @@ def main() -> int:
     # feedback run it reuses), in a function of its own
     sharded_phase(dev, card, reset_counts, read_counts, by_phase,
                   feedback=feedback, **rollout_ctx)
+    del feedback, rollout_ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16. multi-process training: NCCL at world size 1 in this process, then
+    # two ranks sharing the card through gloo, in a function of its own
+    dist_phase(dev, card, reset_counts, read_counts, by_phase, **dist_ctx)
 
     main_phase = {"segment_sum": "serve", "segment_sum_backward": "train",
                   "gather_rows_backward": "train",

@@ -1,14 +1,21 @@
-"""Training driver for X-MeshGraphNet on PyTorch, on one device.
+"""The X-MeshGraphNet trainer on PyTorch.
 
-Port of the GNN path of ``repro.launch.train`` with ``mesh=None``:
-partitioned training with halo regions and gradient aggregation on
-synthetic DrivAerML-proxy data (paper SIII-A). Each step stages one sample's
-stacked (P, ...) partition batch on the device and runs forward and backward
-partition by partition, each partition's loss divided by the sample's
-global denominator, so that autograd's summed gradients are the full-graph
-gradients. Then the gradients are clipped to global norm 32 and Adam takes
-one step with a cosine learning rate; a step whose loss or any gradient is
-not finite is skipped, parameters and Adam state untouched.
+Port of the GNN path of ``repro.launch.train``: partitioned training with
+halo regions and gradient aggregation on synthetic DrivAerML-proxy data
+(paper SIII-A). Each step stages one sample's stacked (P, ...) partition
+batch on the device and runs forward and backward partition by partition,
+each partition's loss divided by the sample's global denominator, so that
+autograd's summed gradients are the full-graph gradients. Then the
+gradients are clipped to global norm 32 and Adam takes one step with a
+cosine learning rate; a step whose loss or any gradient is not finite is
+skipped, parameters and Adam state untouched.
+
+In one process this is JAX's ``mesh=None`` path. Under ``torch.distributed``
+(one process per rank, e.g. ``torchrun``) it is JAX's sharded path: rank r
+runs partitions ``[r P / n, (r + 1) P / n)`` of each sample, and the loss and
+gradients of every rank meet in ONE ``all_reduce`` a step
+(``core.gradient_aggregation.ddp_aggregate_gradients``); every rank then
+takes the same Adam step, so the parameters stay the same on every rank.
 
 On the card the processor's aggregation runs the segment-sum kernel forward
 and its hand-written backward kernel; with ``cfg.remat`` each
@@ -31,23 +38,32 @@ Usage:
       --reduced --steps 2 --samples 3 --device cpu --graph-source graphx
   PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
       --reduced --steps 100 --samples 8
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch xmgn-drivaer --reduced --steps 3 \
+      --samples 3 --device cpu --dist-backend gloo
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get_config
 from repro_torch.configs.base import GNNConfig
-from repro_torch.core.gradient_aggregation import aggregate_gradients
+from repro_torch.core.gradient_aggregation import (aggregate_gradients,
+                                                   ddp_aggregate_gradients)
 from repro_torch.data import pipeline as pipe
 from repro_torch.device import resolve
+from repro_torch.launch.sharding import (init_process_group, rank_device,
+                                         shard_count_for, shard_put,
+                                         shard_range)
 from repro_torch.models import meshgraphnet
 from repro_torch.models.convert import (adam_state_from_jax,
                                         adam_state_to_jax, params_from_jax,
@@ -70,7 +86,7 @@ def _stage_hists(tel: Telemetry) -> dict:
         for s in TRAIN_STAGES}
 
 
-def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig):
+def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig, group=None):
     """One optimizer step over a stacked (P, ...) partition batch.
 
     Returns ``step(model, opt, stacked, denom) -> (opt, loss, grad_norm,
@@ -78,9 +94,18 @@ def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig):
     state returned. ``stacked`` and ``denom`` come from
     :func:`prepare_gnn_batch`, on the model's device.
 
+    ``group=None`` runs every partition of ``stacked`` in this process.
+    With a ``torch.distributed`` group, ``stacked`` is this rank's slice and
+    the per-rank sums meet in one ``all_reduce``
+    (:func:`ddp_aggregate_gradients`); every rank of the group must take
+    every step. The loss, the gradients, the guard's verdict and the Adam
+    step are then the same on every rank.
+
     Nonfinite guard (``cfg.nonfinite_guard``, default on): when the loss
     or any gradient is NaN/Inf the update is SKIPPED: the parameters and
     the Adam state stay as they were, bit for bit, and ``skipped`` is True.
+    Sharded, the verdict is read from the summed loss and gradients, so a
+    nonfinite value on one rank makes every rank skip.
     """
     guard = bool(cfg.nonfinite_guard)
 
@@ -88,8 +113,12 @@ def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig):
         n_parts = stacked["senders"].shape[0]
         batches = ({k: v[p] for k, v in stacked.items()}
                    for p in range(n_parts))
-        loss = aggregate_gradients(lambda m, b: loss_fn(m, b, denom), model,
-                                   batches)
+        if group is None:
+            loss = aggregate_gradients(lambda m, b: loss_fn(m, b, denom),
+                                       model, batches)
+        else:
+            loss = ddp_aggregate_gradients(
+                lambda m, b: loss_fn(m, b, denom), model, batches, group)
         params = [p for _, p in model.leaves()]
         grads = [p.grad for p in params]
         new_params, new_opt, metrics = adam_update(opt_cfg, grads, opt,
@@ -108,13 +137,14 @@ def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig):
     return step_fn
 
 
-def prepare_gnn_batch(ps: pipe.PartitionedSample, device):
+def prepare_gnn_batch(ps: pipe.PartitionedSample, device, rank: int = 0,
+                      n_shards: int = 1):
     """One partitioned sample on ``device``: ``(stacked, denom)``, the
-    stacked (P, ...) arrays as tensors and the loss denominator as an f32
-    scalar."""
+    stacked arrays of rank ``rank``'s partitions when ``n_shards`` ranks
+    split them (``launch.sharding.shard_put``; all P of them by default) as
+    tensors, and the whole sample's loss denominator as an f32 scalar."""
     dev = torch.device(device)
-    stacked = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-               for k, v in ps.stacked.items()}
+    stacked = shard_put(ps.stacked, rank, n_shards, dev)
     return stacked, torch.tensor(ps.denom, dtype=torch.float32, device=dev)
 
 
@@ -130,9 +160,20 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
               opt_total_steps: Optional[int] = None,
               keep_ckpts: Optional[int] = None,
               noise_std: Optional[float] = None,
-              graph_source: Optional[str] = None, device=None):
+              graph_source: Optional[str] = None,
+              shard_devices: Optional[int] = None, device=None):
     """Train X-MeshGraphNet on partitioned synthetic DrivAerML-proxy data,
     on ``device`` (default: the card).
+
+    Sharded when ``torch.distributed`` is initialised: every rank builds the
+    same dataset and weights from the seeds, takes the partitions
+    ``[r P / n, (r + 1) P / n)`` of each sample, where ``n`` is the largest
+    rank count that divides P (at most ``shard_devices``; ranks past ``n``
+    hold none and add zeros), and the ranks' sums meet in one
+    ``all_reduce`` a step (:func:`make_gnn_step_fn` with the default
+    group). Only rank 0 writes checkpoints; a resume restores the same file
+    on every rank. Telemetry and the fault sites work per rank; the
+    ``train.batch`` site corrupts the rank's own partitions.
 
     ``graph_source`` (default ``cfg.graph_source``) selects the training
     graph build: ``"host"`` (cKDTree) or ``"graphx"`` (the hash-grid union,
@@ -170,6 +211,10 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
     dev = resolve(device)
     if graph_source is not None:
         cfg = cfg.replace(graph_source=graph_source)
+    group, rank, world = None, 0, 1
+    if dist.is_available() and dist.is_initialized():
+        group, rank, world = (dist.group.WORLD, dist.get_rank(),
+                              dist.get_world_size())
     # compile_cache.enable of the JAX trainer has no counterpart here yet:
     # the port compiles no step program (ROADMAP Queue 1 item 6, cold start)
     tel = telemetry if telemetry is not None else Telemetry.from_config(cfg)
@@ -227,7 +272,15 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
                 "opt_total_steps": int(opt_cfg.total_steps),
                 "norm_in": vars(norm_in), "norm_out": vars(norm_out)}
 
-    step_fn = make_gnn_step_fn(cfg, opt_cfg)
+    n_parts = cfg.n_partitions
+    n_shards = shard_count_for(n_parts, world, limit=shard_devices)
+    part = shard_range(n_parts, rank, n_shards)
+    if group is not None and rank == 0:
+        print(f"partition-parallel: {n_parts} partitions over {n_shards} of "
+              f"{world} ranks ({n_parts // n_shards} per rank, one "
+              "all_reduce per step)", flush=True)
+    step_fn = make_gnn_step_fn(cfg, opt_cfg, group=group)
+    writes = rank == 0                   # one checkpoint writer
     if keep_ckpts is None:
         keep_ckpts = int(cfg.keep_ckpts)
     if noise_std is None:
@@ -249,19 +302,22 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
             tp0 = time.perf_counter()
             with tel.span("prepare"):
                 ps = psamples[it % len(psamples)]
-                stacked, denom = prepare_gnn_batch(ps, dev)
-                nf = ps.stacked["node_feats"]
+                stacked, denom = prepare_gnn_batch(ps, dev, rank, n_shards)
+                nf_all = ps.stacked["node_feats"]
+                nf = nf0 = nf_all[part.start:part.stop]
                 if faults.active():
                     # chaos: poison this step's node features so the
                     # nonfinite skip-step guard has something to catch
                     nf = faults.corrupt("train.batch", nf)
                 if noise_std > 0.0:
-                    # MGN rollout-stability noise, seeded by the global step
+                    # MGN rollout-stability noise, seeded by the global
+                    # step, drawn for the whole sample on every rank
                     nrng = np.random.default_rng((0xF10A7, it))
-                    nf = nf + nrng.standard_normal(nf.shape).astype(
-                        nf.dtype) * noise_std
-                if nf is not ps.stacked["node_feats"]:
-                    stacked["node_feats"] = torch.from_numpy(nf).to(dev)
+                    nf = nf + nrng.standard_normal(nf_all.shape).astype(
+                        nf.dtype)[part.start:part.stop] * noise_std
+                if nf is not nf0:
+                    stacked["node_feats"] = torch.from_numpy(
+                        np.ascontiguousarray(nf)).to(dev)
                 _sync(dev)
             tp1 = time.perf_counter()
             first = it == start_step
@@ -283,8 +339,8 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
         hists["step"].observe(step_s[-1])
         loss_gauge.set(losses[-1])
         steps_ctr.inc()
-        if (ckpt_path and ckpt_every > 0 and (it + 1) % ckpt_every == 0
-                and it + 1 < steps):
+        if (writes and ckpt_path and ckpt_every > 0
+                and (it + 1) % ckpt_every == 0 and it + 1 < steps):
             # async: copied to the host here, written on the ckpt-writer
             # thread; the loop only ever waits for the PREVIOUS write
             with tel.span("checkpoint", path=ckpt_path, it=it):
@@ -296,7 +352,7 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
                     ckpt.prune_retained(ckpt_path, keep_ckpts)
                 else:
                     writer.save(ckpt_path, ckpt_tree(it + 1))
-        if it % log_every == 0:
+        if rank == 0 and it % log_every == 0:
             # warm s/step excludes the first step (allocator and library
             # warm-up)
             warm = step_s[1:]
@@ -306,7 +362,7 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
             print(f"step {it:5d} loss {losses[-1]:.5f} gnorm "
                   f"{float(gnorm):.3f} ({timing})", flush=True)
     writer.wait()                          # surface any background failure
-    if ckpt_path:
+    if writes and ckpt_path:
         with tel.span("checkpoint", path=ckpt_path):
             t0 = time.perf_counter()
             ckpt.save(ckpt_path, ckpt_tree(steps))
@@ -413,7 +469,17 @@ def main(argv=None):
                     default=None,
                     help="training-graph build: host cKDTree or the graphx "
                     "hash-grid union on the device (mesh-free)")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--shard-devices", type=int, default=None,
+                    help="under torchrun: cap the ranks that hold "
+                    "partitions (the largest count that divides the "
+                    "partitions; 1 = all on rank 0)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="under torchrun: the process group's backend "
+                    "(default nccl on cuda, gloo on cpu)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; under torchrun the local rank's "
+                    "card) or cpu")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if not isinstance(cfg, GNNConfig):
@@ -421,26 +487,47 @@ def main(argv=None):
                          "(LLM training) is still to port, see ROADMAP.md")
     if args.reduced:
         cfg = cfg.reduced()
-    if args.telemetry or args.trace_dir:
-        cfg = cfg.replace(telemetry=True, trace_dir=args.trace_dir or "",
+    device, rank, world = args.device, 0, 1
+    if "WORLD_SIZE" in os.environ:
+        # under torchrun: one process per rank, the group from its env
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        if device is None:
+            device = rank_device(int(os.environ.get("LOCAL_RANK", rank)))
+        device = resolve(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        init_process_group(rank, world, "env://", backend=args.dist_backend,
+                           device=device)
+    trace_dir = args.trace_dir
+    if trace_dir and world > 1:
+        trace_dir = os.path.join(trace_dir, f"rank{rank}")
+    if args.telemetry or trace_dir:
+        cfg = cfg.replace(telemetry=True, trace_dir=trace_dir or "",
                           profile_capture=args.profile)
     tel = Telemetry.from_config(cfg)
-    with tel.capture():
-        model, losses, (train, test, ni, no) = train_gnn(
-            cfg, args.steps, args.samples, args.ckpt, telemetry=tel,
-            ckpt_every=args.ckpt_every, resume=args.resume,
-            opt_total_steps=args.total_steps, keep_ckpts=args.keep_ckpts,
-            noise_std=args.noise_std, graph_source=args.graph_source,
-            device=args.device)
-        with tel.span("eval", n_samples=len(test)):
-            t0 = time.perf_counter()
-            metrics = eval_gnn(cfg, model, test, ni, no)
-            tel.metrics.histogram(
-                "train_stage_eval_seconds",
-                help="wall seconds spent in the 'eval' training stage",
-            ).observe(time.perf_counter() - t0)
-    print(json.dumps(metrics, indent=2))
-    if args.trace_dir:
+    try:
+        with tel.capture():
+            model, losses, (train, test, ni, no) = train_gnn(
+                cfg, args.steps, args.samples, args.ckpt, telemetry=tel,
+                ckpt_every=args.ckpt_every, resume=args.resume,
+                opt_total_steps=args.total_steps,
+                keep_ckpts=args.keep_ckpts, noise_std=args.noise_std,
+                graph_source=args.graph_source,
+                shard_devices=args.shard_devices, device=device)
+            if rank == 0:
+                with tel.span("eval", n_samples=len(test)):
+                    t0 = time.perf_counter()
+                    metrics = eval_gnn(cfg, model, test, ni, no)
+                    tel.metrics.histogram(
+                        "train_stage_eval_seconds",
+                        help="wall seconds spent in the 'eval' training "
+                        "stage").observe(time.perf_counter() - t0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(metrics, indent=2))
+    if trace_dir:
         paths = tel.export()
         print("telemetry artifacts: " + ", ".join(sorted(paths.values())))
 

@@ -38,6 +38,7 @@ def test_import_loads_no_jax_or_repro():
     assert "repro_torch.kernels.flash_attention.ops" in res["modules"]
     for name in ("launch.train", "launch.rollout", "optim.adam", "data.pipeline", "core.halo",
                  "core.partitioning", "core.gradient_aggregation",
+                 "core.distributed_mgn", "launch.sharding",
                  "ckpt.checkpoint", "ckpt._msgpack", "resilience.faults",
                  "telemetry.metrics", "telemetry.trace",
                  "telemetry.profiler"):
