@@ -87,7 +87,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tables' bytes and peak memory (beside phase 5's) logged; (c) state
    feedback (``rollout_state_feats``, 28 node inputs), residual, full width
    cut to one 2,048-point bucket, fresh ``torch.Generator`` weights: a
-   4-step rollout on the card and on the CPU must build equal edges and
+   FEEDBACK_STEPS-step rollout on the card and on the CPU must build equal
+   edges and
    agree to 1e-4; (d) a ``rollout.generate`` raise fails the 16,384
    table's rollout (the table dropped) and leaves a 65,536 rollout in
    flight bit-equal to its solo run, a NaN ``rollout.insert`` aborts its
@@ -152,8 +153,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    SHARD_ATOL of the unsharded engine's rollout, with 3 kNN launches per
    shard per flush and 15 segment-sum per shard per lane-step; state
    feedback at phase 13 (c)'s size and weights in 4 shards clamps
-   ``steps_per_flush`` to 1 with its warning and must agree after 4 steps
-   with phase 13 (c)'s CPU and card runs; (b) 262,144 points of car 1,
+   ``steps_per_flush`` to 1 with its warning and must agree after
+   FEEDBACK_STEPS steps with phase 13 (c)'s CPU and card runs; (b) 262,144 points of car 1,
    sampled as the server samples, planned with the ``graph`` planner in 8
    and in 4 shards and run through ``make_sharded_infer_fn`` at full width:
    the two agree within SHARD_ATOL on every point, 3 kNN and 15 segment-sum
@@ -178,13 +179,42 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    10's config on the two ranks (4 partitions each) for 2 steps: losses
    within 1e-5 of phase 10's first two, 2 x 15 x 4 / 15 x 4 / 2 x 15 x 4
    launches a step per rank; peak memory, step seconds and the
-   ``all_reduce`` seconds and bytes a step logged per rank.
+   ``all_reduce`` seconds and bytes a step logged per rank;
+17. cold start: (a) phase 5's server, right after serving, saves its deploy
+   artifact (``save_artifact``; bytes and write seconds logged); (b) at the
+   end, three restarted servers, each in a spawned process with a time
+   limit, one after another: ``fresh`` (an empty build directory through
+   ``compile_cache.enable``), ``warm`` (the same directory) and
+   ``artifact`` (the same directory and ``GNNServer.from_artifact``), each
+   serving phase 5's 4 requests, timed from spawn to car 2's result (its
+   65,536-point batch runs after the 16,384 one), with its calibrations,
+   compiles (``nvcc`` runs), cache loads and peak memory; (c) every child's
+   fields bit-equal to phase 5's, 15 x 4 segment-sum and 3 x 4 kNN launches
+   each, the artifact child with no calibration and no build, the warm
+   child with no build, the fresh child building each library its path
+   loads;
+18. X-UNet3D (paper SVI) at full width (``UNetConfig()``: base 64, depth 3,
+   attention gates), weights from a seeded ``torch.Generator``, cuDNN
+   convolutions in f32 and none of the port's kernels: (a) the paper's
+   800 x 304 x 224 grid (car 0's features, built on the host while phase
+   17 runs) in 10 slabs with halo 40, seconds per slab and a pass, TFLOP/s
+   from the convolutions' shapes, peak memory, a finite output; the
+   layout's cost (one conv in NCDHW and in channels_last_3d) logged; (b)
+   on 240 x 304 x 224 the 3-slab partitioned pass within UNET_PART_RTOL of
+   the full pass's largest |value|, halo 4 beyond it, and
+   ``find_receptive_halo``
+   on a 96 x 64 x 64 window between 4 and 28; (c) card against CPU on 16 x
+   32 x 32: forward, ``train_loss`` with continuity 0.05 and every
+   gradient leaf within the tolerances below; (d) 3 steps of the example's
+   Adam with continuity 0.05 on one owned slab (1, 80, 304, 224, 16):
+   finite losses, step seconds and peak memory.
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
 freed before the LLM phases (the flash row of 3, then 7 and 8), all but phase
 5's weights; the training phases (the backward row of 3, then 9, 14, 10 and
 11) run in another, and phases 13 and 15 run last, on phase 5's weights,
-each in a function of its own, then phase 16 in its own. It then
+each in a function of its own, then phase 16, 17 (b, c) and 18, each in its
+own. It then
 prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
 {...}}`` line. It needs one card and imports nothing of JAX.
 """
@@ -201,6 +231,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 from pathlib import Path
 
@@ -218,7 +249,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 BUCKETS = (16384, 65536)
+# phase 5's requests: cars 1-4 at these sizes (request ids 0-3)
+SERVE_SIZES = (16384, 65536, 16384, 65536)
 WHOLE_PATH_POINTS = 2048
+# phases 13 (c) and 15 (c): steps of the state-feedback rollout; 2 keep
+# the feedback path while the whole script stays near half its time limit
+# (the CPU run takes about 7 s a step at full width)
+FEEDBACK_STEPS = 2
 # Fields of one full-width request, card against CPU: the graphs are
 # identical (asserted), but cuBLAS and the CPU BLAS sum the f32 products of
 # 15 residual layers of width 512 in different orders, and the sin/cos of the
@@ -309,6 +346,28 @@ WHOLE_LLM_PROMPT, WHOLE_LLM_DECODE = 128, 4
 # 1.0e-5 on the prefill logits and 1.1e-4 on the decode logits, whose
 # cache went through bf16 (pad_cache_to) on both sides.
 LLM_ATOL = 5e-4
+# Phase 17: cold start. Three child processes (fresh build directory, the
+# same one warm, and the deploy artifact) each serve phase 5's 4 requests,
+# timed from spawn to car 2's result; a child gets COLDSTART_TIMEOUT seconds.
+COLDSTART_DIR = ROOT / "build" / "chip_smoke_coldstart"
+COLDSTART_ARTIFACT = COLDSTART_DIR / "deploy.msgpack"
+COLDSTART_KINDS = ("fresh", "warm", "artifact")
+COLDSTART_TIMEOUT = 300
+# Phase 18: X-UNet3D (paper SVI) at full width, UNetConfig(): (a) the
+# paper's grid in its 10 slabs with halo 40; (b) the partitioned pass
+# against the full pass on the first UNET_EQUIV_X planes, in 3 slabs, held
+# to UNET_PART_RTOL of the full output's largest |value| (cuDNN picks its
+# algorithm by shape, so a slab is not bit-equal to the whole), and the
+# receptive-halo search on UNET_HALO_GRID; (c) card against CPU on
+# UNET_WHOLE_GRID, forward UNET_ATOL, loss UNET_LOSS_RTOL, each gradient
+# leaf UNET_GRAD_RTOL of its largest element; (d) UNET_TRAIN_STEPS Adam
+# steps on one owned slab, UNET_TRAIN_X planes.
+UNET_EQUIV_X, UNET_EQUIV_PARTS = 240, 3
+UNET_PART_RTOL = 1e-4
+UNET_HALO_GRID = (96, 64, 64)
+UNET_WHOLE_GRID = (16, 32, 32)
+UNET_ATOL, UNET_LOSS_RTOL, UNET_GRAD_RTOL = 1e-4, 1e-5, 1e-5
+UNET_TRAIN_X, UNET_TRAIN_STEPS = 80, 3
 
 
 def log(msg: str):
@@ -611,7 +670,7 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase):
     # 5. serve: the main path, counted --------------------------------------
     server = GNNServer(cfg, BUCKETS, max_batch=2, seed=0)
     reqs = []
-    for i, n_req in enumerate((16384, 65536, 16384, 65536)):
+    for i, n_req in enumerate(SERVE_SIZES):
         v, f = geo.car_surface(geo.sample_params(i + 1))
         reqs.append((v, f, n_req))
     torch.cuda.synchronize()
@@ -657,6 +716,9 @@ def gnn_phases(dev, card, reset_counts, read_counts, by_phase):
             f"{bb['p50_ms']:.1f}, p95 {bb['p95_ms']:.1f}) | batch run mean "
             f"{bb['run_mean_ms']:.1f} ms (p50 {bb['run_p50_ms']:.1f}, p95 "
             f"{bb['run_p95_ms']:.1f})")
+
+    # 17 (a). phase 5's server freezes its deploy artifact -------------------
+    coldstart_save(server, card)
 
     # 6. breakdown of one 65,536-point request ------------------------------
     b = server._buckets[n_big]
@@ -1177,18 +1239,18 @@ def rollout_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
         s_c = GNNServer(cfg_c, (n_w,), max_batch=2, seed=0,
                         params=models[where], device=d)
         t0 = time.perf_counter()
-        res = s_c.rollout(verts, faces, n_w, steps=4)
+        res = s_c.rollout(verts, faces, n_w, steps=FEEDBACK_STEPS)
         secs = time.perf_counter() - t0
         tbl = s_c.rollout_engine()._tables[n_w]
         edges = [tbl.graph[k][0].cpu()
                  for k in ("senders", "receivers", "emask")]
         out[where] = (res, edges, secs)
         if where == "card":
-            counted("rollout_card_cpu", 1, 4)
+            counted("rollout_card_cpu", 1, FEEDBACK_STEPS)
     (rg, eg, tg), (rc, ec, tc) = out["card"], out["cpu"]
     if any(not torch.equal(a, b) for a, b in zip(eg, ec)):
         raise RuntimeError("rollout card against CPU: different edge sets")
-    if rg.error or rc.error or rg.steps_done != 4 \
+    if rg.error or rc.error or rg.steps_done != FEEDBACK_STEPS \
             or not np.isfinite(rg.fields).all() \
             or not np.array_equal(rg.points, rc.points):
         raise RuntimeError(f"rollout card against CPU: {rg.error!r}, "
@@ -1200,7 +1262,8 @@ def rollout_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
     if not np.abs(rg.fields).max() > 0:
         raise RuntimeError("rollout card against CPU: zero state")
     log(f"[rollout] (c) state feedback ({cfg_c.node_in_eff} node inputs), "
-        f"residual, full width at {n_w} points, 4 steps: edges equal, "
+        f"residual, full width at {n_w} points, {FEEDBACK_STEPS} steps: "
+        "edges equal, "
         f"fields max abs err {err:.3g} (atol {WHOLE_PATH_ATOL}, largest "
         f"element {np.abs(rc.fields).max():.3f}); card {tg:.3f} s, CPU "
         f"{tc:.2f} s")
@@ -1463,8 +1526,8 @@ def sharded_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
             "clamping" in str(w.message) for w in caught):
         raise RuntimeError("sharded rollout with state feedback: no clamp "
                            f"to one step a flush ({eng.steps_per_flush})")
-    res = s_f.rollout(verts, faces, n_w, steps=4)
-    counted("sharded_feedback", 4 * p_a, 4 * p_a)
+    res = s_f.rollout(verts, faces, n_w, steps=FEEDBACK_STEPS)
+    counted("sharded_feedback", FEEDBACK_STEPS * p_a, FEEDBACK_STEPS * p_a)
     if res.error or not np.array_equal(res.points, feedback["points"]):
         raise RuntimeError(f"sharded feedback: {res.error!r}")
     fb_cpu = _max_err(res.fields, feedback["cpu"], "feedback against the "
@@ -1473,7 +1536,8 @@ def sharded_phase(dev, card, reset_counts, read_counts, by_phase, *, cfg,
                        "unsharded card")
     del s_f, eng, model
     log(f"[sharded] (c) state feedback at {n_w} points, {p_a} shards, "
-        f"steps_per_flush clamped to 1 with the warning: 4 steps against "
+        f"steps_per_flush clamped to 1 with the warning: {FEEDBACK_STEPS} "
+        f"steps against "
         f"phase 13 (c)'s unsharded CPU run max abs err {fb_cpu:.3g}, its "
         f"card run {fb_card:.3g} (atol {SHARD_ATOL})")
 
@@ -3045,6 +3109,437 @@ def dist_phase(dev, card, reset_counts, read_counts, by_phase, *, whole,
         f"two ranks {spawn_s:.1f} s, spawn to join) | {card}")
 
 
+def coldstart_save(server, card):
+    """Phase 17 (a): phase 5's server, after serving cars 1-4, freezes
+    itself into COLDSTART_ARTIFACT."""
+    shutil.rmtree(COLDSTART_DIR, ignore_errors=True)
+    COLDSTART_DIR.mkdir(parents=True)
+    path = COLDSTART_ARTIFACT
+    t0 = time.perf_counter()
+    info = server.save_artifact(str(path))
+    dt = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in server.params.parameters())
+    log(f"[coldstart] (a) phase 5's server saved its deploy artifact: "
+        f"{path.stat().st_size} bytes ({n_params} f32 parameters, "
+        f"{4 * n_params} bytes) in {dt:.3f} s; live buckets "
+        f"{info['buckets']}, ladder {info['ladder']} | {card}")
+
+
+def _coldstart_child(kind: str, build_dir: str, artifact_path: str,
+                     out_dir: str, t_spawn: float):
+    """Phase 17 (b) in a spawned process: writes ``<kind>.pt``, or its
+    traceback to ``error_<kind>.txt`` and fails."""
+    import traceback
+    try:
+        _coldstart_child_work(kind, build_dir, artifact_path, Path(out_dir),
+                              t_spawn)
+    except BaseException:
+        (Path(out_dir) / f"error_{kind}.txt").write_text(
+            f"{kind}:\n{traceback.format_exc()}")
+        raise
+
+
+def _coldstart_child_work(kind: str, build_dir: str, artifact_path: str,
+                          out: Path, t_spawn: float):
+    """A restarted server: ``fresh`` and ``warm`` build one from phase 5's
+    config and seed with ``compile_cache_dir=build_dir`` (empty for
+    ``fresh``), ``artifact`` enables the same directory and restores the
+    deploy artifact. Each serves phase 5's 4 requests (request ids 0-3, so
+    the same sampled clouds); car 2's 65,536-point batch runs last, so the
+    flush's end is its first result."""
+    t_start = time.time()
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.ckpt import compile_cache
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.data import geometry as geo
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.launch.serve_gnn import GNNServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    t_import = time.time()
+    reqs = [(*geo.car_surface(geo.sample_params(i + 1)), n)
+            for i, n in enumerate(SERVE_SIZES)]
+    if kind == "artifact":
+        compile_cache.enable(build_dir)
+        server = GNNServer.from_artifact(artifact_path)
+    else:
+        server = GNNServer(GNNConfig(compile_cache_dir=build_dir), BUCKETS,
+                           max_batch=2, seed=0)
+    torch.cuda.synchronize()
+    t_built = time.time()
+    knn_ops.topk_neighbors.launches = 0
+    seg_ops.segment_sum_prepared.launches = 0
+    results = server.serve(reqs)
+    t_first = time.time()
+    rep = server.stats.report()
+    by_id = {r.request_id: r for r in results}
+    res = dict(
+        time_to_first_result_s=t_first - t_spawn,
+        spawn_to_start_s=t_start - t_spawn, import_s=t_import - t_start,
+        construct_s=t_built - t_import, serve_s=t_first - t_built,
+        bucket_calibrations=rep["bucket_calibrations"],
+        bucket_compiles=rep["bucket_compiles"],
+        cache_loads=rep["cache_loads"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches={"segment_sum": seg_ops.segment_sum_prepared.launches,
+                  "knn_topk": knn_ops.topk_neighbors.launches},
+        libraries=sorted(p.name for p in Path(build_dir).glob("*.so")))
+    log(f"[coldstart] (b) {kind} child: " + json.dumps(res))
+    res["fields"] = {rid: by_id[rid].fields for rid in sorted(by_id)}
+    res["errors"] = [r.error for r in results if r.error is not None]
+    torch.save(res, out / f"{kind}.pt")
+
+
+def coldstart_phase(card, by_phase, phase5):
+    """Phase 17 (b) and (c): three restarted servers, one after another,
+    each in a spawned process with a time limit (a failing or overrunning
+    child fails the phase): ``fresh`` (an empty build directory), ``warm``
+    (the directory ``fresh`` filled) and ``artifact`` (the same directory
+    and ``from_artifact``). All serve phase 5's fields bit for bit; the
+    artifact child calibrates and builds nothing, the warm child builds
+    nothing, the fresh child builds each library its path loads."""
+    import multiprocessing as mp
+    import torch
+    from repro_torch.configs.base import GNNConfig
+    n_layers = GNNConfig().n_mp_layers
+    t_phase = time.perf_counter()
+    build_dir = COLDSTART_DIR / "kernels"
+    shutil.rmtree(build_dir, ignore_errors=True)
+    build_dir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    got = {}
+    for kind in COLDSTART_KINDS:
+        t_spawn = time.time()
+        proc = ctx.Process(target=_coldstart_child,
+                           args=(kind, str(build_dir), str(COLDSTART_ARTIFACT),
+                                 str(COLDSTART_DIR), t_spawn))
+        proc.start()
+        proc.join(COLDSTART_TIMEOUT)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(30)
+            raise RuntimeError(f"phase 17: the {kind} child was killed at "
+                               f"the {COLDSTART_TIMEOUT} s limit")
+        if proc.exitcode != 0:
+            err = COLDSTART_DIR / f"error_{kind}.txt"
+            raise RuntimeError(f"phase 17: the {kind} child exited "
+                               f"{proc.exitcode}\n"
+                               + (err.read_text() if err.exists() else ""))
+        got[kind] = torch.load(COLDSTART_DIR / f"{kind}.pt",
+                               weights_only=False)
+    _coldstart_check(card, by_phase, phase5, got, n_layers)
+    log(f"[coldstart] phase 17 took {time.perf_counter() - t_phase:.1f} s | "
+        f"{card}")
+    shutil.rmtree(COLDSTART_DIR, ignore_errors=True)
+
+
+def _coldstart_check(card, by_phase, phase5, got, n_layers):
+    """Phase 17 (c): the children's fields, launches, builds and loads."""
+    rows = len(SERVE_SIZES)
+    want_launches = {"segment_sum": n_layers * rows, "knn_topk": 3 * rows}
+    for kind, res in got.items():
+        if res["errors"] or sorted(res["fields"]) != sorted(phase5):
+            raise RuntimeError(f"phase 17: {kind} child served "
+                               f"{sorted(res['fields'])}, errors "
+                               f"{res['errors']}")
+        for rid, fields in res["fields"].items():
+            if not np.array_equal(fields, phase5[rid].fields):
+                raise RuntimeError(f"phase 17: the {kind} child's fields of "
+                                   f"request {rid} are not bit-equal to "
+                                   "phase 5's")
+        if res["launches"] != want_launches:
+            raise RuntimeError(f"phase 17: {kind} child launches "
+                               f"{res['launches']}, expected {want_launches}")
+        for name, n in res["launches"].items():
+            by_phase[name][f"coldstart_{kind}"] = n
+    fresh, warm, art = (got[k] for k in COLDSTART_KINDS)
+    if art["bucket_calibrations"] or art["bucket_compiles"]:
+        raise RuntimeError(f"phase 17: the artifact child calibrated "
+                           f"{art['bucket_calibrations']} and built "
+                           f"{art['bucket_compiles']} times")
+    if warm["bucket_compiles"]:
+        raise RuntimeError(f"phase 17: the warm child built "
+                           f"{warm['bucket_compiles']} kernels")
+    if not fresh["libraries"] or \
+            fresh["bucket_compiles"] != len(fresh["libraries"]) or \
+            fresh["cache_loads"]:
+        raise RuntimeError(f"phase 17: the fresh child built "
+                           f"{fresh['bucket_compiles']} and loaded "
+                           f"{fresh['cache_loads']} kernels; its path's "
+                           f"libraries: {fresh['libraries']}")
+    if warm["cache_loads"] != len(fresh["libraries"]) or \
+            art["cache_loads"] != len(fresh["libraries"]):
+        raise RuntimeError(f"phase 17: cache loads warm "
+                           f"{warm['cache_loads']}, artifact "
+                           f"{art['cache_loads']}, expected "
+                           f"{len(fresh['libraries'])}")
+    for kind, res in got.items():
+        log(f"[coldstart] (c) {kind}: time to first result (car 2, 65,536 "
+            f"points, behind the 16,384 batch) {res['time_to_first_result_s']:.3f} s "
+            f"from spawn (process start {res['spawn_to_start_s']:.3f}, "
+            f"imports and CUDA init {res['import_s']:.3f}, server "
+            f"{res['construct_s']:.3f}, serving 4 requests "
+            f"{res['serve_s']:.3f}); calibrations "
+            f"{res['bucket_calibrations']}, compiles "
+            f"{res['bucket_compiles']}, cache loads {res['cache_loads']}, "
+            f"peak memory {res['peak_gb']:.2f} GB; fields of requests 0-3 "
+            f"bit-equal to phase 5's | {card}")
+    log(f"[coldstart] the fresh child built {fresh['libraries']} | {card}")
+
+
+def unet_flops(cfg, grid) -> float:
+    """Operations (2 per multiply-add) of every convolution of one X-UNet3D
+    forward pass over an (X, Y, Z) grid, from the shapes."""
+    k3 = cfg.kernel_size ** 3
+    ch = [cfg.base_channels * 2 ** i for i in range(cfg.depth)]
+    vox = [grid[0] * grid[1] * grid[2] / 8 ** i for i in range(cfg.depth)]
+    n = cfg.blocks_per_level
+    f, cin = 0.0, cfg.in_channels
+    for i in range(cfg.depth):
+        f += 2 * k3 * (cin + (n - 1) * ch[i]) * ch[i] * vox[i]
+        cin = ch[i]
+    for i in reversed(range(cfg.depth - 1)):
+        f += 2 * ch[i + 1] * ch[i] * vox[i]                # up conv
+        if cfg.attention_gates:
+            ci = max(ch[i] // 2, 1)
+            f += 2 * (2 * ch[i] * ci + ci) * vox[i]
+        f += 2 * k3 * (2 * ch[i] + (n - 1) * ch[i]) * ch[i] * vox[i]
+    return f + 2 * ch[0] * cfg.out_channels * vox[0]
+
+
+def _unet_grads(model) -> list:
+    return [p.grad.detach().cpu().double() for _, p in model.leaves()]
+
+
+def unet_features():
+    """Phase 18's input: ``make_features`` of car 0 on the paper's grid
+    (host numpy), with its seconds."""
+    from repro_torch.configs.base import UNetConfig
+    from repro_torch.launch import xunet_volume as xv
+    t0 = time.perf_counter()
+    pts, feats = xv.make_features(UNetConfig(), 0)
+    return pts, feats, time.perf_counter() - t0
+
+
+def unet_phase(dev, card, features):
+    """Phase 18: X-UNet3D (paper SVI) at full width (``UNetConfig()``: base
+    64, depth 3, k 3, attention gates, gelu), weights from a seeded
+    ``torch.Generator``; no kernel of the port runs (cuDNN convolutions).
+    ``features`` is :func:`unet_features`' result."""
+    import torch
+    from repro_torch.configs.base import UNetConfig
+    from repro_torch.core import unet_halo
+    from repro_torch.data import geometry as geo
+    from repro_torch.launch import xunet_volume as xv
+    from repro_torch.models import xunet3d
+    from repro_torch.optim.adam import adam_init
+
+    t_phase = time.perf_counter()
+    cfg = UNetConfig()
+    gx, gy, gz = cfg.grid
+    align = 2 ** (cfg.depth - 1)
+    model = xunet3d.init(torch.Generator().manual_seed(0), cfg)
+    pts, feats, feat_s = features
+    x = torch.from_numpy(feats).view(1, gx, gy, gz, cfg.in_channels)
+    log(f"[xunet] make_features of car 0 on the {gx}x{gy}x{gz} grid (host "
+        f"numpy, while phase 17 ran): {feats.nbytes} bytes in {feat_s:.2f} "
+        f"s; receptive field {xunet3d.receptive_field(cfg)} voxels, halo "
+        f"{cfg.halo}, {cfg.n_partitions} slabs")
+
+    # layout: the model runs NCDHW (contiguous); the same 64 -> 64 conv in
+    # channels_last_3d, on one owned slab's voxels
+    w = torch.randn((64, 64, 3, 3, 3), device=dev) * 0.02
+    a = torch.randn((1, 64, UNET_TRAIN_X, gy, gz), device=dev)
+    a_cl = a.contiguous(memory_format=torch.channels_last_3d)
+    conv_flops = 2 * 27 * 64 * 64 * UNET_TRAIN_X * gy * gz
+    layout_ms = {name: time_cuda(lambda t=t: torch.nn.functional.conv3d(
+        t, w, padding=1), reps=5)
+        for name, t in (("ncdhw", a), ("channels_last_3d", a_cl),
+                        ("ncdhw again", a))}
+    log("[xunet] layout: conv3d 64->64, k 3, on (1, 64, "
+        f"{UNET_TRAIN_X}, {gy}, {gz}): " + ", ".join(
+            f"{k} {v:.3f} ms ({conv_flops / v / 1e9:.1f} TFLOP/s)"
+            for k, v in layout_ms.items()) + f" | {card}")
+    del w, a, a_cl
+
+    # (a) the paper's grid in 10 slabs with halo 40 ------------------------
+    parts = unet_halo.slab_partitions(gx, cfg.n_partitions, cfg.halo, align)
+    flops = sum(unet_flops(cfg, (e.stop - e.start, gy, gz))
+                for _, e, _ in parts)
+    slab_s = []
+
+    def run_slab(slab):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = model.apply(slab.to(dev))
+        torch.cuda.synchronize()
+        slab_s.append(time.perf_counter() - t)
+        return y
+
+    # one pass: a second one took the first's time within 0.4 % on an H100
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = unet_halo.apply_partitioned(run_slab, x, cfg.n_partitions,
+                                          cfg.halo, axis=1, align=align)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = bool(torch.isfinite(out).all())
+        if out.shape != (1, gx, gy, gz, cfg.out_channels) or not finite:
+            raise RuntimeError(f"phase 18 (a): output {tuple(out.shape)}, "
+                               f"finite {finite}")
+        del out
+    log(f"[xunet] (a) {gx}x{gy}x{gz} in {cfg.n_partitions} slabs, halo "
+        f"{cfg.halo} (extended X {[e.stop - e.start for _, e, _ in parts]}):"
+        f" {wall:.3f} s, {flops / 1e12:.1f} TFLOP, "
+        f"{flops / wall / 1e12:.2f} TFLOP/s; per slab (s, copy in "
+        "included): " + ", ".join(f"{t:.3f}" for t in slab_s)
+        + f"; peak memory {peak:.2f} GB; output finite | {card}")
+
+    # (b) the partitioned pass against the full pass -----------------------
+    xb = x[:, :UNET_EQUIV_X]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        full = model.apply(xb.to(dev))
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        full_peak = torch.cuda.max_memory_allocated() / 1e9
+        scale = float(full.abs().max())
+        errs = {}
+        for halo in (cfg.halo, align):
+            part = unet_halo.apply_partitioned(
+                lambda s: model.apply(s.to(dev)), xb, UNET_EQUIV_PARTS, halo,
+                axis=1, align=align)
+            errs[halo] = float((part - full).abs().max())
+            del part
+        del full
+    if errs[cfg.halo] > UNET_PART_RTOL * scale or \
+            errs[align] <= UNET_PART_RTOL * scale:
+        raise RuntimeError(f"phase 18 (b): partitioned against full, max abs "
+                           f"err {errs} (limit {UNET_PART_RTOL} x {scale})")
+    # a window of the grid around the car's middle, where the SDF varies
+    xh = x[(slice(None),) + tuple(slice((g - h) // 2, (g - h) // 2 + h)
+                                  for g, h in zip(cfg.grid, UNET_HALO_GRID))
+           ].contiguous().to(dev)
+    with torch.no_grad():
+        tol = UNET_PART_RTOL * float(model.apply(xh).abs().max())
+        halo = unet_halo.find_receptive_halo(
+            model.apply, xh, axis=1, n_parts=2, align=align,
+            max_halo=2 * cfg.halo, tol=tol)
+    bound = -(-xunet3d.receptive_field(cfg) // align) * align
+    if not align <= halo <= bound:
+        raise RuntimeError(f"phase 18 (b): find_receptive_halo {halo}, "
+                           f"expected {align}..{bound}")
+    log(f"[xunet] (b) {UNET_EQUIV_X}x{gy}x{gz}: full pass "
+        f"{full_s:.3f} s ({unet_flops(cfg, (UNET_EQUIV_X, gy, gz)) / 1e12:.1f} "
+        f"TFLOP), peak {full_peak:.2f} GB; {UNET_EQUIV_PARTS} slabs, halo "
+        f"{cfg.halo}: max abs err {errs[cfg.halo]:.3g} = "
+        f"{errs[cfg.halo] / scale:.3g} of max |full| {scale:.4g} (limit "
+        f"{UNET_PART_RTOL}); halo {align}: {errs[align] / scale:.3g} (must "
+        f"exceed it); find_receptive_halo on {UNET_HALO_GRID}: {halo} "
+        f"(analytic {xunet3d.receptive_field(cfg)}, bound {bound}) | {card}")
+
+    # (c) card against CPU ---------------------------------------------------
+    rng = np.random.default_rng(18)
+    shape = (1, *UNET_WHOLE_GRID)
+    xc = torch.from_numpy(rng.normal(size=(*shape, cfg.in_channels))
+                          .astype(np.float32))
+    yc = torch.from_numpy(rng.normal(size=(*shape, cfg.out_channels))
+                          .astype(np.float32))
+    m_cpu = xunet3d.init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    m_gpu = copy.deepcopy(m_cpu).to(dev)
+    with torch.no_grad():
+        fwd_err = float((m_gpu.apply(xc.to(dev)).cpu()
+                         - m_cpu.apply(xc)).abs().max())
+    losses = []
+    for m, d in ((m_gpu, dev), (m_cpu, torch.device("cpu"))):
+        loss = xunet3d.train_loss(m, {"inputs": xc.to(d),
+                                      "targets": yc.to(d)}, 0.05)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    g_gpu, g_cpu = _unet_grads(m_gpu), _unet_grads(m_cpu)
+    names = [n for n, _ in m_cpu.leaves()]
+    rel = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(g_gpu, g_cpu)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    note = ""
+    if max(rel) > UNET_GRAD_RTOL:
+        # a leaf whose gradient f32 itself resolves only to a few 1e-5 (a
+        # cancellation): held to the f64 gradient, no further than the CPU's
+        # own f32 gradient (tests/test_torch_xunet.py makes the same rule)
+        m64 = copy.deepcopy(m_cpu).double()
+        for p in m64.parameters():
+            p.grad = None
+        xunet3d.train_loss(m64, {"inputs": xc.double(),
+                                 "targets": yc.double()}, 0.05).backward()
+        g64 = _unet_grads(m64)
+        for i in range(len(rel)):
+            if rel[i] <= UNET_GRAD_RTOL:
+                continue
+            e_gpu = float((g_gpu[i] - g64[i]).abs().max())
+            e_cpu = float((g_cpu[i] - g64[i]).abs().max())
+            lim = max(UNET_GRAD_RTOL * float(g64[i].abs().max()), e_cpu)
+            if e_gpu > lim:
+                raise RuntimeError(f"phase 18 (c): gradient {names[i]} card "
+                                   f"vs CPU {rel[i]:.3g} relative; against "
+                                   f"f64 card {e_gpu:.3g}, CPU {e_cpu:.3g}")
+            note += (f"; {names[i]} held to f64: card {e_gpu:.3g}, CPU "
+                     f"{e_cpu:.3g}")
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    if fwd_err > UNET_ATOL or loss_rel > UNET_LOSS_RTOL:
+        raise RuntimeError(f"phase 18 (c): forward max abs err {fwd_err} "
+                           f"(limit {UNET_ATOL}), loss relative {loss_rel} "
+                           f"(limit {UNET_LOSS_RTOL})")
+    log(f"[xunet] (c) card against CPU, full width on {UNET_WHOLE_GRID} "
+        f"({unet_flops(cfg, UNET_WHOLE_GRID) / 1e9:.1f} GFLOP a forward): "
+        f"forward max abs err {fwd_err:.3g} (limit {UNET_ATOL}); loss "
+        f"{losses[0]:.8g} vs {losses[1]:.8g}, relative {loss_rel:.3g} "
+        f"(limit {UNET_LOSS_RTOL}); gradients: worst leaf {names[worst]} "
+        f"{rel[worst]:.3g} of its largest element (limit "
+        f"{UNET_GRAD_RTOL}){note} | {card}")
+    del m_cpu, m_gpu
+
+    # (d) training at full width on one owned slab -------------------------
+    n_slab = UNET_TRAIN_X * gy * gz
+    targets = geo.volume_fields(pts[:n_slab], geo.sample_params(0))
+    batch = {"inputs": x[:, :UNET_TRAIN_X].to(dev),
+             "targets": torch.from_numpy(targets).view(
+                 1, UNET_TRAIN_X, gy, gz, cfg.out_channels).to(dev)}
+    del pts, feats, x, targets
+    model = xunet3d.init(torch.Generator().manual_seed(0), cfg)
+    step = xv.make_step_fn()
+    opt = adam_init([p for _, p in model.leaves()])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for _ in range(UNET_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"phase 18 (d): losses {losses}")
+    fl = 3 * unet_flops(cfg, (UNET_TRAIN_X, gy, gz))
+    log(f"[xunet] (d) training, batch (1, {UNET_TRAIN_X}, {gy}, {gz}, "
+        f"{cfg.in_channels}), the example's Adam, continuity "
+        f"{xv.CONTINUITY_WEIGHT}: losses {losses!r}; steps (s): "
+        + ", ".join(f"{t:.3f}" for t in step_s)
+        + f" (first, then warm; about {fl / 1e12:.1f} TFLOP a step, "
+        f"{fl / min(step_s[1:]) / 1e12:.2f} TFLOP/s warm); peak memory "
+        f"{peak:.2f} GB | {card}")
+    log(f"[xunet] phase 18 took {time.perf_counter() - t_phase:.1f} s | "
+        f"{card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3164,6 +3659,7 @@ def main() -> int:
     # feedback run it reuses), in a function of its own
     sharded_phase(dev, card, reset_counts, read_counts, by_phase,
                   feedback=feedback, **rollout_ctx)
+    phase5 = rollout_ctx["phase5"]
     del feedback, rollout_ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -3171,6 +3667,29 @@ def main() -> int:
     # 16. multi-process training: NCCL at world size 1 in this process, then
     # two ranks sharing the card through gloo, in a function of its own
     dist_phase(dev, card, reset_counts, read_counts, by_phase, **dist_ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. cold start: three restarted servers in child processes, one after
+    # another (fresh build directory, warm, deploy artifact); phase 18's
+    # input is built on the host meanwhile (about 25 s of numpy)
+    with ThreadPoolExecutor(1) as pool:
+        unet_input = pool.submit(unet_features)
+        coldstart_phase(card, by_phase, phase5)
+        del phase5
+        features = unet_input.result()
+
+    # 18. X-UNet3D at full width: cuDNN convolutions, none of the port's
+    # kernels
+    reset_counts()
+    unet_phase(dev, card, features)
+    del features
+    torch.cuda.synchronize()
+    read_counts("xunet")
+    launched = {name: by_phase[name]["xunet"] for name in by_phase
+                if by_phase[name]["xunet"]}
+    if launched:
+        raise RuntimeError(f"phase 18 launched the port's kernels: {launched}")
 
     main_phase = {"segment_sum": "serve", "segment_sum_backward": "train",
                   "gather_rows_backward": "train",

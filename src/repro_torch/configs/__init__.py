@@ -1,19 +1,20 @@
-"""Config registry of the port: the paper's GNN and the LLM configs it can
-run so far."""
+"""Config registry of the port: the paper's two models (X-MeshGraphNet and
+X-UNet3D) and the LLM configs it can run so far."""
 from __future__ import annotations
 
 import importlib
 from typing import Union
 
-from repro_torch.configs.base import GNNConfig, ModelConfig
+from repro_torch.configs.base import GNNConfig, ModelConfig, UNetConfig
 
 _ARCH_MODULES = {
     "gemma2-9b": "gemma2_9b",
     "xmgn-drivaer": "xmgn_drivaer",
+    "xunet3d-drivaer": "xunet3d_drivaer",
 }
 
 
-def get_config(name: str) -> Union[GNNConfig, ModelConfig]:
+def get_config(name: str) -> Union[GNNConfig, ModelConfig, UNetConfig]:
     if name not in _ARCH_MODULES:
         raise KeyError(
             f"the port has no config {name!r} yet; it knows "

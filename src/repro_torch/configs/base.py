@@ -1,10 +1,11 @@
-"""Configurations: copies of ``GNNConfig`` and ``ModelConfig`` from the JAX
-package.
+"""Configurations: copies of ``GNNConfig``, ``UNetConfig`` and
+``ModelConfig`` from the JAX package.
 
-``GNNConfig``'s field names, defaults and ``reduced()`` are identical so
-configs round-trip between the two packages. Fields the port does not act on
-yet (cold start) are kept for that round-trip and ignored here;
-the trainer reads ``graph_source``, ``nonfinite_guard``, ``noise_std``,
+``GNNConfig``'s and ``UNetConfig``'s field names, defaults and ``reduced()``
+are identical so configs round-trip between the two packages (a deploy
+artifact carries a ``GNNConfig``). The GNN server and the trainer read
+``compile_cache_dir`` (the kernels' build directory); the trainer reads
+``graph_source``, ``nonfinite_guard``, ``noise_std``,
 ``remat``, ``keep_ckpts`` and ``telemetry``/``trace_dir``/``profile_capture``,
 the GNN server the ``bucket_*`` autoscaling knobs, ``max_live_buckets``,
 ``shard_pad_factor``,
@@ -144,3 +145,32 @@ class GNNConfig:
     def reduced(self) -> "GNNConfig":
         return self.replace(hidden=64, n_mp_layers=3, halo=3,
                             levels=(128, 256, 512), n_partitions=4)
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    """X-UNet3D (paper SVI): 3D UNet with attention gates + halo partitioning."""
+
+    name: str = "xunet3d"
+    family: str = "unet"
+    in_channels: int = 16              # coords + fourier + sdf + sdf grads
+    out_channels: int = 4              # velocity (3) + pressure
+    base_channels: int = 64
+    depth: int = 3
+    blocks_per_level: int = 2
+    kernel_size: int = 3
+    pool: int = 2
+    act: str = "gelu"
+    attention_gates: bool = True
+    halo: int = 40
+    n_partitions: int = 10
+    grid: Tuple[int, int, int] = (800, 304, 224)   # bbox / 1.5cm voxels
+    dtype: str = "float32"
+    source: str = "arXiv X-MeshGraphNet (NVIDIA 2024) SVI"
+
+    def replace(self, **kw) -> "UNetConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "UNetConfig":
+        return self.replace(base_channels=8, depth=2, grid=(32, 16, 16),
+                            halo=8, n_partitions=2)

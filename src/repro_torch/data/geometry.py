@@ -4,7 +4,8 @@ field (numpy), copied from the JAX package (``repro.data.geometry``).
 The demo traffic, the server's calibration reference and the training data
 must be bit-equal to the JAX package's, so this is a verbatim copy of
 ``CarParams``, ``sample_params``, ``car_surface``, ``FLOW_DIR`` and
-``surface_fields``.
+``surface_fields``, and of X-UNet3D's volume proxy ``volume_fields`` and
+``signed_distance_box``.
 """
 from __future__ import annotations
 
@@ -107,3 +108,28 @@ def surface_fields(points: np.ndarray, normals: np.ndarray,
     tau_mag = 0.05 * (1.0 - n_dot ** 2) ** 0.5 * (1.0 + 0.5 * np.tanh(-x_rel))
     tau = tau_mag[:, None] * t
     return np.concatenate([cp[:, None], tau], axis=1).astype(np.float32)
+
+
+def volume_fields(points: np.ndarray, params: CarParams) -> np.ndarray:
+    """Analytic volumetric proxy (N, 4): [u, v, w, p] around the body —
+    free stream + dipole-like perturbation + wake deficit (for X-UNet3D)."""
+    r = np.linalg.norm(points / np.array(
+        [params.length / 2, params.width / 2, params.height / 2]), axis=1)
+    r = np.maximum(r, 0.7)
+    pert = 1.0 / r ** 3
+    u = 1.0 - 0.8 * pert
+    xw = points[:, 0] / (params.length / 2)
+    wake = np.exp(-np.clip(xw - 1.0, 0, None) / 1.5) * \
+        np.exp(-(points[:, 1] ** 2 + points[:, 2] ** 2) / 0.4) * (xw > 0.8)
+    u = u - 0.5 * wake
+    v = 0.3 * pert * points[:, 1]
+    w = 0.3 * pert * points[:, 2]
+    p = 0.5 * (1.0 - u ** 2 - v ** 2 - w ** 2)
+    return np.stack([u, v, w, p], axis=1).astype(np.float32)
+
+
+def signed_distance_box(points: np.ndarray, params: CarParams) -> np.ndarray:
+    """Cheap SDF proxy to the car body (ellipsoidal distance)."""
+    q = points / np.array([params.length / 2, params.width / 2,
+                           params.height / 2])
+    return (np.linalg.norm(q, axis=1) - 1.0).astype(np.float32)

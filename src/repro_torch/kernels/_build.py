@@ -7,6 +7,12 @@ first use; the library's file name carries a hash of the source and flags,
 so an edited source is rebuilt and a stale library is never loaded.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them. Nothing is built or loaded when this module is imported.
+
+``BUILD_DIR`` is the port's compile cache: ``repro_torch.ckpt.
+compile_cache.enable`` points it elsewhere, and a restarted process that
+finds a library there loads it instead of running ``nvcc``. ``counts``
+holds the process's totals: ``misses``, one per ``nvcc`` run that
+succeeded, and ``hits``, one per library :func:`load` found on disk.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+counts = {"misses": 0, "hits": 0}     # guarded by _lock
 
 
 class Compiled(NamedTuple):
@@ -108,6 +115,7 @@ def _build_locked(names) -> Dict[str, Compiled]:
                               f"(exit {proc.returncode}):\n{done[n].log}")
             else:
                 os.replace(tmp, library_path(n))
+                counts["misses"] += 1
         if failed:
             raise RuntimeError("\n".join(failed))
         return done
@@ -124,8 +132,11 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            on_disk = library_path(name).exists()
             _build_locked([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            if on_disk:
+                counts["hits"] += 1
         return lib
 
 

@@ -68,11 +68,21 @@ width) is derived once per size from the reference geometry and cached in
 the ``geometric`` planner (host numpy). A request whose shards outgrow the
 bucket's spec, or whose plan fails, is rejected with ``Result.error``, and
 only that request. Up to ``max_batch`` geometries share one call, each its
-own lane. The deploy-artifact parts of the JAX server's sharded mode are
-not ported.
+own lane.
 
 Trained weights come from a training checkpoint of either package
 (``GNNServer.from_checkpoint``, ``--ckpt``).
+
+Cold start: ``save_artifact`` freezes a server's params, normalizers,
+ladder, request-size histogram and every calibrated ``MultiscaleSpec`` and
+``ShardSpec`` into one deploy artifact (``repro_torch.ckpt.artifact``, the
+JAX package's format); ``from_artifact`` restores it, or a JAX-written one,
+and never calibrates. ``cfg.compile_cache_dir`` (``--compile-cache``)
+points the CUDA kernels' build directory at a cache that outlives the
+process (``repro_torch.ckpt.compile_cache``): a restarted server loads the
+kernels from it instead of running ``nvcc``. A bucket's first call counts
+its ``nvcc`` runs as ``bucket_compiles`` and its libraries loaded from
+disk as ``cache_loads``.
 
 T-step rollouts (``rollout``, ``submit_rollout``, ``rollout_result``,
 ``--rollout-steps``) run through the server's ``RolloutEngine``
@@ -91,11 +101,16 @@ Usage:
       --integrator residual
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
       --buckets 256 --device cpu --shard-devices 4
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --reduced \
+      --buckets 256,512 --device cpu --save-artifact build/deploy.msgpack
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --device cpu \
+      --artifact build/deploy.msgpack --compile-cache build/kernel_cache
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import logging
 import threading
 import time
@@ -107,7 +122,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.ckpt import artifact as artifact_lib
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.ckpt import compile_cache
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.graph_build import sample_surface
 from repro_torch.data import geometry as geo
@@ -116,7 +133,7 @@ from repro_torch.graphx import hashgrid, sharded
 from repro_torch.graphx.multiscale import MultiscaleSpec
 from repro_torch.graphx.pipeline import make_batched_infer_fn
 from repro_torch.models import meshgraphnet
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.resilience import faults
 from repro_torch.telemetry import (Histogram, MetricsRegistry, Telemetry,
                                    default_size_buckets, warn_once)
@@ -128,8 +145,8 @@ N_LEVELS = 3        # nested resolution levels per bucket, as in the paper
 # serving-lifecycle stages recorded per batch/request (ServerStats stage
 # histograms + the per-request trace spans): submit -> queue_wait ->
 # bucket_route -> prepare -> dispatch -> device_wait -> harvest -> result.
-# ``compile`` and ``cache_load`` stay empty: the port runs eagerly and
-# compiles no program per bucket.
+# ``compile`` / ``cache_load``: a bucket's first call that built (nvcc) or
+# loaded a CUDA kernel; empty once every kernel is loaded, and on the CPU.
 SERVE_STAGES = ("queue_wait", "prepare", "dispatch", "device_wait",
                 "harvest", "compile", "cache_load")
 
@@ -178,6 +195,8 @@ class Bucket:
     sspec: Optional[sharded.ShardSpec] = None   # sharded mode only
     plan_sig: Optional[tuple] = None   # sspec.signature(): the cache key's
                                        # second half in sharded mode
+    called: bool = False               # its first call has run (compiles
+                                       # and cache loads are counted there)
 
 
 @dataclass
@@ -216,9 +235,11 @@ class ServerStats:
     histograms (kept off the registry) hold the submit -> result latency and
     the batch's own run (``Result.run_s``) for ``report()["by_bucket"]``.
 
-    ``bucket_compiles`` and ``cache_loads`` stay 0, and the ``compile`` /
-    ``cache_load`` stages empty: the port runs each bucket's pipeline
-    eagerly and compiles no program per bucket.
+    ``bucket_compiles`` and ``cache_loads`` count, over each bucket's first
+    call, the CUDA kernels that call built with ``nvcc`` and those it loaded
+    from the build directory (``repro_torch.ckpt.compile_cache``); the
+    ``compile`` / ``cache_load`` stages hold those calls' times. Both stay 0
+    once every kernel is loaded, and on the CPU.
 
     Scalar counter mutations and :meth:`report` synchronize on ``lock``;
     histograms carry their own locks.
@@ -232,8 +253,8 @@ class ServerStats:
     bucket_hits: int = 0               # served by an already-live bucket
     bucket_misses: int = 0             # bucket had to be (re)built
     bucket_evictions: int = 0          # cold buckets dropped (LRU)
-    bucket_compiles: int = 0           # always 0: no per-bucket program
-    cache_loads: int = 0               # always 0: no compile cache
+    bucket_compiles: int = 0           # nvcc runs in buckets' first calls
+    cache_loads: int = 0               # kernels loaded from the build dir
     bucket_calibrations: int = 0       # host cKDTree grid calibrations run
     grown_buckets: int = 0             # ladder sizes added for oversize asks
     padding_points: int = 0            # computed-but-unrequested points
@@ -473,8 +494,9 @@ class GNNServer:
     counts devices), with ``shard_pad_factor`` (default
     ``cfg.shard_pad_factor``) of headroom in each bucket's shard shapes.
     The JAX server's ``knn_impl``, ``agg_impl``, ``interpret`` and
-    ``donate`` have no counterpart (the kernels dispatch by device), nor its
-    deploy-artifact knobs.
+    ``donate`` have no counterpart (the kernels dispatch by device), nor
+    its ``n_levels`` and ``check_requests``. ``_restore`` is the state
+    :meth:`from_artifact` hands over (calibrated specs, ladder, histogram).
     """
 
     def __init__(self, cfg: GNNConfig,
@@ -489,8 +511,12 @@ class GNNServer:
                  request_timeout_s: Optional[float] = None,
                  worker_max_restarts: Optional[int] = None,
                  shard_devices: int = 1,
-                 shard_pad_factor: Optional[float] = None, device=None):
+                 shard_pad_factor: Optional[float] = None, device=None,
+                 _restore: Optional[dict] = None):
         self.device = resolve(device)
+        # the kernels' build directory: a restarted process loads the
+        # libraries an earlier one built there instead of running nvcc
+        compile_cache.enable(cfg.compile_cache_dir)
         if self.device.type == "cuda":
             # full f32 matmuls, as the JAX reference computes them (TF32
             # keeps ~3 decimal digits); this is PyTorch's default, set
@@ -576,6 +602,19 @@ class GNNServer:
         # of the traffic; pass (verts, faces) to match your fleet
         self._reference = reference if reference is not None else \
             geo.car_surface(geo.sample_params(0))
+        if _restore:
+            # deploy-artifact state (from_artifact): learned ladder and
+            # request-size histogram, calibrated specs
+            self._calib.update(_restore.get("calib", {}))
+            # only specs matching THIS server's shard topology are usable;
+            # a changed shard_devices/n_mp_layers recalibrates on demand
+            self._shard_calib.update(
+                {n: s for n, s in _restore.get("shard_calib", {}).items()
+                 if s.n_shards == self.shard_devices
+                 and s.halo_hops == cfg.n_mp_layers})
+            self._ladder |= set(_restore.get("ladder", ()))
+            for s in _restore.get("size_hist", ()):
+                self._size_hist.append(int(s))
         for n in seed_sizes:
             self._buckets[n] = self._build_bucket(n)
             self._queues[n] = deque()
@@ -591,6 +630,125 @@ class GNNServer:
             path, cfg, device=resolve(kw.get("device")))
         return cls(cfg, bucket_sizes, params=model, norm_in=norm_in,
                    norm_out=norm_out, **kw)
+
+    # ------------------------------------------------------ deploy artifacts
+
+    # server-construction knobs carried inside the artifact so from_artifact
+    # rebuilds an identical server (the JAX server's, less n_levels and
+    # check_requests, which the port does not have)
+    _ARTIFACT_KNOBS = ("max_batch", "seed", "reject_overflow", "async_flush",
+                       "shard_devices", "shard_pad_factor")
+    # knobs of the JAX server that a JAX artifact carries: read and ignored
+    _JAX_ONLY_KNOBS = ("check_requests", "knn_impl", "interpret", "donate")
+
+    def save_artifact(self, path: str) -> dict:
+        """Freeze this server's learned state into one deploy artifact.
+
+        The artifact bundles the params (the JAX tree layout) and
+        normalizers, the config and knobs, the autoscaler's ladder and
+        request-size histogram, the reference geometry and every calibrated
+        grid spec (and ``ShardSpec``): everything :meth:`from_artifact`
+        needs to serve with no calibration. Every ladder target is
+        calibrated first. ``aot`` is empty: the port compiles no program.
+        Returns a summary dict (path, live buckets, ladder, aot buckets).
+        """
+        with self._cond:
+            live = sorted(self._buckets)
+            ladder = sorted(set(self._buckets) | self._ladder)
+            size_hist = [int(s) for s in self._size_hist]
+        for n in ladder:
+            ms = self._calibrate(n)
+            if self.shard_devices > 1:
+                self._calibrate_shard(n, ms)
+
+        def norm_tree(nm):
+            if nm is None:
+                return None
+            mean, std = nm
+            return {"mean": np.asarray(mean, np.float32),
+                    "std": np.asarray(std, np.float32)}
+
+        ref_verts, ref_faces = self._reference
+        tree = {
+            "params": params_to_jax(self.params),
+            "norm_in": norm_tree(self._norm_in),
+            "norm_out": norm_tree(self._norm_out),
+            "cfg": dataclasses.asdict(self.cfg),
+            "knobs": {k: getattr(self, k) for k in self._ARTIFACT_KNOBS},
+            # the JAX server's compile knobs at its defaults, which its
+            # from_artifact reads, so it rebuilds its default server
+            "knn_impl": "xla", "interpret": True, "donate": True,
+            "auto": bool(self.auto),
+            "reference": {"verts": np.asarray(ref_verts, np.float32),
+                          "faces": np.asarray(ref_faces)},
+            "ladder": [int(n) for n in ladder],
+            "live": [int(n) for n in live],
+            "size_hist": size_hist,
+            "calib": {str(n): artifact_lib.pack_multiscale_spec(ms)
+                      for n, ms in self._calib.items()},
+            "shard_calib": {str(n): artifact_lib.pack_shard_spec(s)
+                            for n, s in self._shard_calib.items()},
+            "aot": {},
+        }
+        artifact_lib.save_artifact(path, tree, backend=self.device.type)
+        return {"path": path, "buckets": live, "ladder": ladder,
+                "aot_buckets": []}
+
+    @classmethod
+    def from_artifact(cls, path: str, cfg: Optional[GNNConfig] = None,
+                      **kw) -> "GNNServer":
+        """Restore a server from a deploy artifact of either package.
+
+        Rebuilds the saved server (params, normalizers, knobs, adapted
+        ladder, request-size histogram, calibrated grid specs) on
+        ``device`` (default: the card); its buckets never calibrate, nor
+        does a later evict->rebuild. ``cfg`` (default: the artifact's) and
+        keyword knobs override the saved ones. Of the JAX server's knobs,
+        ``n_levels`` must be ``N_LEVELS`` (else ``ValueError``);
+        ``check_requests``, ``knn_impl``, ``interpret`` and ``donate`` are
+        read and ignored, as are a JAX artifact's AOT executables.
+        """
+        tree = artifact_lib.load_artifact(path)
+        if cfg is None:
+            known = {f.name for f in dataclasses.fields(GNNConfig)}
+            stored = {k: tuple(v) if isinstance(v, list) else v
+                      for k, v in tree.get("cfg", {}).items() if k in known}
+            cfg = GNNConfig(**stored)
+        if tree.get("auto"):
+            cfg = cfg.replace(bucket_policy="auto")
+        knobs = dict(tree.get("knobs", {}))
+        knobs.update(kw)
+        n_levels = int(knobs.pop("n_levels", N_LEVELS))
+        if n_levels != N_LEVELS:
+            raise ValueError(f"{path!r}: n_levels={n_levels}, but the port's "
+                             f"server has {N_LEVELS} levels a bucket")
+        for k in cls._JAX_ONLY_KNOBS:
+            knobs.pop(k, None)
+        device = resolve(knobs.pop("device", None))
+
+        def norm_pair(d):
+            if d is None:
+                return None
+            return (np.asarray(d["mean"], np.float32),
+                    np.asarray(d["std"], np.float32))
+
+        ref = tree["reference"]
+        restore = {
+            "calib": {int(n): artifact_lib.unpack_multiscale_spec(d)
+                      for n, d in tree.get("calib", {}).items()},
+            "shard_calib": {int(n): artifact_lib.unpack_shard_spec(d)
+                            for n, d in tree.get("shard_calib", {}).items()},
+            "ladder": [int(n) for n in tree.get("ladder", ())],
+            "size_hist": [int(s) for s in tree.get("size_hist", ())],
+        }
+        live = [int(n) for n in tree.get("live", ())]
+        return cls(cfg, tuple(live) if live else "auto",
+                   params=params_from_jax(tree["params"], cfg, device=device),
+                   norm_in=norm_pair(tree.get("norm_in")),
+                   norm_out=norm_pair(tree.get("norm_out")),
+                   reference=(np.asarray(ref["verts"], np.float32),
+                              np.asarray(ref["faces"])),
+                   device=device, _restore=restore, **knobs)
 
     # ------------------------------------------------------------- buckets
 
@@ -1186,8 +1344,26 @@ class GNNServer:
         first use) quarantines the bucket in ``_dispatch_item``; a fault in
         a kernel surfaces at the harvest instead."""
         faults.fire("serve.compile")      # chaos: failure at the bucket call
+        ev = None if b.called else compile_cache.CompileEvents()
+        t0 = time.perf_counter()
         with self.telemetry.annotate(f"serve/call_b{b.n_points}"):
-            return b.infer(self.params, *args)
+            out = b.infer(self.params, *args)
+        if ev is not None:
+            # a bucket's first call builds (nvcc) or loads the kernels this
+            # process has not loaded yet, synchronously, before it enqueues
+            b.called = True
+            compiles, loads = ev.delta()
+            if compiles or loads:
+                t1 = time.perf_counter()
+                with self.stats.lock:
+                    self.stats.bucket_compiles += compiles
+                    self.stats.cache_loads += loads
+                stage = "compile" if compiles else "cache_load"
+                self.stats.record_stage(stage, t1 - t0)
+                self.telemetry.tracer.record_span(
+                    stage, t0, t1, bucket=b.n_points, compiles=compiles,
+                    cache_loads=loads)
+        return out
 
     def _padding_of(self, b: Bucket, req: Request) -> Tuple[int, int]:
         """(requested, padded-waste) point counts for one served request."""
@@ -1705,6 +1881,18 @@ def main(argv=None):
                     help="serve the params and normalizers of this "
                     "launch.train checkpoint (either package's; its config "
                     "must match --reduced) instead of random weights")
+    ap.add_argument("--compile-cache", default=None,
+                    help="the CUDA kernels' build directory: a restarted "
+                    "server loads the kernels built there instead of "
+                    "running nvcc")
+    ap.add_argument("--save-artifact", default=None,
+                    help="after serving, freeze the adapted server (params, "
+                    "ladder, histogram, calibrated specs) into this "
+                    "deploy-artifact file")
+    ap.add_argument("--artifact", default=None,
+                    help="restore the server from a deploy artifact of "
+                    "either package (GNNServer.from_artifact): no "
+                    "calibration; its config replaces --reduced")
     ap.add_argument("--shard-devices", type=int, default=1,
                     help="serve each request in this many RCB shards with "
                     "halo rings, one after another on the device")
@@ -1762,6 +1950,8 @@ def main(argv=None):
         cfg = cfg.replace(bucket_granularity=args.bucket_granularity)
     if args.refit_every is not None:
         cfg = cfg.replace(bucket_refit_every=args.refit_every)
+    if args.compile_cache:
+        cfg = cfg.replace(compile_cache_dir=args.compile_cache)
     if args.max_queue_depth is not None:
         cfg = cfg.replace(max_queue_depth=args.max_queue_depth)
     if args.shed_policy is not None:
@@ -1785,7 +1975,18 @@ def main(argv=None):
     kw = dict(max_batch=args.max_batch, seed=args.seed, device=dev,
               async_flush=not args.sync, shard_devices=args.shard_devices,
               shard_pad_factor=args.shard_pad_factor)
-    if args.ckpt:
+    if args.artifact:
+        # the artifact carries its own config; apply the cache directory
+        compile_cache.enable(args.compile_cache)
+        t0 = time.perf_counter()
+        server = GNNServer.from_artifact(args.artifact, device=dev,
+                                         async_flush=not args.sync)
+        auto = server.auto
+        buckets = server.target_ladder() or buckets
+        print(f"restored deploy artifact {args.artifact} in "
+              f"{time.perf_counter() - t0:.2f}s: buckets "
+              f"{list(server.ladder())}")
+    elif args.ckpt:
         server = GNNServer.from_checkpoint(args.ckpt, cfg, buckets, **kw)
         print(f"loaded checkpoint {args.ckpt}")
     else:
@@ -1810,6 +2011,7 @@ def main(argv=None):
         reqs.append((verts, faces, int(rng.choice(req_sizes))))
     if args.rollout_steps > 0:
         _rollout_demo(server, reqs, args)
+        _save_artifact(server, args.save_artifact)
         return
     with server.telemetry.capture():
         results = server.serve(reqs)
@@ -1837,9 +2039,12 @@ def main(argv=None):
               f"calibrations {rep['bucket_calibrations']} "
               f"grown {rep['grown_buckets']} | "
               f"padding waste {rep['padding_waste_frac']:.1%}")
+    print(f"cold start: compiles {rep['bucket_compiles']} cache loads "
+          f"{rep['cache_loads']} calibrations {rep['bucket_calibrations']}")
     if args.trace_dir:
         paths = server.telemetry.export()
         print("telemetry artifacts: " + ", ".join(sorted(paths.values())))
+    _save_artifact(server, args.save_artifact)
     for r in results[:3]:
         if r.error is not None:
             print(f"  req {r.request_id}: {r.error}")
@@ -1847,6 +2052,14 @@ def main(argv=None):
         cp = r.fields[:, 0]
         print(f"  req {r.request_id}: bucket {r.bucket}, "
               f"cp range [{cp.min():.2f}, {cp.max():.2f}]")
+
+
+def _save_artifact(server: GNNServer, path: Optional[str]):
+    """``main``'s ``--save-artifact``: freeze the server after its traffic."""
+    if path:
+        info = server.save_artifact(path)
+        print(f"deploy artifact -> {info['path']} (buckets "
+              f"{info['buckets']}, ladder {info['ladder']})")
 
 
 def _rollout_demo(server: GNNServer, reqs, args):

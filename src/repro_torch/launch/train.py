@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.ckpt import compile_cache
 from repro_torch.configs import get_config
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.gradient_aggregation import (aggregate_gradients,
@@ -215,8 +216,9 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
     if dist.is_available() and dist.is_initialized():
         group, rank, world = (dist.group.WORLD, dist.get_rank(),
                               dist.get_world_size())
-    # compile_cache.enable of the JAX trainer has no counterpart here yet:
-    # the port compiles no step program (ROADMAP Queue 1 item 6, cold start)
+    # the kernels' build directory: a restarted trainer loads the libraries
+    # an earlier process built there instead of running nvcc
+    compile_cache.enable(cfg.compile_cache_dir)
     tel = telemetry if telemetry is not None else Telemetry.from_config(cfg)
     hists = _stage_hists(tel)
     loss_gauge = tel.metrics.gauge("train_loss",
@@ -456,6 +458,10 @@ def main(argv=None):
                     help="MGN-style training noise: gaussian std added to "
                     "node features each step for rollout stability "
                     "(default: cfg.noise_std, i.e. off)")
+    ap.add_argument("--compile-cache", default=None,
+                    help="the CUDA kernels' build directory: a restarted "
+                    "trainer loads the kernels built there instead of "
+                    "running nvcc")
     ap.add_argument("--telemetry", action="store_true",
                     help="enable the span tracer + profiler annotations")
     ap.add_argument("--trace-dir", default=None,
@@ -483,10 +489,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if not isinstance(cfg, GNNConfig):
-        raise SystemExit(f"the port trains the GNN only; {args.arch!r} "
-                         "(LLM training) is still to port, see ROADMAP.md")
+        raise SystemExit(f"launch.train trains the GNN only; {args.arch!r} "
+                         "is not a GNN (X-UNet3D trains through "
+                         "repro_torch.launch.xunet_volume; LLM training is "
+                         "still to port, see ROADMAP.md)")
     if args.reduced:
         cfg = cfg.reduced()
+    if args.compile_cache:
+        cfg = cfg.replace(compile_cache_dir=args.compile_cache)
     device, rank, world = args.device, 0, 1
     if "WORLD_SIZE" in os.environ:
         # under torchrun: one process per rank, the group from its env

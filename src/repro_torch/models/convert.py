@@ -8,6 +8,10 @@ transformer: its ``blocks`` leaves carry a leading group axis. Any missing
 or extra key, and any shape mismatch, raises. A JAX ``AdamState`` loads into
 the port's (``adam_state_from_jax``), its moments in the order of
 ``MeshGraphNet.leaves()``, and ``adam_state_to_jax`` writes it back.
+X-UNet3D (``xunet_from_jax``, ``xunet_to_jax``): convolution weights go
+from JAX's DHWIO ``(k, k, k, cin, cout)`` to PyTorch's OIDHW ``(cout, cin,
+k, k, k)`` and back; without attention gates the tree's ``gates`` entries
+are ``None``.
 """
 from __future__ import annotations
 
@@ -16,10 +20,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import GNNConfig, ModelConfig
+from repro_torch.configs.base import GNNConfig, ModelConfig, UNetConfig
 from repro_torch.device import resolve
 from repro_torch.models.meshgraphnet import MeshGraphNet
 from repro_torch.models.transformer import Transformer, group_structure
+from repro_torch.models.xunet3d import XUNet3D, full_f32
 from repro_torch.optim.adam import AdamState
 
 _STACKED = ("proc_edge", "proc_node")
@@ -193,3 +198,46 @@ def transformer_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:
     model = Transformer(cfg, device="meta")     # no weights drawn
     _load(model, got, assign=True)
     return model.to(resolve(device))
+
+
+def xunet_from_jax(tree, cfg: UNetConfig, device=None) -> XUNet3D:
+    """An :class:`XUNet3D` holding a JAX X-UNet3D pytree (numpy arrays;
+    ``gates`` entries ``None`` without attention gates), on ``device``
+    (default: the card, with TF32 off)."""
+    if not isinstance(tree, dict):
+        raise TypeError(f"expected a dict param tree, got {type(tree)}")
+    gates = tree.get("gates") or []
+    if any(g is None for g in gates):
+        if not all(g is None for g in gates):
+            raise ValueError("gates: some entries None, some not")
+        tree = {k: v for k, v in tree.items() if k != "gates"}
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    got = {}
+    for key, arr in flat.items():
+        a = np.asarray(arr, np.float32)
+        if a.ndim == 5:                       # DHWIO -> OIDHW
+            a = a.transpose(4, 3, 0, 1, 2)
+        got[key] = torch.tensor(np.ascontiguousarray(a))
+    model = XUNet3D(cfg, generator=torch.Generator().manual_seed(0))
+    _load(model, got)
+    dev = resolve(device)
+    full_f32(dev)
+    return model.to(dev)
+
+
+def xunet_to_jax(model: XUNet3D, grads: bool = False) -> dict:
+    """The inverse of :func:`xunet_from_jax`: the parameters, or with
+    ``grads`` their ``.grad``, as the JAX pytree of numpy arrays (DHWIO
+    weights; ``gates`` a list of ``None`` without attention gates)."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"{name} has no gradient")
+        a = t.detach().cpu().numpy()
+        flat[name] = a.transpose(2, 3, 4, 1, 0) if a.ndim == 5 else a
+    tree = _unflatten(flat)
+    if model.gates is None:
+        tree["gates"] = [None] * len(model.ups)
+    return tree

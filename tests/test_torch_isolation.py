@@ -41,7 +41,8 @@ def test_import_loads_no_jax_or_repro():
                  "core.distributed_mgn", "launch.sharding",
                  "ckpt.checkpoint", "ckpt._msgpack", "resilience.faults",
                  "telemetry.metrics", "telemetry.trace",
-                 "telemetry.profiler"):
+                 "telemetry.profiler", "ckpt.artifact", "ckpt.compile_cache",
+                 "models.xunet3d", "core.unet_halo", "launch.xunet_volume"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
