@@ -19,7 +19,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    2 x 4,608 tokens, with the 4,096 window and without, softcap 50, bf16
    through the wgmma kernel and f32 through the CUDA-core kernel; bf16 also
    per row, where the plain version with a key tile dropped must fail; f32
-   per row logged), and time each (f32 flash too, by CUDA events: its time,
+   per row logged; the same at head_dim 128: qwen3-moe-30b-a3b's prefill,
+   2 x 4,608 tokens, H 32, KV 4, causal, no window or softcap, timed in
+   both dtypes beside SDPA (causal, GQA: the same function) and, in bf16,
+   ``flex_attention``; and, for correctness only at 640 tokens, GQA groups
+   7 (yi) and 12 (starcoder2) and a window with a softcap, in both dtypes),
+   and time each (f32 flash too, by CUDA events: its time,
    its bound at 67 TFLOP/s, its TFLOP/s, ``flex_attention`` compiled in
    f32, and its ``torch.profiler`` device time if a profile of 10 launches
    holds them all, else how many it held): the kernel's device
@@ -104,6 +109,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    32 generated; flash attention must launch once per layer of the one
    prefill and never in decode; then where one prefill's time goes, and the
    profile must show those launches as the wgmma kernel.
+19. the head_dim-128 decoders (after phase 8): (a) qwen3-moe-30b-a3b,
+   deepseek-moe-16b (a dense first layer, then MoE with shared experts),
+   starcoder2-15b (LayerNorm, a biased GELU MLP, GQA 12) and pixtral-12b
+   (1,024 patch embeddings from a seed before the prompt) at full width cut
+   to 2 layers, f32, in phase 7's form: tokens equal and logits within
+   LLM_ATOL, the f32 flash kernel launched once per layer, and per MoE
+   layer the routing decisions that differ between the card and the CPU on
+   the card's inputs counted (a flip within ROUTE_TIE of a tie holds each
+   MoE layer by its inputs instead; any other flip fails); (b)
+   ``serve`` of qwen3-moe-30b-a3b at full width and depth in bf16, 2 x
+   4,608 tokens and 32 generated, as phase 8: 48 flash launches in the
+   prefill and none in decode, peak memory, ``prefill_s``, decode ms/token,
+   and one profiled prefill and decode step split into attention, expert
+   GEMMs, dispatch and combine, and the rest (the MoE layer's profiler
+   marks), the prefill's 48 launches shown as the wgmma kernel.
 
 9. training whole path: ``GNNConfig()`` at full width cut to 2
    message-passing layers and halo 2, a 2,048-point sample in 2 partitions;
@@ -210,9 +230,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    finite losses, step seconds and peak memory.
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
-freed before the LLM phases (the flash row of 3, then 7 and 8), all but phase
-5's weights; the training phases (the backward row of 3, then 9, 14, 10 and
-11) run in another, and phases 13 and 15 run last, on phase 5's weights,
+freed before the LLM phases (the flash row of 3, then 7, 8 and 19), all but
+phase 5's weights; the training phases (the backward row of 3, then 9, 14,
+10 and 11) run in another, and phases 13 and 15 run last, on phase 5's weights,
 each in a function of its own, then phase 16, 17 (b, c) and 18, each in its
 own. It then
 prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device":
@@ -346,6 +366,26 @@ WHOLE_LLM_PROMPT, WHOLE_LLM_DECODE = 128, 4
 # 1.0e-5 on the prefill logits and 1.1e-4 on the decode logits, whose
 # cache went through bf16 (pad_cache_to) on both sides.
 LLM_ATOL = 5e-4
+# Phase 3 at head_dim 128: the flash kernels at qwen3-moe-30b-a3b's prefill
+# shape (B 2, S 4,608, H 32, KV 4; causal, no window, no softcap), timed,
+# then for correctness only at HD128_SHORT_S tokens: the odd GQA groups of
+# yi (56 / 8) and starcoder2 (48 / 4), and a window with a softcap.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+HD128_SHORT_S = 640
+HD128_SHORT_CASES = ((56, 8, None, None), (48, 4, None, None),
+                     (32, 4, 128, 50.0))      # (H, KV, window, softcap)
+# Phase 19 (a): the head_dim-128 decoders at full width, cut to 2 layers,
+# f32, card against CPU (phase 7's form and LLM_ATOL). A routing decision
+# (the k-th against the (k+1)-th router probability of a token) within
+# ROUTE_TIE of a tie may flip between the two devices' f32 sums; a flip
+# anywhere else is a fault.
+DECODER_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-moe-16b", "starcoder2-15b",
+                 "pixtral-12b")
+ROUTE_TIE = 1e-6
+# Phase 19 (b): the MoE layer's parts, as models/moe.py marks them for the
+# profiler
+MOE_MARKS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+             "moe.shared")
 # Phase 17: cold start. Three child processes (fresh build directory, the
 # same one warm, and the deploy artifact) each serve phase 5's 4 requests,
 # timed from spawn to car 2's result; a child gets COLDSTART_TIMEOUT seconds.
@@ -402,12 +442,14 @@ def bound_ms(n_bytes: float, n_flops: float,
 def device_rows(averages):
     """``[(kernel name, ms, launches)]`` of the device kernels in a
     ``torch.profiler`` run's ``key_averages()``, by their self device time,
-    longest first."""
+    longest first. A ``record_function`` mark's span on the device (a user
+    annotation, idle gaps included) is not a kernel and is left out."""
     import torch
     rows = [(e.key, getattr(e, "self_device_time_total", None)
              or getattr(e, "self_cuda_time_total", 0.0), e.count)
             for e in averages
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     return sorted(((k, us / 1e3, n) for k, us, n in rows),
                   key=lambda r: -r[1])
 
@@ -2310,16 +2352,18 @@ def plain_dropping_a_tile(qf, kf, vf, gs: int, window, cap: float):
     mask &= ~(first & (mask & ~first).any(1, keepdim=True))
     kr, vr = (t.repeat_interleave(gs, 0).float() for t in (kf, vf))
     sc = torch.einsum("hqd,hkd->hqk", qf.float(), kr) / math.sqrt(hd)
-    sc = torch.where(mask, cap * torch.tanh(sc / cap), -1e30)
+    if cap is not None:
+        sc = cap * torch.tanh(sc / cap)
+    sc = torch.where(mask, sc, -1e30)
     return torch.einsum("hqk,hkd->hqd", sc.softmax(-1), vr).to(qf.dtype)
 
 
-def flex_yardstick(q, k, v, cap: float, window):
-    """``flex_attention`` computing the kernel's function: the softcap as a
-    ``score_mod`` (it gets the scaled score), causal and window as a block
-    mask, GQA. q (B, H, S, hd), k and v (B, KV, S, hd). Returns the compiled
-    call, its first output and the seconds of that first call (compile
-    included). The port never calls it."""
+def flex_yardstick(q, k, v, cap, window):
+    """``flex_attention`` computing the kernel's function: the softcap (if
+    any) as a ``score_mod`` (it gets the scaled score), causal and window as
+    a block mask, GQA. q (B, H, S, hd), k and v (B, KV, S, hd). Returns the
+    compiled call, its first output and the seconds of that first call
+    (compile included). The port never calls it."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -2339,8 +2383,9 @@ def flex_yardstick(q, k, v, cap: float, window):
     compiled = torch.compile(flex_attention)
 
     def call():
-        return compiled(q, k, v, score_mod=score_mod, block_mask=block_mask,
-                        enable_gqa=True)
+        return compiled(q, k, v,
+                        score_mod=None if cap is None else score_mod,
+                        block_mask=block_mask, enable_gqa=True)
     t0 = time.perf_counter()
     out = call()
     torch.cuda.synchronize()
@@ -2554,6 +2599,195 @@ def flash_check(dev, card) -> dict:
               "layer, which the path runs equally often")
 
 
+def _flash_case_check(got, want, dname: str, what: str, drop=None) -> dict:
+    """Hold a flash output against the plain version's: elementwise at
+    FLASH_TOL, and in bf16 per (row, head) at FLASH_ROW_RTOL, which the
+    plain version with a key tile dropped (``drop()``) must fail."""
+    diff = (got.float() - want.float()).abs()
+    atol, rtol = FLASH_TOL[dname]
+    err = dict(max_abs_err=float(diff.max()))
+    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+        raise RuntimeError(f"flash_attention {what}: max abs error "
+                           f"{err['max_abs_err']}, beyond {atol} + {rtol} "
+                           "|want|")
+    del diff
+    rows = row_rel_err(got, want)
+    err.update(row_max=float(rows.max()), row_median=float(rows.median()))
+    if dname == "bfloat16":
+        if not err["row_max"] <= FLASH_ROW_RTOL:
+            raise RuntimeError(f"flash_attention {what}: row relative error "
+                               f"{err['row_max']} > {FLASH_ROW_RTOL}")
+        if drop is not None:
+            wrong = float(row_rel_err(drop(), want).max())
+            err["tile_dropped_max"] = wrong
+            if not wrong > FLASH_ROW_RTOL:
+                raise RuntimeError(
+                    f"flash_attention {what}: the plain version with one key "
+                    f"tile per row dropped passes the row check ({wrong} <= "
+                    f"{FLASH_ROW_RTOL}); it cannot fail a wrong kernel")
+    return err
+
+
+def flash_check_hd128(dev, card) -> dict:
+    """Phase 3 for the flash kernels at head_dim 128: against their plain
+    version at qwen3-moe-30b-a3b's prefill shape (causal, no window, no
+    softcap), bf16 (wgmma kernel) and f32 (CUDA-core kernel), each timed
+    beside its bound, the plain version, ``flex_attention`` compiled and
+    SDPA (the same function here: no softcap); then for correctness only,
+    at a short S, yi's and starcoder2's GQA groups and a window with a
+    softcap, in both dtypes."""
+    import torch
+    from torch.nn import functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(MOE_ARCH)
+    hd = cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
+
+    def unflat(t, b, h):
+        return t.reshape(b, h, -1, hd).transpose(1, 2)
+
+    errs = {}
+    b, s = LLM_BATCH, HD128_SHORT_S
+    for h, kvh, window, cap in HD128_SHORT_CASES:
+        base = [torch.randn((b, s, n, hd), generator=gen, device=dev)
+                for n in (h, kvh, kvh)]
+        for dname in ("bfloat16", "float32"):
+            q, k, v = (t.to(getattr(torch, dname)) for t in base)
+            qf, kf, vf = (flat(t) for t in (q, k, v))
+            got = fa_ops.mha(q, k, v, causal=True, window=window,
+                             softcap=cap)
+            torch.cuda.synchronize()
+            want = unflat(fa_ref.attention(qf, kf, vf, group_size=h // kvh,
+                                           window=window, softcap=cap), b, h)
+            what = (f"hd=128 {dname} S={s} H={h} KV={kvh} window={window} "
+                    f"softcap={cap}")
+            errs[what] = _flash_case_check(
+                got, want, dname, what, lambda: unflat(plain_dropping_a_tile(
+                    qf, kf, vf, h // kvh, window, cap), b, h))
+        del base, q, k, v, qf, kf, vf, got, want
+
+    b, s = LLM_BATCH, LLM_PROMPT
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    gs = h // kvh
+    base = [torch.randn((b, s, n, hd), generator=gen, device=dev)
+            for n in (h, kvh, kvh)]
+    pairs = _window_pairs(s, None)
+    flops = 4.0 * hd * pairs * b * h
+    by_dtype = {}
+    for dname in ("bfloat16", "float32"):
+        q, k, v = (t.to(getattr(torch, dname)) for t in base)
+        qf, kf, vf = (flat(t) for t in (q, k, v))
+        got = fa_ops.mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype or got.shape != q.shape:
+            raise RuntimeError("flash_attention hd=128: bad output")
+        want = unflat(fa_ref.attention(qf, kf, vf, group_size=gs), b, h)
+        what = f"hd=128 {dname} B={b} S={s} H={h} KV={kvh}"
+        errs[what] = _flash_case_check(
+            got, want, dname, what, lambda: unflat(plain_dropping_a_tile(
+                qf, kf, vf, gs, None, None), b, h))
+        del got
+
+        def kernel():
+            return fa_ops.flash_attention(qf, kf, vf, group_size=gs)
+
+        def plain():
+            return fa_ref.attention(qf, kf, vf, group_size=gs)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        n_bytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh
+                                      * hd)
+        sd = sdpa()
+        row = dict(sdpa_max_abs_err=float(
+            (sd.transpose(1, 2).float() - want.float()).abs().max()))
+        del sd
+        if dname == "bfloat16":
+            bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+            row.update(device_ms=device_ms(kernel, 10, FLASH_WGMMA_KERNEL),
+                       call_ms=time_cuda(kernel, 10),
+                       plain_ms=time_cuda(plain, 3, warmup=1),
+                       sdpa_ms=time_cuda(sdpa, 10),
+                       sdpa_device_ms=device_ms(sdpa, 10),
+                       bound_ms=bound[0], bound_by=bound[1])
+            row["fraction_of_bound"] = row["bound_ms"] / row["device_ms"]
+            flex, out, row["flex_first_call_s"] = flex_yardstick(
+                qt, kt, vt, None, None)
+            row["flex_max_abs_err"] = float(
+                (out.transpose(1, 2).float() - want.float()).abs().max())
+            del out
+            row["flex_ms"] = time_cuda(flex, 10)
+            row["flex_device_ms"] = device_ms(flex, 10)
+        else:
+            # event-timed, as the f32 row at hd 256 (a profile may hold
+            # fewer launches than were made)
+            bound = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+            held = [(ms, n) for name, ms, n in
+                    profiled_rows(kernel, F32_PROFILE_REPS)
+                    if FLASH_KERNEL_RE.search(name)]
+            n_held = sum(n for _, n in held)
+            row.update(ms=time_cuda(kernel, F32_REPS),
+                       plain_ms=time_cuda(plain, 3, warmup=1),
+                       sdpa_ms=time_cuda(sdpa, F32_REPS),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       profile_launches=n_held,
+                       device_ms=sum(ms for ms, _ in held) / n_held
+                       if n_held == F32_PROFILE_REPS else None)
+            row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+            row["tflops"] = flops / row["ms"] / 1e9
+        by_dtype[dname] = row
+        del q, k, v, qf, kf, vf, qt, kt, vt, want
+    del base
+    bf, f32 = by_dtype["bfloat16"], by_dtype["float32"]
+    log(f"[kernels] flash_attention hd=128 ({MOE_ARCH} prefill, B={b} S={s} "
+        f"H={h} KV={kvh}, causal, {pairs} pairs per head): bf16 device "
+        f"{bf['device_ms']:.4f} ms, call {bf['call_ms']:.4f} ms (bound "
+        f"{bf['bound_ms']:.4f} ms by {bf['bound_by']}, "
+        f"{bf['fraction_of_bound']:.3f} of it; plain {bf['plain_ms']:.3f} "
+        f"ms; SDPA device {bf['sdpa_device_ms']:.4f} ms, call "
+        f"{bf['sdpa_ms']:.4f} ms; flex_attention device "
+        f"{bf['flex_device_ms']:.4f} ms, call {bf['flex_ms']:.4f} ms, first "
+        f"call {bf['flex_first_call_s']:.1f} s); f32 {f32['ms']:.3f} ms "
+        f"(events; bound {f32['bound_ms']:.3f} ms by {f32['bound_by']}, "
+        f"{f32['fraction_of_bound']:.3f} of it, {f32['tflops']:.2f} TFLOP/s; "
+        f"the profile held {f32['profile_launches']} of {F32_PROFILE_REPS} "
+        f"launches, device {f32['device_ms']} ms; plain "
+        f"{f32['plain_ms']:.3f} ms; SDPA {f32['sdpa_ms']:.3f} ms) | {card}")
+    log("[kernels] flash_attention hd=128 errors against the plain version: "
+        + "; ".join(f"{c}: max abs {e['max_abs_err']:.3g}, row max "
+                    f"{e['row_max']:.3g}"
+                    + (f", tile dropped {e['tile_dropped_max']:.3g}"
+                       if "tile_dropped_max" in e else "")
+                    for c, e in errs.items()))
+    return dict(
+        shape=f"B={b} S={s} H={h} KV={kvh} hd={hd}, causal, no window, no "
+              f"softcap ({MOE_ARCH} prefill)",
+        max_abs_err=max(e["max_abs_err"] for c, e in errs.items()
+                        if "bfloat16" in c),
+        errors=errs, ms=bf["device_ms"], device_ms=bf["device_ms"],
+        call_ms=bf["call_ms"], plain_ms=bf["plain_ms"],
+        bound_ms=bf["bound_ms"], bound_by=bf["bound_by"],
+        fraction_of_bound=bf["fraction_of_bound"],
+        library_ms=bf["sdpa_ms"], library_device_ms=bf["sdpa_device_ms"],
+        library_note="scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True): the same function (no softcap)",
+        flex_ms=bf["flex_ms"], flex_device_ms=bf["flex_device_ms"],
+        float32_ms=f32["ms"], float32_device_ms=f32["device_ms"],
+        float32_bound_ms=f32["bound_ms"],
+        float32_fraction_of_bound=f32["fraction_of_bound"],
+        float32_tflops=f32["tflops"], float32_plain_ms=f32["plain_ms"],
+        float32_library_ms=f32["sdpa_ms"], by_dtype=by_dtype)
+
+
 def llm_whole_path(dev):
     """Phase 7: gemma2-9b at full width, 2 layers, f32, card against CPU."""
     import torch
@@ -2696,6 +2930,318 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
         api.decode(params, cache, {"tokens": tok}, LLM_PROMPT + LLM_GEN - 1)
         torch.cuda.synchronize()
     _log_kernels("decode step", prof, time.perf_counter() - t0)
+
+
+def _route_flips(moe_gpu, moe_cpu, x_gpu, x_cpu, cfg_moe):
+    """Routing decisions of one MoE call on the card against the CPU's on
+    the same input (``x_cpu`` is ``x_gpu`` copied): (decisions, differing,
+    the largest tie margin among the differing tokens, the tokens' flat
+    indices). A decision is one of a token's top-k experts; a token's
+    margin is its k-th minus its (k+1)-th router probability on the CPU."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+    k = cfg_moe.top_k
+    _, idx_g, _ = moe_lib.route(moe_gpu, x_gpu, cfg_moe)
+    _, idx_c, _ = moe_lib.route(moe_cpu, x_cpu, cfg_moe)
+    idx_g = idx_g.cpu().reshape(-1, k).sort(-1).values
+    idx_c = idx_c.reshape(-1, k).sort(-1).values
+    # decisions the card made that the CPU did not, per token
+    differ = (~(idx_g[:, :, None] == idx_c[:, None, :]).any(-1)).sum(-1)
+    tokens = differ.nonzero().flatten()
+    margin = 0.0
+    if len(tokens) and k < cfg_moe.n_experts:
+        probs = torch.softmax(x_cpu.float().reshape(-1, x_cpu.shape[-1])
+                              @ moe_cpu.router.w.float(), -1)
+        top = probs[tokens].sort(-1, descending=True).values
+        margin = float((top[:, k - 1] - top[:, k]).max())
+    return idx_c.numel(), int(differ.sum()), margin, tokens
+
+
+def decoders_whole_path(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 19 (a): each head_dim-128 decoder of DECODER_ARCHS at full
+    width, cut to 2 layers, in f32, initialised once on the card and copied
+    to the CPU; 2 requests of 128 tokens (pixtral: after its 1,024 patch
+    embeddings, random from a seed) prefilled and decoded 4 steps on both:
+    tokens equal, logits within LLM_ATOL, the f32 flash kernel launched once
+    per layer in the card's prefill, and per MoE layer the routing decisions
+    that differ between the card and the CPU on the card's inputs counted.
+    A flip within ROUTE_TIE of a tie switches the check to each MoE layer
+    on the card's inputs, the flipped tokens left out; any other flip
+    fails."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_cache_to
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import Transformer
+
+    for arch in DECODER_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+        api = registry.get_model(cfg)
+        model_gpu = api.init(seed=0, device=dev)
+        model_cpu = Transformer(cfg, device="meta")
+        model_cpu.load_state_dict({k: t.cpu() for k, t in
+                                   model_gpu.state_dict().items()},
+                                  assign=True)
+        b, n = LLM_BATCH, WHOLE_LLM_PROMPT
+        n_prefix = cfg.n_frontend_tokens
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(b, n)).astype(np.int32))}
+        if n_prefix:
+            batch["prefix_embeds"] = torch.from_numpy(rng.normal(
+                size=(b, n_prefix, cfg.d_model)).astype(np.float32))
+
+        def run(model, device):
+            moes = [m for m in model.modules()
+                    if isinstance(m, moe_lib.MoE)]
+            inputs = [[] for _ in moes]
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, args, i=i: inputs[i].append(args[0].detach()))
+                for i, m in enumerate(moes)]
+            t0 = time.perf_counter()
+            try:
+                logits, cache = api.prefill(
+                    model, {k: t.to(device) for k, t in batch.items()})
+                cache = pad_cache_to(cache, api.empty_cache(
+                    b, n_prefix + n + WHOLE_LLM_DECODE + 1, device=device))
+                pre = logits.cpu()
+                del logits
+                toks, dec = [pre[:, -1].argmax(-1)], []
+                for step in range(WHOLE_LLM_DECODE):
+                    logits, cache = api.decode(
+                        model, cache,
+                        {"tokens": toks[-1][:, None].to(device)},
+                        n_prefix + n + step)
+                    dec.append(logits.cpu())
+                    toks.append(dec[-1][:, -1].argmax(-1))
+            finally:
+                for hk in hooks:
+                    hk.remove()
+            return (pre, torch.cat(dec, 1), torch.stack(toks, 1),
+                    time.perf_counter() - t0, moes, inputs)
+
+        reset_counts()
+        g_pre, g_dec, g_tok, t_gpu, g_moes, g_in = run(model_gpu, dev)
+        torch.cuda.synchronize()
+        read_counts(f"decoders_{arch}")
+        c_pre, c_dec, c_tok, t_cpu, c_moes, _ = run(
+            model_cpu, torch.device("cpu"))
+        launches = by_phase["flash_attention"][f"decoders_{arch}"]
+        if launches != cfg.n_layers:
+            raise RuntimeError(
+                f"decoders {arch}: flash attention launched {launches} times "
+                f"on the card, expected {cfg.n_layers} (one prefill of "
+                f"{cfg.n_layers} layers)")
+        if g_pre.shape != (b, n_prefix + n, cfg.padded_vocab) or \
+                not torch.isfinite(g_pre).all() or \
+                not torch.isfinite(g_dec).all():
+            raise RuntimeError(f"decoders {arch}: bad logits on the card")
+        routing = []
+        flipped = False
+        for i, (mg, mc) in enumerate(zip(g_moes, c_moes)):
+            calls = [_route_flips(mg, mc, xg, xg.cpu(), cfg.moe)
+                     for xg in g_in[i]]
+            dec_n = sum(c[0] for c in calls)
+            diff_n = sum(c[1] for c in calls)
+            margin = max(c[2] for c in calls)
+            routing.append(f"MoE layer {i}: {diff_n} of {dec_n} decisions "
+                           f"differ" + (f" (largest tie margin {margin:.3g})"
+                                        if diff_n else ""))
+            if diff_n:
+                flipped = True
+                if margin > ROUTE_TIE:
+                    raise RuntimeError(
+                        f"decoders {arch}: MoE layer {i}: {diff_n} routing "
+                        f"decisions differ between the card and the CPU, "
+                        f"one {margin:.3g} from a tie (> {ROUTE_TIE})")
+        if flipped:
+            # a near-tie flipped: hold each MoE layer by its card inputs,
+            # the tokens routed differently left out, not by the end logits
+            for i, (mg, mc) in enumerate(zip(g_moes, c_moes)):
+                for xg in g_in[i]:
+                    with torch.no_grad():
+                        yg, _ = mg(xg)
+                        yc, _ = mc(xg.cpu())
+                    *_, tokens = _route_flips(mg, mc, xg, xg.cpu(), cfg.moe)
+                    keep = torch.ones(yc.shape[0] * yc.shape[1],
+                                      dtype=torch.bool)
+                    keep[tokens] = False
+                    err = float((yg.cpu().reshape(-1, yc.shape[-1])[keep]
+                                 - yc.reshape(-1, yc.shape[-1])[keep])
+                                .abs().max())
+                    if not err <= LLM_ATOL:
+                        raise RuntimeError(
+                            f"decoders {arch}: MoE layer {i} on the card's "
+                            f"inputs differs from the CPU by {err} > "
+                            f"{LLM_ATOL} on the tokens routed alike")
+            log(f"[decoders] {arch}: routing flipped at a near-tie; each "
+                f"MoE layer held by its inputs within {LLM_ATOL}; "
+                + "; ".join(routing) + f" | {card}")
+        else:
+            if not torch.equal(g_tok, c_tok):
+                raise RuntimeError(f"decoders {arch}: tokens differ, card "
+                                   f"{g_tok.tolist()} CPU {c_tok.tolist()}")
+            pre_err = float((g_pre - c_pre).abs().max())
+            dec_err = float((g_dec - c_dec).abs().max())
+            if not max(pre_err, dec_err) <= LLM_ATOL:
+                raise RuntimeError(
+                    f"decoders {arch}: logits differ, prefill {pre_err}, "
+                    f"decode {dec_err} > {LLM_ATOL}")
+            log(f"[decoders] {arch} width {cfg.d_model}, 2 layers, f32, {b} "
+                f"x {n} tokens" + (f" after {n_prefix} patch embeddings"
+                                   if n_prefix else "")
+                + f" + {WHOLE_LLM_DECODE} decode steps: tokens equal "
+                f"{g_tok.tolist()}; max abs err prefill logits "
+                f"{pre_err:.3g}, decode logits {dec_err:.3g} (atol "
+                f"{LLM_ATOL}); f32 flash launches {launches}; "
+                + ("; ".join(routing) if routing else "no MoE layer")
+                + f"; card {t_gpu:.3f} s (first call), CPU {t_cpu:.2f} s; "
+                f"{time.perf_counter() - t_arch:.1f} s in all | {card}")
+        del model_gpu, model_cpu, g_in, g_moes, c_moes
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _marked_ms(prof, marks) -> dict:
+    """Device milliseconds of the kernels launched under each
+    ``record_function`` mark of a ``torch.profiler`` run."""
+    import torch
+    out = {m: 0.0 for m in marks}
+    for e in prof.events():
+        if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name] += e.device_time_total / 1e3
+    return out
+
+
+def _log_moe_split(what: str, prof, rows):
+    """One line of where a profiled MoE step's device time went: attention
+    (the flash kernel), the expert GEMMs, dispatch and combine (routing
+    included), the shared experts, and the rest."""
+    marked = _marked_ms(prof, MOE_MARKS)
+    total = sum(ms for _, ms, _ in rows)
+    flash = sum(ms for k, ms, _ in rows if FLASH_KERNEL_RE.search(k))
+    moves = marked["moe.route"] + marked["moe.dispatch"] + \
+        marked["moe.combine"]
+    rest = total - flash - marked["moe.experts"] - moves - \
+        marked["moe.shared"]
+    log(f"[moe_breakdown] one {what}: device {total:.3f} ms = attention "
+        f"(flash) {flash:.3f} + expert GEMMs {marked['moe.experts']:.3f} + "
+        f"dispatch and combine {moves:.3f} (route "
+        f"{marked['moe.route']:.3f}, dispatch {marked['moe.dispatch']:.3f}, "
+        f"combine {marked['moe.combine']:.3f}) + shared experts "
+        f"{marked['moe.shared']:.3f} + the rest {rest:.3f} (projections, "
+        "norms, rope, logits, copies)")
+    return marked
+
+
+def moe_serve(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 19 (b): qwen3-moe-30b-a3b served at full width and depth in
+    bf16 (``serve``, as phase 8); then one prefill and one decode step
+    profiled by kernel and by the MoE layer's parts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_cache_to, serve
+    from repro_torch.models import registry
+
+    cfg = get_config(MOE_ARCH)
+    api = registry.get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in params.parameters())
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    expert_gb = sum(p.numel() * p.element_size()
+                    for name, p in params.named_parameters()
+                    if ".moe.w_" in name) / 1e9
+    # a decode step reads every weight but the embedding table's unused rows
+    read_gb = param_gb - params.embed.table.numel() * \
+        params.embed.table.element_size() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(MOE_ARCH, False, LLM_BATCH, LLM_PROMPT, LLM_GEN,
+                params=params, device=dev)
+    torch.cuda.synchronize()
+    read_counts("moe_serve")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = by_phase["flash_attention"]["moe_serve"]
+    if launches != cfg.n_layers:
+        raise RuntimeError(
+            f"moe serve: flash attention launched {launches} times, expected "
+            f"{cfg.n_layers}: once per layer in the one prefill call and "
+            "never in decode")
+    gen = out["generated"]
+    if gen.shape != (LLM_BATCH, LLM_GEN) or \
+            not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise RuntimeError(f"moe serve: bad tokens {gen.shape}")
+    decode_floor_ms = read_gb / HBM_BYTES_PER_S * 1e12
+    log(f"[moe_serve] {MOE_ARCH} full width and depth ({n_params / 1e9:.3f} "
+        f"B params, {param_gb:.2f} GB bf16 of which experts "
+        f"{expert_gb:.2f} GB, drawn on the card in {t_init:.2f} s, peak "
+        f"{init_peak:.2f} GB while drawing), {LLM_BATCH} requests x "
+        f"{LLM_PROMPT} prompt tokens + {LLM_GEN} generated: prefill "
+        f"{out['prefill_s']:.4f} s, decode "
+        f"{out['decode_s_per_token'] * 1e3:.3f} ms/token, "
+        f"{out['tokens_per_s']:.2f} tokens/s, peak memory {peak_gb:.2f} GB "
+        f"| flash launches {launches} ({cfg.n_layers} layers, 1 prefill, 0 "
+        f"in decode) | a decode step reads every expert (capacity 1 a row "
+        f"at S = 1): {read_gb:.2f} GB of weights, at least "
+        f"{decode_floor_ms:.2f} ms at 3.35 TB/s | {card}")
+
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(LLM_BATCH, LLM_PROMPT)).astype(
+            np.int32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, cache = api.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = device_rows(prof.key_averages())
+    n_wgmma = sum(n for k, _, n in rows if FLASH_WGMMA_KERNEL in k)
+    n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
+    if not n_wgmma == n_flash == cfg.n_layers:
+        raise RuntimeError(
+            f"moe breakdown: the profiled prefill shows {n_wgmma} launches "
+            f"of {FLASH_WGMMA_KERNEL} and {n_flash} of any flash kernel, "
+            f"expected {cfg.n_layers} of the wgmma kernel")
+    _log_kernels("prefill", prof, wall)
+    _log_moe_split("prefill", prof, rows)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    cache = pad_cache_to(cache, api.empty_cache(
+        LLM_BATCH, LLM_PROMPT + LLM_GEN, device=dev))
+    for step in range(2):        # warm
+        logits, cache = api.decode(params, cache, {"tokens": tok},
+                                   LLM_PROMPT + step)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.decode(params, cache, {"tokens": tok}, LLM_PROMPT + 2)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = _log_kernels("decode step", prof, wall)
+    if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows):
+        raise RuntimeError("moe breakdown: a decode step launched flash "
+                           "attention")
+    marked = _log_moe_split("decode step", prof, rows)
+    log(f"[moe_breakdown] decode: the expert GEMMs read {expert_gb:.2f} GB "
+        f"a step, at least {expert_gb / HBM_BYTES_PER_S * 1e12:.2f} ms at "
+        f"3.35 TB/s; measured {marked['moe.experts']:.3f} ms of device "
+        f"time, {expert_gb / max(marked['moe.experts'], 1e-9):.3f} TB/s "
+        f"| {card}")
 
 
 def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
@@ -3615,9 +4161,11 @@ def main() -> int:
     log(f"[llm] GNN phases done and freed: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
-    # 3. (continued) the flash-attention kernel -----------------------------
+    # 3. (continued) the flash-attention kernels, at head_dim 256 and 128 ---
     reset_counts()
-    kernels.append(flash_check(dev, card))
+    flash_row = flash_check(dev, card)
+    flash_row["hd128"] = flash_check_hd128(dev, card)
+    kernels.append(flash_row)
     torch.cuda.synchronize()
     read_counts("flash_check")
 
@@ -3637,6 +4185,16 @@ def main() -> int:
     llm_serve(dev, card, reset_counts, read_counts, by_phase)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 19. the head_dim-128 decoders: (a) four at full width, 2 layers, card
+    # against CPU; (b) qwen3-moe-30b-a3b served at full width and depth, the
+    # main path of the flash kernels at head_dim 128, counted
+    t0 = time.perf_counter()
+    decoders_whole_path(dev, card, reset_counts, read_counts, by_phase)
+    moe_serve(dev, card, reset_counts, read_counts, by_phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] phase 19 took {time.perf_counter() - t0:.1f} s | {card}")
 
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later
@@ -3696,6 +4254,8 @@ def main() -> int:
                   "knn_topk": "serve", "flash_attention": "llm_serve"}
     for kr in kernels:
         kr["launches"] = by_phase[kr["name"]][main_phase[kr["name"]]]
+        if "hd128" in kr:
+            kr["hd128"]["launches"] = by_phase[kr["name"]]["moe_serve"]
         kr["launches_by_phase"] = by_phase[kr["name"]]
         kr["phases"] = [p for p, n in by_phase[kr["name"]].items() if n]
         kr["card"] = card

@@ -1,5 +1,5 @@
-"""Configurations: copies of ``GNNConfig``, ``UNetConfig`` and
-``ModelConfig`` from the JAX package.
+"""Configurations: copies of ``GNNConfig``, ``UNetConfig``, ``MoEConfig``
+and ``ModelConfig`` from the JAX package.
 
 ``GNNConfig``'s and ``UNetConfig``'s field names, defaults and ``reduced()``
 are identical so configs round-trip between the two packages (a deploy
@@ -15,8 +15,9 @@ fields, and its rollout engine ``rollout_slots``,
 ``rollout_steps_per_flush``, ``rollout_timeout_s``, and (through
 ``MeshGraphNet.step``) ``rollout_state_feats`` and ``rollout_integrator``.
 ``ModelConfig``
-keeps only the fields the dense decoder reads; the sharding, remat, MoE, SSM
-and frontend fields come with the slices that read them.
+keeps only the fields the decoder reads (dense, MoE and the vision prefix);
+the sharding, remat, SSM and encoder-decoder fields come with the slices
+that read them. ``MoEConfig`` is copied field for field.
 """
 from __future__ import annotations
 
@@ -26,11 +27,25 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration (GShard-style capacity
+    routing)."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0          # deepseek-moe: always-on shared experts
+    first_dense_layers: int = 0        # deepseek-moe: layer 0 is a dense FFN
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 1e-2    # load-balance auxiliary loss weight
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """A dense decoder-only transformer (the LLM family's dense path)."""
+    """A decoder-only transformer: dense, MoE, or with a vision prefix."""
 
     name: str
-    family: str                        # "dense" (the only family ported)
+    family: str                        # "dense" | "moe" | "vlm" (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,6 +66,9 @@ class ModelConfig:
     glu: bool = True                   # gated FFN (SwiGLU/GeGLU)
     post_norms: bool = False           # gemma2: post-norms around attn/ffn
     scale_embeddings: bool = False     # gemma2: embeddings * sqrt(d)
+    moe: Optional[MoEConfig] = None
+    frontend: Optional[str] = None     # None | "vision" (stubbed prefix)
+    n_frontend_tokens: int = 0
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     source: str = ""                   # citation
@@ -69,14 +87,22 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """A smoke-test-sized variant (2 layers, d 128, hd 32), as the JAX
-        package's ``ModelConfig.reduced`` gives for a dense decoder."""
-        return self.replace(
+        """A smoke-test-sized variant (2 layers, d 128, hd 32; MoE: 4
+        experts top-2 of width 64, at most 1 dense first layer; 16 frontend
+        tokens), as the JAX package's ``ModelConfig.reduced`` gives for
+        these families."""
+        kw = dict(
             n_layers=2, d_model=128, n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 2), head_dim=32, d_ff=256,
             vocab_size=512, vocab_pad_to=64,
+            n_frontend_tokens=16 if self.frontend else 0,
             sliding_window=16 if self.sliding_window else None,
             dtype="float32")
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=2, d_ff_expert=64,
+                first_dense_layers=min(self.moe.first_dense_layers, 1))
+        return self.replace(**kw)
 
 
 @dataclass(frozen=True)

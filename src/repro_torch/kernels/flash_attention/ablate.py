@@ -38,8 +38,9 @@ VARIANTS = {
     "no_tanh_fast_exp": ("tanhf; expf becomes __expf", [
         ("tanhf(x / softcap)", "(x / softcap)"), ("expf(", "__expf(")]),
     "no_copies": ("the K and V tile copies inside the loop", [
-        ("    load_tile(vs, kVStride, vg, t0, s);", "    ;"),
-        ("if (t0 + kKeys < hi) load_tile(ks", "if (false) load_tile(ks")]),
+        ("    load_tile<kHd>(vs, kVStride, vg, t0, s);", "    ;"),
+        ("if (t0 + kKeys < hi) load_tile<kHd>(ks",
+         "if (false) load_tile<kHd>(ks")]),
 }
 
 

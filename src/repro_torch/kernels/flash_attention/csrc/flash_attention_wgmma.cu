@@ -1,11 +1,13 @@
 // Flash attention on Hopper's tensor cores: GQA, causal masking, a sliding
-// window and a tanh logit softcap, head_dim 256, bf16 in and out:
+// window and a tanh logit softcap, head_dim 128 or 256, bf16 in and out:
 //   out[bh, i] = softmax_j(mask(cap(q[bh, i] . k[bh / group, j] / sqrt(hd))))
 //                . v[bh / group, j]
 // with the mask j <= i (causal) and i - j < window, f32 accumulation, and
-// the products on the bf16 tensor cores. q, k, v, out are (rows, S, 256),
-// contiguous; Skv == Sq. The f32 path is the register-tiled CUDA-core
-// kernel in flash_attention.cu.
+// the products on the bf16 tensor cores. q, k, v, out are (rows, S, hd),
+// contiguous; Skv == Sq. The kernel is a template on hd with one instance
+// for each head_dim on the path: 256 (gemma2) and 128 (granite, starcoder2,
+// yi, deepseek-moe, qwen3-moe, pixtral). The f32 path is the register-tiled
+// CUDA-core kernel in flash_attention.cu.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py, which walks (128, hd) query
@@ -15,30 +17,34 @@
 // Bound on the H100: operations. 4 * hd flops per unmasked (query, key)
 // pair on the bf16 tensor cores (989 TFLOP/s); at gemma2's prefill shape
 // that is about 3.5e11 flops, 0.35 ms, against 0.07 ms for its 226 MB of q,
-// k, v and out.
+// k, v and out; qwen3-moe's (hd 128, 32 query heads) does the same work.
 //
 // Design: one block of 384 threads per 128 query rows of one (batch, head),
 // in three warpgroups.
 // - Warpgroup 0 is the producer: one thread issues TMA loads (128-byte
-//   swizzle, 64 columns per box, so a 256-wide row is 4 boxes) of the Q
+//   swizzle, 64 columns per box, so a row is hd / 64 boxes) of the Q
 //   block once and of 64-key K and V tiles into a 2-stage ring; each stage
 //   has "full" barriers for K and for V and an "empty" barrier. TMA fills
 //   rows past S with zeros, so ragged tails read no garbage. setmaxnreg
 //   gives its registers to the consumers.
-// - Warpgroups 1 and 2 each own 64 query rows. Per tile: S = Q K^T with 16
-//   wgmma m64n64k16 (A = Q and B = K from shared memory, both K-major);
+// - Warpgroups 1 and 2 each own 64 query rows. Per tile: S = Q K^T with
+//   hd / 16 wgmma m64n64k16 (A = Q and B = K from shared memory, K-major);
 //   scale, then softcap (tanh.approx), then mask, in log2 units (log2(e)
 //   folded into the scale) and only on tiles that cross the diagonal, the
 //   window's edge or S; the online softmax (ex2.approx) over the 4 threads
 //   that share a row of the accumulator; P rounded to bf16 in registers,
 //   which is the A operand layout of wgmma as it stands; O += P V with 4
-//   wgmma m64n256k16 (B = V from shared memory, MN-major). A warpgroup skips
-//   the products of a tile wholly masked for its rows but still releases it.
+//   wgmma m64n{hd}k16 (B = V from shared memory, MN-major), so O takes hd / 2
+//   accumulator registers a consumer thread (128 at hd 256, 64 at hd 128).
+//   A warpgroup skips the products of a tile wholly masked for its rows but
+//   still releases it.
 // - The block's key range skips tiles wholly past the diagonal or before the
 //   window; blocks start from the last (longest) row block.
 // - Epilogue: O / max(l, 1e-30) in bf16 goes through the warpgroup's own
 //   rows of the Q buffer (swizzled, so without bank conflicts) and out in
-//   16-byte stores, one 512-byte row per warp.
+//   16-byte stores of whole rows.
+// At hd 128 the ring's stages are half as large (shared memory 97 KB, not
+// 193 KB); the design is otherwise the same.
 // Masked logits are -1e30, never -inf, as in the TPU kernel: a tile that is
 // wholly masked for a row before its first real key gives p = 1 for its
 // keys, and that is wiped by alpha = exp2(-1e30 - m) = 0 when the real keys
@@ -50,23 +56,25 @@
 
 namespace {
 
-constexpr int kHd = 256;       // gemma2's head_dim, the only one on the path
 constexpr int kBr = 128;       // query rows per block, 64 per consumer
 constexpr int kBc = 64;        // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // producer + 2 consumer warpgroups
 constexpr int kConsumers = 256;
 constexpr int kSpan = 128;     // bytes of one swizzled row: 64 bf16 columns
-constexpr int kQBytes = kBr * kHd * 2;
-constexpr int kTileBytes = kBc * kHd * 2;
 constexpr int kQChunk = kBr * kSpan;   // one 64-column box of the Q block
 constexpr int kKVChunk = kBc * kSpan;  // one 64-column box of a K/V tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// hd / 64 boxes of (128 rows, 64 cols) for Q, of (64 keys, 64 cols) for a
+// K or V tile
+template <int kHd>
 struct alignas(1024) Smem {
-  unsigned char q[kQBytes];                // 4 boxes of (128 rows, 64 cols)
-  unsigned char k[kStages][kTileBytes];    // 4 boxes of (64 keys, 64 cols)
+  static constexpr int kQBytes = kBr * kHd * 2;
+  static constexpr int kTileBytes = kBc * kHd * 2;
+  unsigned char q[kQBytes];
+  unsigned char k[kStages][kTileBytes];
   unsigned char v[kStages][kTileBytes];
   uint64_t full_q, full_k[kStages], full_v[kStages], empty[kStages];
 };
@@ -225,6 +233,51 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d,
         "r"(1));
 }
 
+// D (m64 x n128, f32) += A (64 x 16, bf16 registers) . B (16 x 128, shared),
+// B MN-major (transposed).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d,
+                                                    const uint32_t* a,
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+// O (64 x hd) += P (64 x 16 keys) . V (16 keys x hd): one wgmma of width hd.
+template <int kHd>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* p,
+                                         uint64_t v) {
+  if constexpr (kHd == 256)
+    wgmma_m64n256k16_rs(o, p, v);
+  else
+    wgmma_m64n128k16_rs(o, p, v);
+}
 
 __device__ __forceinline__ float tanh_approx(float x) {
   float y;
@@ -249,6 +302,7 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 
 // c1, c2: logit = c2 * tanh(c1 * q.k) with a softcap (c2 > 0), c1 * q.k
 // without, both in log2 units.
+template <int kHd>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
@@ -256,7 +310,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    __nv_bfloat16* __restrict__ out, int group, int s,
                    int causal, int window, float c1, float c2) {
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  static_assert(kHd == 128 || kHd == 256, "wgmma_pv has n128 and n256");
+  using S = Smem<kHd>;
+  S& sm = *reinterpret_cast<S*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int bh = blockIdx.x;
   // the last row blocks carry the most keys under causal masking: start them
@@ -284,7 +340,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (threadIdx.x == 0) {
       const int kv = bh / group;
-      mbar_expect_tx(bar_q, kQBytes);
+      mbar_expect_tx(bar_q, S::kQBytes);
       for (int c = 0; c < kHd / 64; ++c)
         tma_load(smem_u32(sm.q + c * kQChunk), &q_map, bar_q, 64 * c, r0, bh);
       for (int i = 0; i < n_tiles; ++i) {
@@ -294,11 +350,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const int t0 = (tile_lo + i) * kBc;
         const uint32_t fk = smem_u32(&sm.full_k[st]);
         const uint32_t fv = smem_u32(&sm.full_v[st]);
-        mbar_expect_tx(fk, kTileBytes);
+        mbar_expect_tx(fk, S::kTileBytes);
         for (int c = 0; c < kHd / 64; ++c)
           tma_load(smem_u32(sm.k[st] + c * kKVChunk), &k_map, fk, 64 * c, t0,
                    kv);
-        mbar_expect_tx(fv, kTileBytes);
+        mbar_expect_tx(fv, S::kTileBytes);
         for (int c = 0; c < kHd / 64; ++c)
           tma_load(smem_u32(sm.v[st] + c * kKVChunk), &v_map, fv, 64 * c, t0,
                    kv);
@@ -317,9 +373,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int col0 = 2 * (lane % 4);
     const uint32_t q_wg = smem_u32(sm.q) + 64 * wg * kSpan;
 
-    float o[128];
+    float o[kHd / 2];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    for (int i = 0; i < kHd / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     mbar_wait(bar_q, 0);
 
@@ -332,7 +388,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                         (window > 0 && wr0 - (t0 + kBc - 1) >= window);
       mbar_wait(smem_u32(&sm.full_k[st]), parity);
       if (!skip) {
-        // S = Q K^T over 16 k-steps of 16 dims; within a 64-column box a
+        // S = Q K^T over hd / 16 k-steps of 16 dims; within a 64-column box a
         // k-step advances the start address by 32 bytes
         float sc[32];  // the first k-step overwrites it (scale-d = 0)
 #pragma unroll
@@ -391,21 +447,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           p[j / 2] = pack_bf16(p0, p1);
         }
 #pragma unroll
-        for (int j = 0; j < 128; ++j) o[j] *= alpha[(j >> 1) & 1];
+        for (int j = 0; j < kHd / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 
         // O += P V over 4 k-steps of 16 keys: V is MN-major, its 64-column
         // boxes lbo = 8 KB apart, groups of 8 keys sbo = 1 KB apart
         mbar_wait(smem_u32(&sm.full_v[st]), parity);
         const uint32_t v_st = smem_u32(sm.v[st]);
-        fence_regs<128>(o);
+        fence_regs<kHd / 2>(o);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBc / 16; ++kk)
-          wgmma_m64n256k16_rs(o, p + 4 * kk,
-                              smem_desc(v_st + kk * 16 * kSpan, kKVChunk,
-                                        1024));
+          wgmma_pv<kHd>(o, p + 4 * kk,
+                        smem_desc(v_st + kk * 16 * kSpan, kKVChunk, 1024));
         wgmma_commit_and_wait();
-        fence_regs<128>(o);
+        fence_regs<kHd / 2>(o);
       } else {
         mbar_wait(smem_u32(&sm.full_v[st]), parity);
       }
@@ -438,8 +493,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     warpgroup_sync(1 + wg);
 #pragma unroll 4
     for (int it = 0; it < 64 * kHd * 2 / 16 / 128; ++it) {
+      constexpr int kRowChunks = kHd * 2 / 16;  // 16-byte columns of a row
       const int idx = it * 128 + tid;
-      const int rl = idx / 32, c16 = idx % 32;  // row, 16-byte column
+      const int rl = idx / kRowChunks, c16 = idx % kRowChunks;
       const int row = wr0 + rl;
       if (row < s)
         *reinterpret_cast<uint4*>(out + (static_cast<size_t>(bh) * s + row) *
@@ -481,8 +537,9 @@ int encode_fn(EncodeTiled* fn) {
   return 0;
 }
 
-// (heads, s, 256) bf16 as a 3-d map of boxes (64 columns, box_rows rows, 1),
+// (heads, s, hd) bf16 as a 3-d map of boxes (64 columns, box_rows rows, 1),
 // 128-byte swizzle; rows past s read as zeros.
+template <int kHd>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
                 int s, int box_rows) {
   const cuuint64_t dims[3] = {kHd, static_cast<cuuint64_t>(s),
@@ -497,10 +554,39 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The launch for one head_dim: tensor maps, shared memory, grid.
+template <int kHd>
+int launch(const void* q, const void* k, const void* v, void* out, int bh,
+           int group, int s, int causal, int window, float scale,
+           float softcap, cudaStream_t stream) {
+  EncodeTiled fn;
+  const int err = encode_fn(&fn);
+  if (err != 0) return err;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const CUresult r = encode<kHd>(fn, &maps[i], bases[i],
+                                   i ? bh / group : bh, s, i ? kBc : kBr);
+    if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  }
+  const int smem = static_cast<int>(sizeof(Smem<kHd>)) + 1024;  // + align
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool capped = softcap > 0.f;
+  flash_wgmma_kernel<kHd><<<dim3(bh, (s + kBr - 1) / kBr), kThreads, smem,
+                            stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), group, s,
+      causal, window, capped ? scale / softcap : scale * kLog2e,
+      capped ? softcap * kLog2e : 0.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, out (bh, s, hd); k, v (bh / group, s, hd); bf16, contiguous and 16-byte
-// aligned; hd == 256; s <= 65535 * 128. window <= 0: none; softcap <= 0:
+// aligned; hd 128 or 256; s <= 65535 * 128. window <= 0: none; softcap <= 0:
 // none. Returns a cudaError_t (cudaErrorInvalidValue for a shape the kernel
 // is not built for), or the CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k,
@@ -508,29 +594,15 @@ extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k,
                                           int group, int s, int causal,
                                           int window, int hd, float scale,
                                           float softcap, void* stream) {
-  const int blocks = (s + kBr - 1) / kBr;
-  if (hd != kHd || group < 1 || bh < 1 || bh % group || s < 1 ||
-      blocks > 65535)
+  if (group < 1 || bh < 1 || bh % group || s < 1 ||
+      (s + kBr - 1) / kBr > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  EncodeTiled fn;
-  const int err = encode_fn(&fn);
-  if (err != 0) return err;
-  CUtensorMap maps[3];
-  const void* bases[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const CUresult r = encode(fn, &maps[i], bases[i], i ? bh / group : bh, s,
-                              i ? kBc : kBr);
-    if (r != CUDA_SUCCESS) return static_cast<int>(r);
-  }
-  const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const bool capped = softcap > 0.f;
-  flash_wgmma_kernel<<<dim3(bh, blocks), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), group, s,
-      causal, window, capped ? scale / softcap : scale * kLog2e,
-      capped ? softcap * kLog2e : 0.f);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128)
+    return launch<128>(q, k, v, out, bh, group, s, causal, window, scale,
+                       softcap, st);
+  if (hd == 256)
+    return launch<256>(q, k, v, out, bh, group, s, causal, window, scale,
+                       softcap, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,7 +21,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-KERNEL_HEAD_DIM = 256   # both kernels are built for gemma2's head_dim only
+# both kernels are templates on head_dim, instanced for those on the path:
+# 256 (gemma2) and 128 (granite, starcoder2, yi, deepseek-moe, qwen3-moe,
+# pixtral)
+KERNEL_HEAD_DIMS = (128, 256)
 # dtype -> (library in _build.SOURCES, C entry point)
 _ENTRY = {torch.bfloat16: ("flash_attention_wgmma",
                            "flash_attention_wgmma_bf16"),
@@ -81,9 +84,9 @@ def _launch(q, k, v, group_size: int, causal: bool, window: Optional[int],
         raise ValueError(f"flash_attention: q must be (BH, Sq, hd), got "
                          f"{tuple(q.shape)}")
     bh, sq, hd = q.shape
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash_attention: the kernel is built for "
-                         f"hd={KERNEL_HEAD_DIM}, got hd={hd}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernels are built for hd in "
+                         f"{KERNEL_HEAD_DIMS}, got hd={hd}")
     if group_size < 1 or bh % group_size:
         raise ValueError(f"flash_attention: BH={bh} is not a multiple of "
                          f"group_size={group_size}")

@@ -4,11 +4,13 @@ Port of ``repro.launch.serve``: requests are padded to one prompt length,
 prefilled once (attention through the flash-attention kernel on the card),
 then decoded token by token against the shared KV cache, padded to the
 full length in bf16 as ``repro.launch.serve`` pads it. Prompts come from
-``np.random.default_rng(seed)`` exactly as there.
+``np.random.default_rng(seed)`` exactly as there. A vision frontend
+(pixtral) gets zero patch embeddings, (B, n_frontend_tokens, d) in f32,
+before the prompt, and the cache and decode positions are offset by them.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --reduced --requests 2 --prompt-len 24 --gen 8 --device cpu
 """
 from __future__ import annotations
@@ -66,11 +68,18 @@ def serve(arch: str, reduced: bool, n_requests: int, prompt_len: int,
                            size=(n_requests, prompt_len)).astype(np.int32)
     max_len = prompt_len + gen_len
 
-    tokens = torch.from_numpy(prompts).to(dev)
+    batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+    n_prefix = 0
+    if cfg.frontend == "vision":
+        n_prefix = cfg.n_frontend_tokens
+        batch["prefix_embeds"] = torch.zeros(
+            (n_requests, n_prefix, cfg.d_model), dtype=torch.float32,
+            device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, {"tokens": tokens})
-    cache = pad_cache_to(cache, api.empty_cache(n_requests, max_len,
+    logits, cache = api.prefill(params, batch)
+    cache = pad_cache_to(cache, api.empty_cache(n_requests,
+                                                n_prefix + max_len,
                                                 device=dev))
     out_tokens = [logits[:, -1].argmax(-1)]
     del logits
@@ -81,7 +90,7 @@ def serve(arch: str, reduced: bool, n_requests: int, prompt_len: int,
     for step in range(gen_len - 1):
         logits, cache = api.decode(params, cache,
                                    {"tokens": out_tokens[-1][:, None]},
-                                   prompt_len + step)
+                                   n_prefix + prompt_len + step)
         out_tokens.append(logits[:, -1].argmax(-1))
     gen = torch.stack(out_tokens, dim=1).cpu().numpy()
     t_decode = time.perf_counter() - t0

@@ -175,7 +175,9 @@ def transformer_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:
     """A :class:`Transformer` holding a JAX decoder pytree (numpy arrays),
     in ``cfg.dtype`` (default device: the card). The ``blocks`` subtree,
     stacked on a leading group axis around a ``layers`` list, is split into
-    ``blocks[g].layers[i]``; ``w`` stays (in, out)."""
+    ``blocks[g].layers[i]``; ``w`` stays (in, out). The rest loads by name:
+    ``first_layers`` (a list), a layer's ``moe`` subtree (``router.w``, the
+    (E, ., .) expert stacks, ``shared``) and ``vision_proj``."""
     if not isinstance(tree, dict):
         raise TypeError(f"expected a dict param tree, got {type(tree)}")
     _, n_groups, _ = group_structure(cfg)

@@ -1,11 +1,17 @@
-"""Dense decoder transformer: GQA, rope, sliding window, softcaps, post norms.
+"""Decoder transformer: GQA, rope, sliding window, softcaps, post norms, MoE.
 
-Port of the dense path of ``repro.models.transformer`` (gemma2: alternating
-local and global layers, attention and final logit softcaps, pre and post
-norms, GeGLU, embeddings scaled by sqrt(d)). Parameters are ``nn.Module``s
-named as the JAX pytree, with ``blocks[g].layers[i]`` for the JAX
-``blocks`` subtree stacked on its leading group axis
-(``models.convert.transformer_from_jax``).
+Port of the serving path of ``repro.models.transformer``: the dense
+decoders (gemma2: alternating local and global layers, attention and final
+logit softcaps, pre and post norms, GeGLU, embeddings scaled by sqrt(d);
+granite, yi: SwiGLU; starcoder2: LayerNorm and a biased GELU MLP), the MoE
+decoders (``models.moe`` in place of the FFN; qwen3-moe with QK-norm,
+deepseek-moe with shared experts and a dense first layer of width
+``d_ff_expert * (top_k + n_shared_experts)``), and pixtral's decoder with
+its stubbed vision prefix (``vision_proj`` of the caller's patch
+embeddings, put before the tokens). Parameters are ``nn.Module``s named as
+the JAX pytree, with ``blocks[g].layers[i]`` for the JAX ``blocks`` subtree
+stacked on its leading group axis and ``first_layers[i]`` for the dense
+first layers (``models.convert.transformer_from_jax``).
 
 Prefill attention goes through ``kernels.flash_attention.ops.mha``: the CUDA
 kernel on the card, its plain version on the CPU. Decode attention (one
@@ -25,6 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.nn import ACTS, Dense, Embed, LayerNorm, RMSNorm
 
 Cache = Dict[str, torch.Tensor]
@@ -140,11 +147,12 @@ class Attention(nn.Module):
 
 class FFN(nn.Module):
     """Gated (``w_gate``, ``w_up``, ``w_down``) or plain (``w_in``,
-    ``w_out``, with biases) feed-forward block."""
+    ``w_out``, with biases) feed-forward block, of width ``d_ff`` (default
+    ``cfg.d_ff``)."""
 
-    def __init__(self, cfg: ModelConfig, **init):
+    def __init__(self, cfg: ModelConfig, d_ff: Optional[int] = None, **init):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
         self.act = ACTS[cfg.act]
         if cfg.glu:
             self.w_gate = Dense(d, ff, use_bias=False, **init)
@@ -161,63 +169,94 @@ class FFN(nn.Module):
 
 
 class Layer(nn.Module):
-    """One attention + FFN layer, pre-norm, with gemma2's post norms."""
+    """One attention + FFN (``mlp``) or MoE (``moe``) layer, pre-norm, with
+    gemma2's post norms."""
 
-    def __init__(self, cfg: ModelConfig, **init):
+    def __init__(self, cfg: ModelConfig, *, use_moe: bool = False,
+                 dense_ff: Optional[int] = None, **init):
         super().__init__()
         dd = {k: v for k, v in init.items() if k != "generator"}
         self.post_norms = cfg.post_norms
         self.ln1 = _norm(cfg, **dd)
         self.attn = Attention(cfg, **init)
         self.ln2 = _norm(cfg, **dd)
-        self.mlp = FFN(cfg, **init)
+        if use_moe:
+            self.moe = moe_lib.MoE(cfg.d_model, cfg.moe, cfg.act, **init)
+        else:
+            self.mlp = FFN(cfg, dense_ff, **init)
         if cfg.post_norms:
             self.ln1_post = _norm(cfg, **dd)
             self.ln2_post = _norm(cfg, **dd)
 
     def forward(self, x, q_pos, *, window, mode, cache_kv=None,
                 decode_pos=None):
+        """Returns (x, new_kv, aux): ``aux`` is the MoE load-balance loss,
+        a float32 zero for an FFN layer."""
         attn_out, new_kv = self.attn(self.ln1(x), q_pos, window=window,
                                      mode=mode, cache_kv=cache_kv,
                                      decode_pos=decode_pos)
         if self.post_norms:
             attn_out = self.ln1_post(attn_out)
         x = x + attn_out
-        ff_out = self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            ff_out, aux = self.moe(h)
+        else:
+            ff_out = self.mlp(h)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.post_norms:
             ff_out = self.ln2_post(ff_out)
-        return x + ff_out, new_kv
+        return x + ff_out, new_kv, aux
 
 
 class Group(nn.Module):
     def __init__(self, cfg: ModelConfig, gs: int, **init):
         super().__init__()
-        self.layers = nn.ModuleList(Layer(cfg, **init) for _ in range(gs))
+        self.layers = nn.ModuleList(
+            Layer(cfg, use_moe=cfg.moe is not None, **init)
+            for _ in range(gs))
+
+
+def n_first_dense(cfg: ModelConfig) -> int:
+    """Dense layers before the MoE stack (deepseek-moe: 1)."""
+    return cfg.moe.first_dense_layers if cfg.moe is not None else 0
 
 
 def group_structure(cfg: ModelConfig):
-    """(group_size, n_groups, windows_per_group). ``alt_local_global``
-    pairs (local window, global); other patterns are homogeneous."""
+    """(group_size, n_groups, windows_per_group) of the layers after the
+    dense first layers. ``alt_local_global`` pairs (local window, global);
+    other patterns are homogeneous."""
+    n_scanned = cfg.n_layers - n_first_dense(cfg)
     if cfg.layer_pattern == "alt_local_global":
-        if cfg.n_layers % 2:
-            raise ValueError(f"alt_local_global needs an even n_layers, got "
-                             f"{cfg.n_layers}")
-        return 2, cfg.n_layers // 2, (cfg.sliding_window, None)
-    return 1, cfg.n_layers, (cfg.sliding_window,)
+        if n_scanned % 2:
+            raise ValueError(f"alt_local_global needs an even number of "
+                             f"layers, got {n_scanned}")
+        return 2, n_scanned // 2, (cfg.sliding_window, None)
+    return 1, n_scanned, (cfg.sliding_window,)
 
 
 def empty_cache(cfg: ModelConfig, batch: int, seq_len: int,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
-    """Zero KV cache ``{'k', 'v'}``, each (G, gs, B, S, KV, hd)."""
+    """Zero KV cache ``{'k', 'v'}``, each (G, gs, B, S, KV, hd), and with
+    dense first layers ``{'first_k', 'first_v'}``, each (n_first, B, S, KV,
+    hd): JAX's ``{'blocks': {k, v}, 'first': {k, v}}`` flattened."""
     gs, ng, _ = group_structure(cfg)
-    shape = (ng, gs, batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name in ("k", "v")}
+    tail = (batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cache = {name: torch.zeros((ng, gs) + tail, dtype=dtype, device=device)
+             for name in ("k", "v")}
+    nfd = n_first_dense(cfg)
+    if nfd:
+        for name in ("first_k", "first_v"):
+            cache[name] = torch.zeros((nfd,) + tail, dtype=dtype,
+                                      device=device)
+    return cache
 
 
 class Transformer(nn.Module):
-    """``embed``, ``final_norm``, ``lm_head`` (unless tied) and
-    ``blocks[g].layers[i]``, as the JAX pytree."""
+    """``embed``, ``final_norm``, ``lm_head`` (unless tied),
+    ``blocks[g].layers[i]``, ``first_layers[i]`` (dense first layers of an
+    MoE decoder) and ``vision_proj`` (a vision frontend), as the JAX
+    pytree."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -235,6 +274,15 @@ class Transformer(nn.Module):
                                  use_bias=False, **init)
         self.blocks = nn.ModuleList(Group(cfg, gs, **init)
                                     for _ in range(ng))
+        nfd = n_first_dense(cfg)
+        if nfd:
+            m = cfg.moe
+            dense_ff = m.d_ff_expert * (m.top_k + m.n_shared_experts)
+            self.first_layers = nn.ModuleList(
+                Layer(cfg, dense_ff=dense_ff, **init) for _ in range(nfd))
+        if cfg.frontend == "vision":
+            self.vision_proj = Dense(cfg.d_model, cfg.d_model,
+                                     use_bias=False, **init)
 
     def embed_tokens(self, tokens):
         h = self.embed(tokens)
@@ -254,39 +302,57 @@ class Transformer(nn.Module):
     def apply_decoder(self, h, q_pos, *, mode: str,
                       cache: Optional[Cache] = None,
                       decode_pos: Optional[int] = None):
-        """Run the layer stack on embeddings h (B, S, d). Returns (h, cache):
-        for 'prefill' a new cache of the layers' K and V in h's dtype, for
-        'decode' the given cache, updated in place."""
+        """Run the layer stack on embeddings h (B, S, d): the dense first
+        layers, then the groups. Returns (h, cache, aux): for 'prefill' a
+        new cache of the layers' K and V in h's dtype, for 'decode' the
+        given cache, updated in place; ``aux`` the layers' MoE load-balance
+        losses summed (float32)."""
         _, _, windows = group_structure(self.cfg)
         new_cache = cache
         if mode == "prefill":
             new_cache = empty_cache(self.cfg, h.shape[0], h.shape[1],
                                     dtype=h.dtype, device=h.device)
-        for g, group in enumerate(self.blocks):
-            for i, layer in enumerate(group.layers):
-                ckv = None if mode != "decode" else \
-                    (cache["k"][g, i], cache["v"][g, i])
-                h, (k, v) = layer(h, q_pos, window=windows[i], mode=mode,
-                                  cache_kv=ckv, decode_pos=decode_pos)
-                if mode == "prefill":
-                    new_cache["k"][g, i] = k
-                    new_cache["v"][g, i] = v
-        return h, new_cache
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+        # (layer, window, cache key of k, of v, index into them)
+        stack = [(layer, None, "first_k", "first_v", (i,))
+                 for i, layer in enumerate(getattr(self, "first_layers",
+                                                   ()))]
+        stack += [(layer, windows[i], "k", "v", (g, i))
+                  for g, group in enumerate(self.blocks)
+                  for i, layer in enumerate(group.layers)]
+        for layer, window, kname, vname, at in stack:
+            ckv = None if mode != "decode" else \
+                (cache[kname][at], cache[vname][at])
+            h, (k, v), aux = layer(h, q_pos, window=window, mode=mode,
+                                   cache_kv=ckv, decode_pos=decode_pos)
+            aux_total = aux_total + aux
+            if mode == "prefill":
+                new_cache[kname][at] = k
+                new_cache[vname][at] = v
+        return h, new_cache, aux_total
 
-    def forward(self, tokens, *, mode: str = "prefill",
+    def forward(self, tokens, *, prefix_embeds=None, mode: str = "prefill",
                 cache: Optional[Cache] = None,
                 decode_pos: Optional[int] = None):
-        """tokens (B, S) int. Returns (logits (B, S, V_padded) f32, cache)."""
+        """tokens (B, S) int; ``prefix_embeds`` (B, P, d) (a vision
+        frontend's patch embeddings, any float dtype) go before the tokens,
+        through ``vision_proj``. Returns (logits (B, P + S, V_padded) f32,
+        cache, aux loss)."""
         h = self.embed_tokens(tokens)
-        b, s = tokens.shape
+        if prefix_embeds is not None:
+            pe = prefix_embeds.to(h.dtype)
+            if hasattr(self, "vision_proj"):
+                pe = self.vision_proj(pe)
+            h = torch.cat([pe, h], dim=1)
+        b, s = h.shape[:2]
         if mode == "decode":
             q_pos = torch.full((b, s), decode_pos, dtype=torch.int64,
                                device=h.device)
         else:
             q_pos = torch.arange(s, device=h.device)[None].expand(b, s)
-        h, cache = self.apply_decoder(h, q_pos, mode=mode, cache=cache,
-                                      decode_pos=decode_pos)
-        return self.logits(self.final_norm(h)), cache
+        h, cache, aux = self.apply_decoder(h, q_pos, mode=mode, cache=cache,
+                                           decode_pos=decode_pos)
+        return self.logits(self.final_norm(h)), cache, aux
 
 
 def init(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:

@@ -336,7 +336,8 @@ def _fa_case(seed: int, b: int, s: int, h: int, kvh: int, hd: int = 256):
             for n in (h, kvh, kvh)]
 
 
-# (dtype, B, S, H, KV, causal, window, softcap). bf16 runs the wgmma kernel
+# (dtype, B, S, H, KV, causal, window, softcap[, hd]), hd 256 unless given.
+# bf16 runs the wgmma kernel
 # (128-row blocks, 64-key tiles), f32 the CUDA-core kernel (64-row blocks of
 # 256 threads, 64-key tiles, register tiles of S and O). S = 640 with window
 # 100 skips whole tiles before the window; S = 200, 300 and 1,000 end in a
@@ -345,7 +346,10 @@ def _fa_case(seed: int, b: int, s: int, h: int, kvh: int, hd: int = 256):
 # the serve shape at B = 1. The f32 edges of its tiling: S = 1 and 17 (under
 # one tile), 65 and 129 (one row past a 64- or 128-row block), window 1
 # (each row sees only itself), window 40 (under a block's rows), non-causal
-# with a window, group 8.
+# with a window, group 8. At hd 128 (the instances for the llama-style and
+# MoE decoders): GQA groups 2, 7 (yi, 56 / 8), 8 at qwen3-moe's prefill
+# length and 12 (starcoder2, 48 / 4), ragged S, S = 1, window 1, a window
+# with the softcap, non-causal with and without a window.
 FA_CASES = [
     ("bfloat16", 2, 300, 4, 2, True, None, 50.0),
     ("float32", 2, 300, 4, 2, True, None, 50.0),
@@ -368,6 +372,20 @@ FA_CASES = [
     ("float32", 1, 257, 2, 1, False, 40, 50.0),
     ("float32", 1, 300, 8, 1, True, None, 50.0),
     ("float32", 1, 4608, 2, 1, True, 4096, 50.0),
+    ("bfloat16", 2, 300, 4, 2, True, None, None, 128),
+    ("float32", 2, 300, 4, 2, True, None, None, 128),
+    ("bfloat16", 1, 640, 7, 1, True, None, None, 128),
+    ("float32", 1, 640, 7, 1, True, None, None, 128),
+    ("bfloat16", 1, 200, 12, 1, True, None, None, 128),
+    ("float32", 1, 200, 12, 1, True, None, None, 128),
+    ("bfloat16", 1, 1000, 2, 1, True, 300, 50.0, 128),
+    ("float32", 1, 1000, 2, 1, True, 300, 50.0, 128),
+    ("float32", 1, 1, 2, 1, True, None, None, 128),
+    ("float32", 2, 65, 4, 2, True, 1, None, 128),
+    ("bfloat16", 1, 130, 2, 2, False, 64, None, 128),
+    ("float32", 1, 129, 4, 2, False, None, None, 128),
+    ("bfloat16", 1, 4608, 8, 1, True, None, None, 128),
+    ("float32", 1, 4608, 8, 1, True, None, None, 128),
 ]
 # Elementwise atol and rtol. f32: the same function, sums in another order.
 # bf16: the tolerance of tests/test_kernels.py.
@@ -412,24 +430,25 @@ def _plain_dropping_a_tile(qf, kf, vf, gs, causal, window, cap):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FA_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, case):
-    dtype, b, s, h, kvh, causal, window, cap = case
+    dtype, b, s, h, kvh, causal, window, cap = case[:8]
+    hd = case[8] if len(case) > 8 else 256
     q, k, v = (t.to(cuda, getattr(torch, dtype))
-               for t in _fa_case(s + h, b, s, h, kvh))
+               for t in _fa_case(s + h + hd, b, s, h, kvh, hd=hd))
     before = fa_ops.mha.launches
     got = fa_ops.mha(q, k, v, causal=causal, window=window, softcap=cap)
     torch.cuda.synchronize()
     assert fa_ops.mha.launches == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, 256) for t in (q, k, v))
+    qf, kf, vf = (t.transpose(1, 2).reshape(-1, s, hd) for t in (q, k, v))
     want = fa_ref.attention(qf, kf, vf, group_size=h // kvh, causal=causal,
                             window=window, softcap=cap)
-    want = want.reshape(b, h, s, 256).transpose(1, 2)
+    want = want.reshape(b, h, s, hd).transpose(1, 2)
     torch.testing.assert_close(got.float(), want.float(), atol=FA_TOL[dtype],
                                rtol=FA_TOL[dtype])
     if dtype == "bfloat16":
         assert float(_row_rel_err(got, want).max()) <= FA_BF16_ROW_RTOL
         wrong = _plain_dropping_a_tile(qf, kf, vf, h // kvh, causal, window,
-                                       cap).reshape(b, h, s, 256)
+                                       cap).reshape(b, h, s, hd)
         assert float(_row_rel_err(wrong.transpose(1, 2), want).max()) > \
             FA_BF16_ROW_RTOL
 
@@ -452,12 +471,22 @@ def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_is_not_built_for(cuda):
-    """Both kernels are built for hd = 256 in bf16 and f32 only, with
+    """Both kernels are built for hd 128 and 256 in bf16 and f32 only, with
     Skv == Sq; the bf16 kernel's grid takes at most 65,535 blocks of 128
-    rows, which its C entry checks before it reads any memory."""
-    q, k, v = (t.to(cuda) for t in _fa_case(0, 1, 64, 2, 1, hd=128))
-    with pytest.raises(ValueError, match="hd=256"):
-        fa_ops.mha(q, k, v)
+    rows, which its C entry checks before it reads any memory. Each C entry
+    refuses any other hd itself."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(cuda, dtype)
+                   for t in _fa_case(0, 1, 64, 2, 1, hd=64))
+        with pytest.raises(ValueError, match=r"\(128, 256\), got hd=64"):
+            fa_ops.mha(q, k, v)
+        stream = torch.cuda.current_stream(cuda).cuda_stream
+        qf = q.transpose(1, 2).reshape(2, 64, 64).contiguous()
+        status = fa_ops._lib(dtype)(
+            qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 2, 1,
+            64, 1, 0, 64, 1 / 8, 0.0, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(status, "flash_attention")
     q, k, v = (t.to(cuda, torch.float16) for t in _fa_case(0, 1, 64, 2, 1))
     with pytest.raises(ValueError, match="bfloat16 and float32"):
         fa_ops.mha(q, k, v)

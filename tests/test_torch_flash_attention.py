@@ -25,9 +25,9 @@ CASES = [
     (2, 384, 384, 8, 8, 64, True, 128, 30.0),         # everything at once
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# The card's f32 kernel is built for hd = 256 only, with 64-row blocks and
-# 64-key tiles: its plain version at that width, over the edges of that
-# tiling (the card tests hold the kernel to the plain version there).
+# The card's f32 kernel is built for hd = 256 and 128, with 64-row blocks
+# and 64-key tiles: its plain version at those widths, over the edges of
+# that tiling (the card tests hold the kernel to the plain version there).
 EDGE_CASES = [
     (1, 1, 1, 2, 1, 256, True, None, 50.0),        # S = 1
     (2, 17, 17, 4, 2, 256, True, None, 50.0),      # under one tile
@@ -37,6 +37,17 @@ EDGE_CASES = [
     (1, 160, 160, 2, 1, 256, True, 40, 50.0),      # window under 64 rows
     (1, 150, 150, 2, 1, 256, False, 40, 50.0),     # non-causal window
     (1, 96, 96, 8, 1, 256, True, None, 50.0),      # group 8
+]
+# The same kernels at hd = 128 (the decoders of granite, starcoder2, yi,
+# deepseek-moe, qwen3-moe and pixtral): their GQA groups, ragged S, and the
+# window and softcap the kernels take at either width.
+EDGE_CASES_128 = [
+    (1, 200, 200, 7, 1, 128, True, None, None),    # yi: 56 / 8
+    (1, 130, 130, 12, 1, 128, True, None, None),   # starcoder2: 48 / 4
+    (2, 300, 300, 8, 1, 128, True, None, None),    # qwen3-moe: 32 / 4
+    (1, 1, 1, 2, 1, 128, True, None, None),        # S = 1
+    (1, 160, 160, 4, 2, 128, True, 40, 50.0),      # window and softcap
+    (1, 150, 150, 2, 2, 128, False, None, None),   # non-causal (deepseek MHA)
 ]
 
 
@@ -102,6 +113,33 @@ def test_mha_matches_jax_ref_at_kernel_width(case):
     q, k, v = _inputs(case, 20 + EDGE_CASES.index(case))
     np.testing.assert_allclose(_port(q, k, v, case, "float32"),
                                _jax_ref(q, k, v, case, jnp.float32),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", EDGE_CASES_128,
+                         ids=["group7", "group12", "group8", "s1",
+                              "window_softcap", "noncausal"])
+def test_mha_matches_jax_ref_at_hd128(case, dtype):
+    q, k, v = _inputs(case, 40 + EDGE_CASES_128.index(case))
+    np.testing.assert_allclose(_port(q, k, v, case, dtype),
+                               _jax_ref(q, k, v, case, getattr(jnp, dtype)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [(1, 128, 128, 7, 1, 128, True, None, None),
+                                  (1, 256, 256, 12, 1, 128, True, 64, 30.0)],
+                         ids=["group7", "group12_window_softcap"])
+def test_mha_matches_jax_pallas_interpret_at_hd128(case):
+    """Odd GQA groups at hd = 128 against the Pallas kernel in interpret
+    mode (S a multiple of its 128-row blocks)."""
+    q, k, v = _inputs(case, 50)
+    *_, causal, window, cap = case
+    want = np.asarray(jfa_ops.mha(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  window=window, softcap=cap,
+                                  interpret=True))
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"), want,
                                rtol=TOL["float32"], atol=TOL["float32"])
 
 

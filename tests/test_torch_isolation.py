@@ -42,7 +42,11 @@ def test_import_loads_no_jax_or_repro():
                  "ckpt.checkpoint", "ckpt._msgpack", "resilience.faults",
                  "telemetry.metrics", "telemetry.trace",
                  "telemetry.profiler", "ckpt.artifact", "ckpt.compile_cache",
-                 "models.xunet3d", "core.unet_halo", "launch.xunet_volume"):
+                 "models.xunet3d", "core.unet_halo", "launch.xunet_volume",
+                 "models.moe", "configs.qwen3_moe_30b_a3b",
+                 "configs.deepseek_moe_16b", "configs.pixtral_12b",
+                 "configs.granite_3_8b", "configs.starcoder2_15b",
+                 "configs.yi_34b"):
         assert f"repro_torch.{name}" in res["modules"]
 
 

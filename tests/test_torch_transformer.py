@@ -71,9 +71,9 @@ def test_config_matches_jax():
 
 def test_unknown_config_and_family_raise():
     with pytest.raises(KeyError, match="repro.configs"):
-        get_config("yi-34b")
+        get_config("zamba2-2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_model(get_config("gemma2-9b").replace(family="moe"))
+        registry.get_model(get_config("gemma2-9b").replace(family="ssm"))
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
