@@ -23,7 +23,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    2 x 4,608 tokens, H 32, KV 4, causal, no window or softcap, timed in
    both dtypes beside SDPA (causal, GQA: the same function) and, in bf16,
    ``flex_attention``; and, for correctness only at 640 tokens, GQA groups
-   7 (yi) and 12 (starcoder2) and a window with a softcap, in both dtypes),
+   7 (yi) and 12 (starcoder2) and a window with a softcap, in both dtypes;
+   the same at head_dim 64, whisper-large-v3's contract: the bidirectional
+   encoder (B 8, S 1,500, H = KV = 20, non-causal, a ragged last key tile),
+   the prefill cross-attention (Sq 224 against Skv 1,500) and the causal
+   decoder self-attention (224), in both dtypes, the bf16 per row where
+   the plain version with the last key tile (non-causal) or the first tile
+   of each row (causal) dropped must fail; the encoder shape timed in both
+   dtypes beside SDPA (non-causal: the same function), the cross shape in
+   bf16),
    and time each (f32 flash too, by CUDA events: its time,
    its bound at 67 TFLOP/s, its TFLOP/s, ``flex_attention`` compiled in
    f32, and its ``torch.profiler`` device time if a profile of 10 launches
@@ -124,6 +132,24 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and one profiled prefill and decode step split into attention, expert
    GEMMs, dispatch and combine, and the rest (the MoE layer's profiler
    marks), the prefill's 48 launches shown as the wgmma kernel.
+20. whisper-large-v3 and xlstm-350m (after phase 19): (a) at full width
+   cut in depth (whisper 2 encoder and 2 decoder layers, 2 requests of 64
+   tokens after 1,500 seeded frame embeddings; the xLSTM one group of 3
+   mLSTM and 1 sLSTM blocks, 2 x 256 tokens), f32, in phase 7's form:
+   tokens equal and logits within LLM_ATOL, the f32 flash kernel launched 6
+   times in whisper's prefill (2 encoder, 2 self, 2 cross) and never in
+   decode, never in the xLSTM's; (b) ``serve`` of whisper-large-v3 at full
+   width and depth in bf16, 8 requests of 1,500 zero frames and 224-token
+   prompts, 32 generated: 96 flash launches in the prefill and none in
+   decode, peak memory, ``prefill_s``, decode ms/token, and one profiled
+   prefill, its 96 launches all ``flash_wgmma_kernel<64>``, split into
+   encoder attention, decoder attention, cross-attention (each with its
+   projections) and the rest by the model's marks, then 4 warm decode
+   steps by host clock and one profiled, with no flash launch; (c)
+   ``serve`` of xlstm-350m at full width and depth in bf16, 2 x 4,096
+   tokens and 32 generated, no launch of the port's kernels: peak memory,
+   ``prefill_s``, decode ms/token, the sLSTM blocks' seconds in one
+   prefill and the launches of one profiled decode step.
 
 9. training whole path: ``GNNConfig()`` at full width cut to 2
    message-passing layers and halo 2, a 2,048-point sample in 2 partitions;
@@ -230,8 +256,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    finite losses, step seconds and peak memory.
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
-freed before the LLM phases (the flash row of 3, then 7, 8 and 19), all but
-phase 5's weights; the training phases (the backward row of 3, then 9, 14,
+freed before the LLM phases (the flash row of 3, then 7, 8, 19 and 20), all
+but phase 5's weights; the training phases (the backward row of 3, then 9, 14,
 10 and 11) run in another, and phases 13 and 15 run last, on phase 5's weights,
 each in a function of its own, then phase 16, 17 (b, c) and 18, each in its
 own. It then
@@ -382,6 +408,15 @@ HD128_SHORT_CASES = ((56, 8, None, None), (48, 4, None, None),
 DECODER_ARCHS = ("qwen3-moe-30b-a3b", "deepseek-moe-16b", "starcoder2-15b",
                  "pixtral-12b")
 ROUTE_TIE = 1e-6
+# Phase 3 at head_dim 64 and phase 20: whisper-large-v3 (batched
+# transcription of 30-s segments: 1,500 frames, prompts of 224 tokens, half
+# the decoder's 448-token context) and xlstm-350m (2 x 4,096 tokens); (a)
+# cuts them in depth: 2 encoder and 2 decoder layers, and one xLSTM group
+# (3 mLSTM and 1 sLSTM blocks), card against CPU in f32.
+WHISPER_ARCH, XLSTM_ARCH = "whisper-large-v3", "xlstm-350m"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 8, 224, 32
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_GEN = 2, 4096, 32
+WHOLE_AUDIO_PROMPT, WHOLE_XLSTM_PROMPT = 64, 256
 # Phase 19 (b): the MoE layer's parts, as models/moe.py marks them for the
 # profiler
 MOE_MARKS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
@@ -2788,6 +2823,177 @@ def flash_check_hd128(dev, card) -> dict:
         float32_library_ms=f32["sdpa_ms"], by_dtype=by_dtype)
 
 
+def plain_dropping_last_tile(qf, kf, vf, gs: int):
+    """A stand-in for a wrong non-causal kernel: the plain version with the
+    last key tile (the ragged one, 28 of 64 keys at 1,500 frames) dropped,
+    as a kernel that ended its key range a tile early would."""
+    import math
+
+    import torch
+    skv, hd = kf.shape[1:]
+    keep = torch.arange(skv, device=qf.device) < \
+        (skv - 1) // KEY_TILE * KEY_TILE
+    kr, vr = (t.repeat_interleave(gs, 0).float() for t in (kf, vf))
+    sc = torch.einsum("hqd,hkd->hqk", qf.float(), kr) / math.sqrt(hd)
+    sc = torch.where(keep, sc, -1e30)
+    return torch.einsum("hqk,hkd->hqd", sc.softmax(-1), vr).to(qf.dtype)
+
+
+def flash_check_hd64(dev, card) -> dict:
+    """Phase 3 for the flash kernels at head_dim 64, whisper-large-v3's
+    contract: the bidirectional encoder (B 8, S 1,500, H = KV = 20,
+    non-causal, a ragged last key tile), the prefill cross-attention (Sq
+    224 against Skv 1,500, non-causal) and the decoder's causal
+    self-attention (224), bf16 (wgmma kernel) and f32 (CUDA-core kernel),
+    each against the plain version; bf16 also per (row, head), where the
+    plain version with the last key tile dropped (non-causal) or the first
+    tile of each row dropped (causal) must fail. The encoder shape is timed
+    in both dtypes beside its bound, the plain version and SDPA
+    (non-causal: the same function), the cross shape in bf16."""
+    import torch
+    from torch.nn import functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(WHISPER_ARCH)
+    hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    gs = h // kvh
+    b, t_audio, sq = WHISPER_BATCH, cfg.n_frontend_tokens, WHISPER_PROMPT
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shapes = {"encoder": (t_audio, t_audio, False),
+              "cross": (sq, t_audio, False),
+              "decoder": (sq, sq, True)}
+    errs, by_case = {}, {}
+    for case, (s_q, s_kv, causal) in shapes.items():
+        base = [torch.randn((b, n, heads, hd), generator=gen, device=dev)
+                for n, heads in ((s_q, h), (s_kv, kvh), (s_kv, kvh))]
+        for dname in ("bfloat16", "float32"):
+            q, k, v = (t.to(getattr(torch, dname)) for t in base)
+            qf = q.transpose(1, 2).reshape(-1, s_q, hd).contiguous()
+            kf, vf = (t.transpose(1, 2).reshape(-1, s_kv, hd).contiguous()
+                      for t in (k, v))
+            got = fa_ops.mha(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if got.dtype != q.dtype or got.shape != q.shape:
+                raise RuntimeError(f"flash_attention hd=64 {case}: bad "
+                                   "output")
+            want = fa_ref.attention(qf, kf, vf, group_size=gs,
+                                    causal=causal)
+            want = want.reshape(b, h, s_q, hd).transpose(1, 2)
+            what = (f"hd=64 {dname} {case} B={b} Sq={s_q} Skv={s_kv} H={h} "
+                    f"KV={kvh} causal={causal}")
+
+            def drop():
+                wrong = (plain_dropping_a_tile(qf, kf, vf, gs, None, None)
+                         if causal else
+                         plain_dropping_last_tile(qf, kf, vf, gs))
+                return wrong.reshape(b, h, s_q, hd).transpose(1, 2)
+            errs[what] = _flash_case_check(got, want, dname, what, drop)
+            del got
+            if case == "decoder" or (case == "cross" and
+                                     dname == "float32"):
+                continue
+
+            def kernel():
+                return fa_ops.flash_attention(qf, kf, vf, group_size=gs,
+                                              causal=causal)
+
+            def plain():
+                return fa_ref.attention(qf, kf, vf, group_size=gs,
+                                        causal=causal)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True)
+            n_bytes = q.element_size() * (2 * b * h * s_q * hd
+                                          + 2 * b * kvh * s_kv * hd)
+            flops = 4.0 * hd * s_q * s_kv * b * h
+            sd = sdpa()
+            row = dict(sdpa_max_abs_err=float(
+                (sd.transpose(1, 2).float() - want.float()).abs().max()))
+            del sd
+            if dname == "bfloat16":
+                bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+                row.update(device_ms=device_ms(kernel, 20, FLASH_WGMMA_KERNEL),
+                           call_ms=time_cuda(kernel, 20),
+                           plain_ms=time_cuda(plain, 3, warmup=1),
+                           sdpa_ms=time_cuda(sdpa, 20),
+                           sdpa_device_ms=device_ms(sdpa, 20),
+                           bound_ms=bound[0], bound_by=bound[1])
+                row["fraction_of_bound"] = row["bound_ms"] / row["device_ms"]
+            else:
+                bound = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+                held = [(ms, n) for name, ms, n in
+                        profiled_rows(kernel, F32_PROFILE_REPS)
+                        if FLASH_KERNEL_RE.search(name)]
+                n_held = sum(n for _, n in held)
+                row.update(ms=time_cuda(kernel, 5),
+                           plain_ms=time_cuda(plain, 3, warmup=1),
+                           sdpa_ms=time_cuda(sdpa, 5),
+                           bound_ms=bound[0], bound_by=bound[1],
+                           profile_launches=n_held,
+                           device_ms=sum(ms for ms, _ in held) / n_held
+                           if n_held == F32_PROFILE_REPS else None)
+                row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+                row["tflops"] = flops / row["ms"] / 1e9
+            by_case[f"{case} {dname}"] = row
+            del qt, kt, vt
+        del base, q, k, v, qf, kf, vf, want
+    bf, f32 = by_case["encoder bfloat16"], by_case["encoder float32"]
+    cross = by_case["cross bfloat16"]
+    log(f"[kernels] flash_attention hd=64 ({WHISPER_ARCH} encoder, B={b} "
+        f"S={t_audio} H={h} KV={kvh}, non-causal): bf16 device "
+        f"{bf['device_ms']:.4f} ms, call {bf['call_ms']:.4f} ms (bound "
+        f"{bf['bound_ms']:.4f} ms by {bf['bound_by']}, "
+        f"{bf['fraction_of_bound']:.3f} of it; plain {bf['plain_ms']:.3f} "
+        f"ms; SDPA device {bf['sdpa_device_ms']:.4f} ms, call "
+        f"{bf['sdpa_ms']:.4f} ms); f32 {f32['ms']:.3f} ms (events; bound "
+        f"{f32['bound_ms']:.3f} ms by {f32['bound_by']}, "
+        f"{f32['fraction_of_bound']:.3f} of it, {f32['tflops']:.2f} "
+        f"TFLOP/s; the profile held {f32['profile_launches']} of "
+        f"{F32_PROFILE_REPS} launches, device {f32['device_ms']} ms; plain "
+        f"{f32['plain_ms']:.3f} ms; SDPA {f32['sdpa_ms']:.3f} ms) | {card}")
+    log(f"[kernels] flash_attention hd=64 cross (Sq={sq} Skv={t_audio}, "
+        f"non-causal) bf16: device {cross['device_ms']:.4f} ms, call "
+        f"{cross['call_ms']:.4f} ms (bound {cross['bound_ms']:.4f} ms by "
+        f"{cross['bound_by']}, {cross['fraction_of_bound']:.3f} of it; "
+        f"plain {cross['plain_ms']:.3f} ms; SDPA device "
+        f"{cross['sdpa_device_ms']:.4f} ms, call {cross['sdpa_ms']:.4f} ms) "
+        f"| {card}")
+    log("[kernels] flash_attention hd=64 errors against the plain version: "
+        + "; ".join(f"{c}: max abs {e['max_abs_err']:.3g}, row max "
+                    f"{e['row_max']:.3g}"
+                    + (f", tile dropped {e['tile_dropped_max']:.3g}"
+                       if "tile_dropped_max" in e else "")
+                    for c, e in errs.items()))
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention_wgmma.cu",
+        float32_source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:30",
+        shape=f"B={b} S={t_audio} H={h} KV={kvh} hd={hd}, non-causal "
+              f"({WHISPER_ARCH} encoder)",
+        max_abs_err=max(e["max_abs_err"] for c, e in errs.items()
+                        if "bfloat16" in c),
+        errors=errs, ms=bf["device_ms"], device_ms=bf["device_ms"],
+        call_ms=bf["call_ms"], plain_ms=bf["plain_ms"],
+        bound_ms=bf["bound_ms"], bound_by=bf["bound_by"],
+        fraction_of_bound=bf["fraction_of_bound"],
+        library_ms=bf["sdpa_ms"], library_device_ms=bf["sdpa_device_ms"],
+        library_note="scaled_dot_product_attention (non-causal): the same "
+                     "function",
+        float32_ms=f32["ms"], float32_device_ms=f32["device_ms"],
+        float32_bound_ms=f32["bound_ms"],
+        float32_fraction_of_bound=f32["fraction_of_bound"],
+        float32_tflops=f32["tflops"], float32_plain_ms=f32["plain_ms"],
+        float32_library_ms=f32["sdpa_ms"], cross=cross, by_case=by_case)
+
+
 def llm_whole_path(dev):
     """Phase 7: gemma2-9b at full width, 2 layers, f32, card against CPU."""
     import torch
@@ -3260,6 +3466,326 @@ def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
     for k, ms, n in rows[:top]:
         log(f"[llm_breakdown]   {ms:10.3f} ms  x{n:<5d} {k[:110]}")
     return rows
+
+
+def _model_like(cfg, model_gpu):
+    """A CPU copy of a model on the card: the same class built on ``meta``
+    and the card's tensors loaded into it."""
+    model_cpu = type(model_gpu)(cfg, device="meta")
+    model_cpu.load_state_dict({k: t.cpu() for k, t in
+                               model_gpu.state_dict().items()}, assign=True)
+    return model_cpu
+
+
+def audio_recurrent_whole_path(dev, card, reset_counts, read_counts,
+                               by_phase):
+    """Phase 20 (a): whisper-large-v3 (2 encoder and 2 decoder layers, 2
+    requests of WHOLE_AUDIO_PROMPT tokens after 1,500 seeded frame
+    embeddings) and xlstm-350m (one group: 3 mLSTM and 1 sLSTM blocks, 2 x
+    WHOLE_XLSTM_PROMPT tokens) at full width in f32, initialised once on
+    the card and copied to the CPU, prefilled and decoded
+    WHOLE_LLM_DECODE steps on both (phase 7's form): tokens equal, logits
+    within LLM_ATOL; whisper launches the f32 flash kernel 6 times (2
+    encoder, 2 self, 2 cross), all in the prefill, the xLSTM none."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import pad_cache_to
+    from repro_torch.models import registry
+
+    cases = ((WHISPER_ARCH, dict(n_layers=2, encoder_layers=2),
+              WHOLE_AUDIO_PROMPT, 6),
+             (XLSTM_ARCH, dict(n_layers=4), WHOLE_XLSTM_PROMPT, 0))
+    for arch, cut, n, want_launches in cases:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch).replace(dtype="float32", **cut)
+        api = registry.get_model(cfg)
+        model_gpu = api.init(seed=0, device=dev)
+        model_cpu = _model_like(cfg, model_gpu)
+        b = LLM_BATCH
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(b, n)).astype(np.int32))}
+        if cfg.frontend == "audio":
+            batch["audio_embeds"] = torch.from_numpy(rng.normal(
+                size=(b, cfg.n_frontend_tokens, cfg.d_model)).astype(
+                    np.float32))
+
+        def run(model, device):
+            t0 = time.perf_counter()
+            logits, cache = api.prefill(
+                model, {k: t.to(device) for k, t in batch.items()})
+            cache = pad_cache_to(cache, api.empty_cache(
+                b, n + WHOLE_LLM_DECODE + 1, device=device))
+            pre = logits.cpu()
+            del logits
+            toks, dec = [pre[:, -1].argmax(-1)], []
+            launched = fa_ops.mha.launches
+            for step in range(WHOLE_LLM_DECODE):
+                logits, cache = api.decode(
+                    model, cache, {"tokens": toks[-1][:, None].to(device)},
+                    n + step)
+                dec.append(logits.cpu())
+                toks.append(dec[-1][:, -1].argmax(-1))
+            return (pre, torch.cat(dec, 1), torch.stack(toks, 1),
+                    time.perf_counter() - t0, launched)
+
+        reset_counts()
+        g_pre, g_dec, g_tok, t_gpu, g_prefill_launches = run(model_gpu, dev)
+        torch.cuda.synchronize()
+        read_counts(f"whole_{arch}")
+        c_pre, c_dec, c_tok, t_cpu, _ = run(model_cpu, torch.device("cpu"))
+        launches = by_phase["flash_attention"][f"whole_{arch}"]
+        if launches != want_launches or g_prefill_launches != want_launches:
+            raise RuntimeError(
+                f"{arch} whole path: flash attention launched {launches} "
+                f"times on the card ({g_prefill_launches} in the prefill), "
+                f"expected {want_launches}, all in the prefill")
+        if g_pre.shape != (b, n, cfg.padded_vocab) or \
+                not torch.isfinite(g_pre).all() or \
+                not torch.isfinite(g_dec).all():
+            raise RuntimeError(f"{arch} whole path: bad logits on the card")
+        if not torch.equal(g_tok, c_tok):
+            raise RuntimeError(f"{arch} whole path: tokens differ, card "
+                               f"{g_tok.tolist()} CPU {c_tok.tolist()}")
+        pre_err = float((g_pre - c_pre).abs().max())
+        dec_err = float((g_dec - c_dec).abs().max())
+        if not max(pre_err, dec_err) <= LLM_ATOL:
+            raise RuntimeError(f"{arch} whole path: logits differ, prefill "
+                               f"{pre_err}, decode {dec_err} > {LLM_ATOL}")
+        log(f"[audio_recurrent] {arch} width {cfg.d_model}, "
+            + ", ".join(f"{k} {v}" for k, v in cut.items())
+            + f", f32, {b} x {n} tokens"
+            + (f" after {cfg.n_frontend_tokens} frames"
+               if cfg.frontend == "audio" else "")
+            + f" + {WHOLE_LLM_DECODE} decode steps: tokens equal "
+            f"{g_tok.tolist()}; max abs err prefill logits {pre_err:.3g}, "
+            f"decode logits {dec_err:.3g} (atol {LLM_ATOL}); f32 flash "
+            f"launches {launches}, all in the prefill; card {t_gpu:.3f} s "
+            f"(first call), CPU {t_cpu:.2f} s; "
+            f"{time.perf_counter() - t_arch:.1f} s in all | {card}")
+        del model_gpu, model_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _serve_header(api, dev):
+    """Draw the config's weights on the card (seed 0); returns the params,
+    their count and bytes, the seconds taken and the peak memory."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    return params, n_params, param_gb, time.perf_counter() - t0
+
+
+def whisper_serve(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 20 (b): whisper-large-v3 served at full width and depth in bf16
+    (``serve``): WHISPER_BATCH requests of 1,500 zero frames and
+    WHISPER_PROMPT-token prompts, WHISPER_GEN generated; 96 flash launches
+    in the prefill (32 encoder, 32 self, 32 cross) and none in decode; then
+    one profiled prefill, its flash launches all ``flash_wgmma_kernel<64>``
+    and its device time split by the model's marks; 4 warm decode steps by
+    host clock and one profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_cache_to, serve
+    from repro_torch.models import registry
+
+    cfg = get_config(WHISPER_ARCH)
+    api = registry.get_model(cfg)
+    params, n_params, param_gb, t_init = _serve_header(api, dev)
+    want = cfg.encoder_layers + 2 * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(WHISPER_ARCH, False, WHISPER_BATCH, WHISPER_PROMPT,
+                WHISPER_GEN, params=params, device=dev)
+    torch.cuda.synchronize()
+    read_counts("whisper_serve")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = by_phase["flash_attention"]["whisper_serve"]
+    if launches != want:
+        raise RuntimeError(
+            f"whisper serve: flash attention launched {launches} times, "
+            f"expected {want}: {cfg.encoder_layers} encoder, {cfg.n_layers} "
+            f"self and {cfg.n_layers} cross in the one prefill call, none "
+            "in decode")
+    gen = out["generated"]
+    if gen.shape != (WHISPER_BATCH, WHISPER_GEN) or \
+            not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise RuntimeError(f"whisper serve: bad tokens {gen.shape}")
+    log(f"[whisper_serve] {WHISPER_ARCH} full width and depth "
+        f"({n_params / 1e9:.3f} B params, {param_gb:.2f} GB bf16, drawn on "
+        f"the card in {t_init:.2f} s), {WHISPER_BATCH} requests x "
+        f"{cfg.n_frontend_tokens} frames + {WHISPER_PROMPT} prompt tokens + "
+        f"{WHISPER_GEN} generated: prefill {out['prefill_s']:.4f} s, decode "
+        f"{out['decode_s_per_token'] * 1e3:.3f} ms/token, "
+        f"{out['tokens_per_s']:.2f} tokens/s, peak memory {peak_gb:.2f} GB "
+        f"| flash launches {launches} ({cfg.encoder_layers} encoder + "
+        f"{cfg.n_layers} self + {cfg.n_layers} cross, 1 prefill, 0 in "
+        f"decode) | {card}")
+
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(WHISPER_BATCH, WHISPER_PROMPT)).astype(
+            np.int32)).to(dev),
+        "audio_embeds": torch.zeros((WHISPER_BATCH, cfg.n_frontend_tokens,
+                                     cfg.d_model), device=dev)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.prefill(params, batch)
+        torch.cuda.synchronize()
+    rows = _log_kernels("whisper prefill", prof, time.perf_counter() - t0)
+    wgmma = [(k, n) for k, _, n in rows if FLASH_WGMMA_KERNEL in k]
+    n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
+    if not (sum(n for _, n in wgmma) == n_flash == want
+            and all("<64>" in k for k, _ in wgmma)):
+        raise RuntimeError(
+            f"whisper breakdown: the profiled prefill shows {wgmma} and "
+            f"{n_flash} launches of any flash kernel, expected {want} of "
+            f"{FLASH_WGMMA_KERNEL}<64>")
+    marks = ("whisper.encoder_attention", "whisper.decoder_attention",
+             "whisper.cross_attention")
+    marked = _marked_ms(prof, marks)
+    total = sum(ms for _, ms, _ in rows)
+    flash = sum(ms for k, ms, _ in rows if FLASH_KERNEL_RE.search(k))
+    log(f"[whisper_breakdown] one prefill: device {total:.3f} ms = encoder "
+        f"attention {marked[marks[0]]:.3f} + decoder self-attention "
+        f"{marked[marks[1]]:.3f} + cross-attention {marked[marks[2]]:.3f} "
+        f"(each with its projections; the flash kernel {flash:.3f} ms of "
+        f"them) + the rest {total - sum(marked.values()):.3f} (FFNs, norms, "
+        f"embeddings, logits) | {card}")
+    # warm decode steps by host clock, then one profiled
+    logits, cache = api.prefill(params, batch)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    cache = pad_cache_to(cache, api.empty_cache(
+        WHISPER_BATCH, WHISPER_PROMPT + WHISPER_GEN, device=dev))
+    step_s = []
+    for step in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.decode(params, cache, {"tokens": tok},
+                                   WHISPER_PROMPT + step)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.decode(params, cache, {"tokens": tok}, WHISPER_PROMPT + 4)
+        torch.cuda.synchronize()
+    log(f"[whisper_breakdown] decode steps, host clock, ms: "
+        + ", ".join(f"{t * 1e3:.3f}" for t in step_s) + f" | {card}")
+    rows = _log_kernels("whisper decode step", prof,
+                        time.perf_counter() - t0)
+    if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows):
+        raise RuntimeError("whisper breakdown: a decode step launched "
+                           "flash attention")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def xlstm_serve(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 20 (c): xlstm-350m served at full width and depth in bf16
+    (``serve``): XLSTM_BATCH x XLSTM_PROMPT tokens, XLSTM_GEN generated, no
+    launch of the port's kernels; then the seconds of the sLSTM blocks in
+    one prefill (their loop over the prompt's steps) and the kernel launches
+    of one profiled decode step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import registry, ssm
+
+    cfg = get_config(XLSTM_ARCH)
+    api = registry.get_model(cfg)
+    params, n_params, param_gb, t_init = _serve_header(api, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(XLSTM_ARCH, False, XLSTM_BATCH, XLSTM_PROMPT, XLSTM_GEN,
+                params=params, device=dev)
+    torch.cuda.synchronize()
+    read_counts("xlstm_serve")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = {name: by_phase[name]["xlstm_serve"] for name in by_phase
+                if by_phase[name]["xlstm_serve"]}
+    if launched:
+        raise RuntimeError(f"xlstm serve launched the port's kernels: "
+                           f"{launched}")
+    gen = out["generated"]
+    if gen.shape != (XLSTM_BATCH, XLSTM_GEN) or \
+            not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise RuntimeError(f"xlstm serve: bad tokens {gen.shape}")
+    log(f"[xlstm_serve] {XLSTM_ARCH} full width and depth "
+        f"({n_params / 1e9:.3f} B params, {param_gb:.2f} GB bf16, drawn on "
+        f"the card in {t_init:.2f} s), {XLSTM_BATCH} requests x "
+        f"{XLSTM_PROMPT} prompt tokens + {XLSTM_GEN} generated: prefill "
+        f"{out['prefill_s']:.4f} s, decode "
+        f"{out['decode_s_per_token'] * 1e3:.3f} ms/token, "
+        f"{out['tokens_per_s']:.2f} tokens/s, peak memory {peak_gb:.2f} GB "
+        f"| no launch of the port's kernels (JAX runs no Pallas kernel "
+        f"here) | {card}")
+
+    # the sLSTM blocks' seconds in one prefill, by host clock around each
+    # block with the card synchronised
+    spent = []
+
+    def before(mod, args):
+        torch.cuda.synchronize()
+        mod._t0 = time.perf_counter()
+
+    def after(mod, args, result):
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - mod._t0)
+    slstms = [m for m in params.modules() if isinstance(m, ssm.SLSTM)]
+    hooks = [h for m in slstms for h in (m.register_forward_pre_hook(before),
+                                         m.register_forward_hook(after))]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(XLSTM_BATCH, XLSTM_PROMPT)).astype(
+            np.int32)).to(dev)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = api.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+    log(f"[xlstm_breakdown] one prefill of {XLSTM_BATCH} x {XLSTM_PROMPT} "
+        f"tokens: {t_prefill:.3f} s, of which the {len(slstms)} sLSTM "
+        f"blocks {sum(spent):.3f} s ({sum(spent) / len(slstms):.3f} s a "
+        f"block: a loop of {XLSTM_PROMPT} steps, "
+        f"{sum(spent) / len(slstms) / XLSTM_PROMPT * 1e6:.1f} us a step) "
+        f"| {card}")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    for step in range(2):        # warm
+        logits, state = api.decode(params, state, {"tokens": tok},
+                                   XLSTM_PROMPT + step)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.decode(params, state, {"tokens": tok}, XLSTM_PROMPT + 2)
+        torch.cuda.synchronize()
+    _log_kernels("xlstm decode step", prof, time.perf_counter() - t0)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _full_graph_batch(sample, dev):
@@ -4165,6 +4691,7 @@ def main() -> int:
     reset_counts()
     flash_row = flash_check(dev, card)
     flash_row["hd128"] = flash_check_hd128(dev, card)
+    flash_row["hd64"] = flash_check_hd64(dev, card)
     kernels.append(flash_row)
     torch.cuda.synchronize()
     read_counts("flash_check")
@@ -4195,6 +4722,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[moe] phase 19 took {time.perf_counter() - t0:.1f} s | {card}")
+
+    # 20. whisper-large-v3 and xlstm-350m: (a) cut in depth, card against
+    # CPU; (b) whisper served at full width and depth, the main path of the
+    # flash kernels at head_dim 64, non-causal and Skv != Sq, counted; (c)
+    # the xLSTM served at full width and depth
+    t0 = time.perf_counter()
+    audio_recurrent_whole_path(dev, card, reset_counts, read_counts,
+                               by_phase)
+    whisper_serve(dev, card, reset_counts, read_counts, by_phase)
+    xlstm_serve(dev, card, reset_counts, read_counts, by_phase)
+    log(f"[audio_recurrent] phase 20 took {time.perf_counter() - t0:.1f} s "
+        f"| {card}")
 
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later
@@ -4256,6 +4795,8 @@ def main() -> int:
         kr["launches"] = by_phase[kr["name"]][main_phase[kr["name"]]]
         if "hd128" in kr:
             kr["hd128"]["launches"] = by_phase[kr["name"]]["moe_serve"]
+        if "hd64" in kr:
+            kr["hd64"]["launches"] = by_phase[kr["name"]]["whisper_serve"]
         kr["launches_by_phase"] = by_phase[kr["name"]]
         kr["phases"] = [p for p, n in by_phase[kr["name"]].items() if n]
         kr["card"] = card

@@ -1,6 +1,7 @@
 """Config registry of the port: the paper's two models (X-MeshGraphNet and
 X-UNet3D) and the LLM configs it can run so far: the decoders (dense, MoE
-and pixtral's with its stubbed vision prefix)."""
+and pixtral's with its stubbed vision prefix), whisper's encoder-decoder
+and the xLSTM."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,8 @@ _ARCH_MODULES = {
     "pixtral-12b": "pixtral_12b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "starcoder2-15b": "starcoder2_15b",
+    "whisper-large-v3": "whisper_large_v3",
+    "xlstm-350m": "xlstm_350m",
     "yi-34b": "yi_34b",
     "xmgn-drivaer": "xmgn_drivaer",
     "xunet3d-drivaer": "xunet3d_drivaer",

@@ -15,9 +15,11 @@ fields, and its rollout engine ``rollout_slots``,
 ``rollout_steps_per_flush``, ``rollout_timeout_s``, and (through
 ``MeshGraphNet.step``) ``rollout_state_feats`` and ``rollout_integrator``.
 ``ModelConfig``
-keeps only the fields the decoder reads (dense, MoE and the vision prefix);
-the sharding, remat, SSM and encoder-decoder fields come with the slices
-that read them. ``MoEConfig`` is copied field for field.
+keeps only the fields the served families read (the decoders, dense, MoE
+and the vision prefix; whisper's encoder-decoder and audio frames; the
+xLSTM's recurrent blocks); the sharding and remat fields come with the
+slices that read them. ``MoEConfig`` and ``SSMConfig`` are copied field for
+field.
 """
 from __future__ import annotations
 
@@ -41,11 +43,26 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """State-space / recurrent block configuration (Mamba2 SSD or xLSTM)."""
+
+    kind: str                          # "mamba2" | "xlstm"
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    chunk_size: int = 256              # chunked-scan block length
+    n_ssm_heads: int = 8               # heads for the scalar-decay recurrence
+    slstm_every: int = 4               # xlstm: every Nth block is an sLSTM
+
+
+@dataclass(frozen=True)
 class ModelConfig:
-    """A decoder-only transformer: dense, MoE, or with a vision prefix."""
+    """A transformer-family architecture: a decoder (dense, MoE, with a
+    vision prefix), the encoder-decoder (whisper) or a recurrent stack
+    (xLSTM; the hybrid is still to port)."""
 
     name: str
-    family: str                        # "dense" | "moe" | "vlm" (ported)
+    family: str                        # dense | moe | vlm | audio | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -67,7 +84,11 @@ class ModelConfig:
     post_norms: bool = False           # gemma2: post-norms around attn/ffn
     scale_embeddings: bool = False     # gemma2: embeddings * sqrt(d)
     moe: Optional[MoEConfig] = None
-    frontend: Optional[str] = None     # None | "vision" (stubbed prefix)
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 0                # hybrid (zamba2): shared attn cadence
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    frontend: Optional[str] = None     # None | "audio" | "vision" (stubbed)
     n_frontend_tokens: int = 0
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
@@ -88,20 +109,27 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """A smoke-test-sized variant (2 layers, d 128, hd 32; MoE: 4
-        experts top-2 of width 64, at most 1 dense first layer; 16 frontend
-        tokens), as the JAX package's ``ModelConfig.reduced`` gives for
-        these families."""
+        experts top-2 of width 64, at most 1 dense first layer; 2 encoder
+        layers; SSM: d_state 16, chunk 16, 2 heads, an sLSTM every 2nd
+        block; 16 frontend tokens), as the JAX package's
+        ``ModelConfig.reduced`` gives."""
         kw = dict(
             n_layers=2, d_model=128, n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 2), head_dim=32, d_ff=256,
             vocab_size=512, vocab_pad_to=64,
+            encoder_layers=2 if self.is_encoder_decoder else 0,
             n_frontend_tokens=16 if self.frontend else 0,
             sliding_window=16 if self.sliding_window else None,
+            attn_every=2 if self.attn_every else 0,
             dtype="float32")
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
                 self.moe, n_experts=4, top_k=2, d_ff_expert=64,
                 first_dense_layers=min(self.moe.first_dense_layers, 1))
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, chunk_size=16, n_ssm_heads=2,
+                slstm_every=2)
         return self.replace(**kw)
 
 

@@ -38,9 +38,8 @@ VARIANTS = {
     "no_tanh_fast_exp": ("tanhf; expf becomes __expf", [
         ("tanhf(x / softcap)", "(x / softcap)"), ("expf(", "__expf(")]),
     "no_copies": ("the K and V tile copies inside the loop", [
-        ("    load_tile<kHd>(vs, kVStride, vg, t0, s);", "    ;"),
-        ("if (t0 + kKeys < hi) load_tile<kHd>(ks",
-         "if (false) load_tile<kHd>(ks")]),
+        ("    load_tile<kHd>(vs, kVStride, vg, t0, skv);", "    ;"),
+        ("if (t0 + kKeys < hi)\n", "if (false)\n")]),
 }
 
 
@@ -69,7 +68,7 @@ def build_variants() -> dict:
             raise RuntimeError(f"ablate: nvcc failed for {name}:\n{log}")
         fn = ctypes.CDLL(str(out / f"lib{name}.so")).flash_attention_f32
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
             [ctypes.c_float] * 2 + [ctypes.c_void_p]
         fns[name] = fn
     return fns
@@ -95,7 +94,7 @@ def main() -> int:
 
     def launch(fn, window):
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b * h, h // kvh, s, 1,
+                        out.data_ptr(), b * h, h // kvh, s, s, 1,
                         0 if window is None else window, hd, 1 / hd ** 0.5,
                         SHAPE["softcap"], stream), "ablate")
 

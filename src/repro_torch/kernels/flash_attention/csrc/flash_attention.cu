@@ -1,11 +1,13 @@
 // Flash attention with GQA, causal masking, a sliding window and a tanh
-// logit softcap, for head_dim 128 or 256 in f32 on the CUDA cores:
+// logit softcap, for head_dim 64, 128 or 256 in f32 on the CUDA cores:
 //   out[bh, i] = softmax_j(mask(cap(q[bh, i] . k[bh / group, j] / sqrt(hd))))
 //                . v[bh / group, j]
-// with the mask j <= i (causal) and i - j < window, f32 throughout. q, k, v,
-// out are (rows, S, hd), contiguous; Skv == Sq. The kernel is a template on
-// hd with one instance for each head_dim on the path, 256 (gemma2) and 128
-// (the llama-style and MoE decoders). bf16 goes to the tensor-core
+// with the mask j < Skv, j <= i (causal) and i - j < window, f32
+// throughout. q and out are (rows, Sq, hd), k and v (rows / group, Skv, hd),
+// contiguous; Skv may differ from Sq when not causal (whisper's
+// cross-attention). The kernel is a template on hd with one instance for
+// each head_dim on the path, 256 (gemma2), 128 (the llama-style and MoE
+// decoders) and 64 (whisper). bf16 goes to the tensor-core
 // kernel in flash_attention_wgmma.cu; f32 stays here because the tensor
 // cores' TF32 keeps about three digits and the f32 path is held to 1e-5.
 // Every product is an IEEE f32 FMA; no TF32, bf16 or library call.
@@ -25,13 +27,14 @@
 // Design: a register-tiled SIMT product, as in an sgemm. One block of 256
 // threads (8 warps) owns 64 query rows of one (batch, head) and walks 64-key
 // tiles of K and V. Shared memory (219,648 bytes at hd 256, 121,344 at hd
-// 128; one block per SM) holds Q (staged once), one K tile, one V tile, the
-// tile's P, and each row's rescale factor and denominator. Q and K rows are
+// 128, 72,192 at hd 64; one block per SM) holds Q (staged once), one K
+// tile, one V tile, the tile's P, and each row's rescale factor and
+// denominator. Q and K rows are
 // padded to hd + 8 floats (8 words apart in the banks), P rows to 72, so
 // that the 16-byte reads below hit distinct banks.
 // - S = Q K^T: each thread owns an 8 x 4 tile of S (8 rows, keys 8 apart)
 //   over half of the dims (dims 8m + 4 dh + [0, 4), dh the lane's low bit),
-//   at either hd,
+//   at every hd,
 //   so 8 LDS.128 of Q and 4 of K feed 128 FMAs; one shuffle per kept score
 //   adds the partner lane's half (a reduce-scatter: each lane keeps 4 rows).
 // - Scale, softcap (tanhf), then mask with -1e30 (only on a tile that
@@ -44,10 +47,13 @@
 //   columns, 32 apart, of the warp's hd / 4) and walks the 64 keys 4 at a
 //   time. At hd 256 the tile is 8 x 8 in 64 registers, and 8 LDS.128 of P
 //   and 8 of V feed 256 FMAs; at hd 128 the thread map is the same and the
-//   tile is 8 x 4 (one run), so 8 LDS.128 of P and 4 of V feed 128 FMAs.
+//   tile is 8 x 4 (one run), so 8 LDS.128 of P and 4 of V feed 128 FMAs. At
+//   hd 64 a warp's 32 rows by 16 columns give a thread 4 x 4 (rows r + 8i,
+//   i < 4): 4 LDS.128 of P and 4 of V feed 64 FMAs.
 // - cp.async double duty: V of a tile streams in while S is computed, the
 //   next K tile while the softmax and PV run, so no extra buffer is needed
-//   to overlap the L2 reads with the FMAs. Rows past S are zero-filled.
+//   to overlap the L2 reads with the FMAs. Rows past Sq or Skv are
+//   zero-filled, and keys past Skv masked.
 // - The block's key range skips tiles wholly past the causal diagonal or
 //   before the window; blocks start from the last (longest) row block.
 // On the H100 the kernel takes about twice its bound (PERF.md; the parts
@@ -133,10 +139,16 @@ template <int kHd>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int group,
-             int s, int causal, int window, float scale, float softcap) {
+             int s, int skv, int causal, int window, float scale,
+             float softcap) {
   using L = Layout<kHd>;
   constexpr int kQkStride = L::kQkStride, kVStride = L::kVStride;
-  constexpr int kRuns = kHd / 128;  // runs of 4 output columns a thread
+  // runs of 4 output columns a thread, its rows, and their spacing
+  constexpr int kRuns = kHd >= 128 ? kHd / 128 : 1;
+  constexpr int kORows = kHd >= 128 ? 8 : 4;
+  constexpr int kOStep = 32 / kORows;
+  static_assert(kHd / 4 == 32 / kOStep * 4 * kRuns,
+                "a warp's threads tile its hd / 4 columns");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem + L::kQOff;
   float* ks = smem + L::kKOff;
@@ -150,7 +162,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // first
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int r_last = min(r0 + kRows, s) - 1;
-  const size_t kv_base = static_cast<size_t>(bh / group) * s * kHd;
+  const size_t kv_base = static_cast<size_t>(bh / group) * skv * kHd;
   const float* kg = k + kv_base;
   const float* vg = v + kv_base;
 
@@ -166,30 +178,32 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int s_row = 16 * (warp >> 1) + 8 * (lane >> 4);
   const int s_key = 32 * (warp & 1) + ((lane >> 1) & 7);
   // O layout: warp w owns rows 32 (w / 4) + [0, 32) and columns hd / 4
-  // (w % 4) + [0, hd / 4); the thread rows o_row + 4i, i < 8, columns
-  // o_col + 32 r + [0, 4), r < kRuns
-  const int o_row = 32 * (warp >> 2) + (lane & 3);
-  const int o_col = kHd / 4 * (warp & 3) + 4 * (lane >> 2);
+  // (w % 4) + [0, hd / 4); the thread rows o_row + kOStep i, i < kORows
+  // (4i, i < 8 at hd >= 128; 8i, i < 4 at hd 64), columns o_col + 32 r +
+  // [0, 4), r < kRuns
+  const int o_row = 32 * (warp >> 2) + lane % kOStep;
+  const int o_col = kHd / 4 * (warp & 3) + 4 * (lane / kOStep);
   // softmax layout: 4 threads per row, 16 keys each
   const int m_row = tid >> 2, m_part = tid & 3;
 
-  float o[8][4 * kRuns];
+  float o[kORows][4 * kRuns];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kORows; ++i)
 #pragma unroll
     for (int c = 0; c < 4 * kRuns; ++c) o[i][c] = 0.f;
   float m_run = kNegInf, l_run = 0.f;  // of row m_row, in all 4 threads
 
   const int lo = window > 0 ? max(0, r0 - window + 1) : 0;
-  const int hi = causal ? r_last + 1 : s;  // keys [lo, hi) reach the block
+  // keys [lo, hi) reach the block; causal masking has Skv == Sq
+  const int hi = causal ? r_last + 1 : skv;
   const int t_first = lo / kKeys * kKeys;
   load_tile<kHd>(qs, kQkStride, q + static_cast<size_t>(bh) * s * kHd, r0,
                  s);
-  load_tile<kHd>(ks, kQkStride, kg, t_first, s);
+  load_tile<kHd>(ks, kQkStride, kg, t_first, skv);
   cp_async_commit();
 
   for (int t0 = t_first; t0 < hi; t0 += kKeys) {
-    load_tile<kHd>(vs, kVStride, vg, t0, s);  // lands during S
+    load_tile<kHd>(vs, kVStride, vg, t0, skv);  // lands during S
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // Q and this K tile are in shared memory
@@ -229,8 +243,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float keep = dh ? acc[i + 4][j] : acc[i][j];
         acc[i][j] = keep + __shfl_xor_sync(kFull, send, 1);
       }
-    // a tile that crosses S, the diagonal or the window's edge is masked
-    const bool edge = t0 + kKeys > s || (causal && t0 + kKeys - 1 > r0) ||
+    // a tile that crosses Skv, the diagonal or the window's edge is masked
+    const bool edge = t0 + kKeys > skv || (causal && t0 + kKeys - 1 > r0) ||
                       (window > 0 && r0 + kRows - 1 - t0 >= window);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -240,7 +254,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int key = t0 + s_key + 8 * j;
         float x = acc[i][j] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (edge && !(key < s && (!causal || key <= row) &&
+        if (edge && !(key < skv && (!causal || key <= row) &&
                       (window <= 0 || row - key < window)))
           x = kNegInf;
         ps[(s_row + 4 * dh + i) * kPStride + s_key + 8 * j] = x;
@@ -248,7 +262,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_wait<0>();
     __syncthreads();  // S is in shared memory, V has landed, K is free
-    if (t0 + kKeys < hi) load_tile<kHd>(ks, kQkStride, kg, t0 + kKeys, s);
+    if (t0 + kKeys < hi)
+      load_tile<kHd>(ks, kQkStride, kg, t0 + kKeys, skv);
     cp_async_commit();  // lands during the softmax and PV
 
     {
@@ -291,17 +306,17 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // P and the rescale factors are in shared memory
 
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float a = alpha_s[o_row + 4 * i];
+    for (int i = 0; i < kORows; ++i) {
+      const float a = alpha_s[o_row + kOStep * i];
 #pragma unroll
       for (int c = 0; c < 4 * kRuns; ++c) o[i][c] *= a;
     }
 #pragma unroll 2
     for (int j = 0; j < kKeys; j += 4) {
-      float p[8][4];
+      float p[kORows][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 t = lds4(ps + (o_row + 4 * i) * kPStride + j);
+      for (int i = 0; i < kORows; ++i) {
+        const float4 t = lds4(ps + (o_row + kOStep * i) * kPStride + j);
         p[i][0] = t.x;
         p[i][1] = t.y;
         p[i][2] = t.z;
@@ -314,7 +329,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int r = 0; r < kRuns; ++r)
           vr[r] = lds4(vs + (j + jj) * kVStride + o_col + 32 * r);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < kORows; ++i) {
           const float pj = p[i][jj];
 #pragma unroll
           for (int r = 0; r < kRuns; ++r) {
@@ -330,10 +345,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = r0 + o_row + 4 * i;
+  for (int i = 0; i < kORows; ++i) {
+    const int row = r0 + o_row + kOStep * i;
     if (row >= s) continue;
-    const float denom = fmaxf(l_s[o_row + 4 * i], 1e-30f);
+    const float denom = fmaxf(l_s[o_row + kOStep * i], 1e-30f);
     float* dst = out + (static_cast<size_t>(bh) * s + row) * kHd + o_col;
 #pragma unroll
     for (int r = 0; r < kRuns; ++r)
@@ -345,8 +360,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int kHd>
 int launch(const float* q, const float* k, const float* v, float* out,
-           int bh, int group, int s, int causal, int window, float scale,
-           float softcap, cudaStream_t stream) {
+           int bh, int group, int s, int skv, int causal, int window,
+           float scale, float softcap, cudaStream_t stream) {
   constexpr int kSmemBytes = Layout<kHd>::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -354,31 +369,37 @@ int launch(const float* q, const float* k, const float* v, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + kRows - 1) / kRows, bh);
   flash_kernel<kHd><<<grid, kThreads, kSmemBytes, stream>>>(
-      q, k, v, out, group, s, causal, window, scale, softcap);
+      q, k, v, out, group, s, skv, causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, out (bh, s, hd); k, v (bh / group, s, hd); f32, contiguous and 16-byte
-// aligned; hd 128 or 256. window <= 0: none; softcap <= 0: none. Returns a
-// cudaError_t (cudaErrorInvalidValue for a shape the kernel is not built for).
+// q, out (bh, s, hd); k, v (bh / group, skv, hd); f32, contiguous and
+// 16-byte aligned; hd 64, 128 or 256; causal needs skv == s. window <= 0:
+// none; softcap <= 0: none. Returns a cudaError_t (cudaErrorInvalidValue for
+// a shape the kernel is not built for).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int bh, int group,
-                                   int s, int causal, int window, int hd,
-                                   float scale, float softcap, void* stream) {
-  if (group < 1 || bh < 1 || bh % group || bh > 65535 || s < 1)
+                                   int s, int skv, int causal, int window,
+                                   int hd, float scale, float softcap,
+                                   void* stream) {
+  if (group < 1 || bh < 1 || bh % group || bh > 65535 || s < 1 || skv < 1 ||
+      (causal && skv != s))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch<64>(qf, kf, vf, of, bh, group, s, skv, causal, window,
+                      scale, softcap, st);
   if (hd == 128)
-    return launch<128>(qf, kf, vf, of, bh, group, s, causal, window, scale,
-                       softcap, st);
+    return launch<128>(qf, kf, vf, of, bh, group, s, skv, causal, window,
+                       scale, softcap, st);
   if (hd == 256)
-    return launch<256>(qf, kf, vf, of, bh, group, s, causal, window, scale,
-                       softcap, st);
+    return launch<256>(qf, kf, vf, of, bh, group, s, skv, causal, window,
+                       scale, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

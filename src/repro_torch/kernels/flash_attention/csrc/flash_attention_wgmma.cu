@@ -1,13 +1,15 @@
 // Flash attention on Hopper's tensor cores: GQA, causal masking, a sliding
-// window and a tanh logit softcap, head_dim 128 or 256, bf16 in and out:
+// window and a tanh logit softcap, head_dim 64, 128 or 256, bf16 in and out:
 //   out[bh, i] = softmax_j(mask(cap(q[bh, i] . k[bh / group, j] / sqrt(hd))))
 //                . v[bh / group, j]
-// with the mask j <= i (causal) and i - j < window, f32 accumulation, and
-// the products on the bf16 tensor cores. q, k, v, out are (rows, S, hd),
-// contiguous; Skv == Sq. The kernel is a template on hd with one instance
-// for each head_dim on the path: 256 (gemma2) and 128 (granite, starcoder2,
-// yi, deepseek-moe, qwen3-moe, pixtral). The f32 path is the register-tiled
-// CUDA-core kernel in flash_attention.cu.
+// with the mask j < Skv, j <= i (causal) and i - j < window, f32
+// accumulation, and the products on the bf16 tensor cores. q and out are
+// (rows, Sq, hd), k and v (rows / group, Skv, hd), contiguous; Skv may
+// differ from Sq when not causal (whisper's cross-attention: Sq the prompt,
+// Skv the 1,500 audio frames). The kernel is a template on hd with one
+// instance for each head_dim on the path: 256 (gemma2), 128 (granite,
+// starcoder2, yi, deepseek-moe, qwen3-moe, pixtral) and 64 (whisper). The
+// f32 path is the register-tiled CUDA-core kernel in flash_attention.cu.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py, which walks (128, hd) query
@@ -18,6 +20,10 @@
 // pair on the bf16 tensor cores (989 TFLOP/s); at gemma2's prefill shape
 // that is about 3.5e11 flops, 0.35 ms, against 0.07 ms for its 226 MB of q,
 // k, v and out; qwen3-moe's (hd 128, 32 query heads) does the same work.
+// Whisper's bidirectional encoder (hd 64, 1,500 frames, B 8, H 20) does
+// 9.2e10 flops, 0.093 ms, against 0.037 ms for 123 MB; its prefill
+// cross-attention (Sq 224, Skv 1,500) is bound by bytes: 71 MB, 0.021 ms,
+// against 1.4e10 flops, 0.014 ms.
 //
 // Design: one block of 384 threads per 128 query rows of one (batch, head),
 // in three warpgroups.
@@ -25,17 +31,18 @@
 //   swizzle, 64 columns per box, so a row is hd / 64 boxes) of the Q
 //   block once and of 64-key K and V tiles into a 2-stage ring; each stage
 //   has "full" barriers for K and for V and an "empty" barrier. TMA fills
-//   rows past S with zeros, so ragged tails read no garbage. setmaxnreg
-//   gives its registers to the consumers.
+//   rows past Sq or Skv with zeros, so ragged tails read no garbage.
+//   setmaxnreg gives its registers to the consumers.
 // - Warpgroups 1 and 2 each own 64 query rows. Per tile: S = Q K^T with
 //   hd / 16 wgmma m64n64k16 (A = Q and B = K from shared memory, K-major);
 //   scale, then softcap (tanh.approx), then mask, in log2 units (log2(e)
 //   folded into the scale) and only on tiles that cross the diagonal, the
-//   window's edge or S; the online softmax (ex2.approx) over the 4 threads
+//   window's edge or Skv; the online softmax (ex2.approx) over the 4 threads
 //   that share a row of the accumulator; P rounded to bf16 in registers,
 //   which is the A operand layout of wgmma as it stands; O += P V with 4
 //   wgmma m64n{hd}k16 (B = V from shared memory, MN-major), so O takes hd / 2
-//   accumulator registers a consumer thread (128 at hd 256, 64 at hd 128).
+//   accumulator registers a consumer thread (128 at hd 256, 64 at hd 128,
+//   32 at hd 64).
 //   A warpgroup skips the products of a tile wholly masked for its rows but
 //   still releases it.
 // - The block's key range skips tiles wholly past the diagonal or before the
@@ -44,7 +51,11 @@
 //   rows of the Q buffer (swizzled, so without bank conflicts) and out in
 //   16-byte stores of whole rows.
 // At hd 128 the ring's stages are half as large (shared memory 97 KB, not
-// 193 KB); the design is otherwise the same.
+// 193 KB), at hd 64 a quarter (49 KB, a row one 64-column box); the design
+// is otherwise the same. A block's keys end at Skv: the last tile of a
+// ragged Skv (1,500 = 23 x 64 + 28) is masked past Skv even without causal
+// masking or a window, since TMA fills its rows past Skv with zeros, whose
+// scores would be 0, not -1e30.
 // Masked logits are -1e30, never -inf, as in the TPU kernel: a tile that is
 // wholly masked for a row before its first real key gives p = 1 for its
 // keys, and that is wiped by alpha = exp2(-1e30 - m) = 0 when the real keys
@@ -269,14 +280,42 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d,
         "r"(1));
 }
 
+// D (m64 x n64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, shared),
+// B MN-major (transposed).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d,
+                                                   const uint32_t* a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
 // O (64 x hd) += P (64 x 16 keys) . V (16 keys x hd): one wgmma of width hd.
 template <int kHd>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* p,
                                          uint64_t v) {
   if constexpr (kHd == 256)
     wgmma_m64n256k16_rs(o, p, v);
-  else
+  else if constexpr (kHd == 128)
     wgmma_m64n128k16_rs(o, p, v);
+  else
+    wgmma_m64n64k16_rs(o, p, v);
 }
 
 __device__ __forceinline__ float tanh_approx(float x) {
@@ -308,9 +347,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    __nv_bfloat16* __restrict__ out, int group, int s,
-                   int causal, int window, float c1, float c2) {
+                   int skv, int causal, int window, float c1, float c2) {
   extern __shared__ unsigned char smem_raw[];
-  static_assert(kHd == 128 || kHd == 256, "wgmma_pv has n128 and n256");
+  static_assert(kHd == 64 || kHd == 128 || kHd == 256,
+                "wgmma_pv has n64, n128 and n256");
   using S = Smem<kHd>;
   S& sm = *reinterpret_cast<S*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -319,7 +359,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // first
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kBr;
   const int lo = window > 0 ? max(0, r0 - window + 1) : 0;
-  const int hi = causal ? min(r0 + kBr, s) : s;  // keys [lo, hi) reach it
+  // keys [lo, hi) reach it; causal masking has Skv == Sq
+  const int hi = causal ? min(r0 + kBr, skv) : skv;
   const int tile_lo = lo / kBc;
   const int n_tiles = (hi + kBc - 1) / kBc - tile_lo;
   const uint32_t bar_q = smem_u32(&sm.full_q);
@@ -409,13 +450,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int j = 0; j < 32; ++j)
           sc[j] = c2 > 0.f ? c2 * tanh_approx(c1 * sc[j]) : c1 * sc[j];
-        if (t0 + kBc > s || (causal && t0 + kBc - 1 > wr0) ||
+        if (t0 + kBc > skv || (causal && t0 + kBc - 1 > wr0) ||
             (window > 0 && wr0 + 63 - t0 >= window)) {
 #pragma unroll
           for (int j = 0; j < 32; ++j) {
             const int row = row0 + 8 * ((j >> 1) & 1);
             const int key = t0 + 8 * (j / 4) + col0 + (j & 1);
-            const bool ok = key < s && (!causal || key <= row) &&
+            const bool ok = key < skv && (!causal || key <= row) &&
                             (window <= 0 || row - key < window);
             if (!ok) sc[j] = kNegInf;
           }
@@ -538,7 +579,8 @@ int encode_fn(EncodeTiled* fn) {
 }
 
 // (heads, s, hd) bf16 as a 3-d map of boxes (64 columns, box_rows rows, 1),
-// 128-byte swizzle; rows past s read as zeros.
+// 128-byte swizzle; rows past s read as zeros. q's map has Sq rows, k's and
+// v's Skv.
 template <int kHd>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
                 int s, int box_rows) {
@@ -557,7 +599,7 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
 // The launch for one head_dim: tensor maps, shared memory, grid.
 template <int kHd>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int group, int s, int causal, int window, float scale,
+           int group, int s, int skv, int causal, int window, float scale,
            float softcap, cudaStream_t stream) {
   EncodeTiled fn;
   const int err = encode_fn(&fn);
@@ -566,7 +608,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     const CUresult r = encode<kHd>(fn, &maps[i], bases[i],
-                                   i ? bh / group : bh, s, i ? kBc : kBr);
+                                   i ? bh / group : bh, i ? skv : s,
+                                   i ? kBc : kBr);
     if (r != CUDA_SUCCESS) return static_cast<int>(r);
   }
   const int smem = static_cast<int>(sizeof(Smem<kHd>)) + 1024;  // + align
@@ -578,31 +621,36 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   flash_wgmma_kernel<kHd><<<dim3(bh, (s + kBr - 1) / kBr), kThreads, smem,
                             stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), group, s,
-      causal, window, capped ? scale / softcap : scale * kLog2e,
+      skv, causal, window, capped ? scale / softcap : scale * kLog2e,
       capped ? softcap * kLog2e : 0.f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, out (bh, s, hd); k, v (bh / group, s, hd); bf16, contiguous and 16-byte
-// aligned; hd 128 or 256; s <= 65535 * 128. window <= 0: none; softcap <= 0:
-// none. Returns a cudaError_t (cudaErrorInvalidValue for a shape the kernel
-// is not built for), or the CUresult of a failed tensor-map encode.
+// q, out (bh, s, hd); k, v (bh / group, skv, hd); bf16, contiguous and
+// 16-byte aligned; hd 64, 128 or 256; s <= 65535 * 128; causal needs
+// skv == s. window <= 0: none; softcap <= 0: none. Returns a cudaError_t
+// (cudaErrorInvalidValue for a shape the kernel is not built for), or the
+// CUresult of a failed tensor-map encode.
 extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k,
                                           const void* v, void* out, int bh,
-                                          int group, int s, int causal,
-                                          int window, int hd, float scale,
-                                          float softcap, void* stream) {
-  if (group < 1 || bh < 1 || bh % group || s < 1 ||
-      (s + kBr - 1) / kBr > 65535)
+                                          int group, int s, int skv,
+                                          int causal, int window, int hd,
+                                          float scale, float softcap,
+                                          void* stream) {
+  if (group < 1 || bh < 1 || bh % group || s < 1 || skv < 1 ||
+      (causal && skv != s) || (s + kBr - 1) / kBr > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch<64>(q, k, v, out, bh, group, s, skv, causal, window, scale,
+                      softcap, st);
   if (hd == 128)
-    return launch<128>(q, k, v, out, bh, group, s, causal, window, scale,
-                       softcap, st);
+    return launch<128>(q, k, v, out, bh, group, s, skv, causal, window,
+                       scale, softcap, st);
   if (hd == 256)
-    return launch<256>(q, k, v, out, bh, group, s, causal, window, scale,
-                       softcap, st);
+    return launch<256>(q, k, v, out, bh, group, s, skv, causal, window,
+                       scale, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

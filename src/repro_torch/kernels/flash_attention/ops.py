@@ -22,9 +22,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 # both kernels are templates on head_dim, instanced for those on the path:
-# 256 (gemma2) and 128 (granite, starcoder2, yi, deepseek-moe, qwen3-moe,
-# pixtral)
-KERNEL_HEAD_DIMS = (128, 256)
+# 256 (gemma2), 128 (granite, starcoder2, yi, deepseek-moe, qwen3-moe,
+# pixtral) and 64 (whisper)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 # dtype -> (library in _build.SOURCES, C entry point)
 _ENTRY = {torch.bfloat16: ("flash_attention_wgmma",
                            "flash_attention_wgmma_bf16"),
@@ -36,7 +36,7 @@ def _lib(dtype):
     fn = getattr(_build.load(library), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
             [ctypes.c_float] * 2 + [ctypes.c_void_p]
     return fn
 
@@ -44,7 +44,13 @@ def _lib(dtype):
 def flash_attention(q, k, v, *, group_size: int = 1, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None):
-    """q (BH, Sq, hd); k, v (BH // group_size, Skv, hd) -> (BH, Sq, hd)."""
+    """q (BH, Sq, hd); k, v (BH // group_size, Skv, hd) -> (BH, Sq, hd).
+    Causal masking takes Skv == Sq (``repro.kernels.flash_attention``'s
+    mask compares positions within each tensor); without it Skv may differ
+    (whisper's cross-attention)."""
+    if causal and q.dim() == k.dim() == 3 and k.shape[1] != q.shape[1]:
+        raise ValueError(f"flash_attention: causal masking needs Skv == Sq, "
+                         f"got Sq={q.shape[1]} Skv={k.shape[1]}")
     if q.device.type == "cpu":
         return ref.attention(q, k, v, group_size=group_size, causal=causal,
                              window=window, softcap=softcap)
@@ -90,16 +96,18 @@ def _launch(q, k, v, group_size: int, causal: bool, window: Optional[int],
     if group_size < 1 or bh % group_size:
         raise ValueError(f"flash_attention: BH={bh} is not a multiple of "
                          f"group_size={group_size}")
-    shape = (bh // group_size, sq, hd)
+    skv = k.shape[1] if k.dim() == 3 else -1
+    shape = (bh // group_size, skv, hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         want = tuple(q.shape) if name == "q" else shape
         if t.device != dev or t.dtype != q.dtype or tuple(t.shape) != want \
-                or not t.is_contiguous() or t.data_ptr() % 16:
+                or skv < 1 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention: {name} must be a contiguous, 16-byte "
-                f"aligned {q.dtype} tensor of shape {want} on {dev} (the "
-                f"kernel takes Skv == Sq), got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device} (contiguous={t.is_contiguous()})")
+                f"aligned {q.dtype} tensor of shape {want} on {dev} (k and "
+                f"v: (BH // group_size, Skv, hd), Skv >= 1), got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
@@ -115,7 +123,8 @@ def _launch(q, k, v, group_size: int, causal: bool, window: Optional[int],
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), bh, group_size, sq, int(causal),
+                        out.data_ptr(), bh, group_size, sq, skv,
+                        int(causal),
                         0 if window is None else int(window), hd,
                         1.0 / math.sqrt(hd),
                         0.0 if softcap is None else float(softcap), stream),

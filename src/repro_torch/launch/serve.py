@@ -3,15 +3,22 @@
 Port of ``repro.launch.serve``: requests are padded to one prompt length,
 prefilled once (attention through the flash-attention kernel on the card),
 then decoded token by token against the shared KV cache, padded to the
-full length in bf16 as ``repro.launch.serve`` pads it. Prompts come from
-``np.random.default_rng(seed)`` exactly as there. A vision frontend
-(pixtral) gets zero patch embeddings, (B, n_frontend_tokens, d) in f32,
-before the prompt, and the cache and decode positions are offset by them.
+full length in bf16 as ``repro.launch.serve`` pads it (a recurrent state,
+the xLSTM's, and whisper's cross K/V pass through at their size). Prompts
+come from ``np.random.default_rng(seed)`` exactly as there. A vision
+frontend (pixtral) gets zero patch embeddings, (B, n_frontend_tokens, d)
+in f32, before the prompt, and the cache and decode positions are offset
+by them; an audio frontend (whisper) gets zero frame embeddings of the
+same shape for its encoder.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --reduced --requests 2 --prompt-len 24 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+      --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -29,13 +36,17 @@ from repro_torch.models import registry
 def pad_cache_to(cache, target):
     """Copy each prefill cache tensor into the front of its zero target,
     cast to the target's dtype (``repro.launch.serve``'s pad, then
-    ``astype``). Fills ``target`` in place and returns it."""
+    ``astype``); a tensor of the target's shape and dtype (a recurrent
+    state) is taken as it is. Fills ``target`` in place and returns it."""
     for name, t in target.items():
         c = cache[name]
         if c.dim() != t.dim() or any(a > b for a, b in zip(c.shape, t.shape)):
             raise ValueError(f"cache {name}: {tuple(c.shape)} does not fit "
                              f"in {tuple(t.shape)}")
-        t[tuple(slice(0, n) for n in c.shape)] = c
+        if c.shape == t.shape and c.dtype == t.dtype:
+            target[name] = c
+        else:
+            t[tuple(slice(0, n) for n in c.shape)] = c
     return target
 
 
@@ -48,11 +59,12 @@ def serve(arch: str, reduced: bool, n_requests: int, prompt_len: int,
           gen_len: int, greedy: bool = True, seed: int = 0, *, params=None,
           device=None):
     """Prefill ``n_requests`` random prompts of ``prompt_len`` tokens, then
-    decode ``gen_len - 1`` more tokens greedily. ``params`` (a
-    ``Transformer`` on ``device``) defaults to random weights drawn on the
-    device from ``seed``. Returns ``repro.launch.serve.serve``'s dict:
-    ``generated`` (n_requests, gen_len) int, ``prefill_s``,
-    ``decode_s_per_token``, ``tokens_per_s``."""
+    decode ``gen_len - 1`` more tokens greedily. ``params`` (the family's
+    module on ``device``: a ``Transformer``, a ``Whisper`` or an ``XLSTM``)
+    defaults to random weights drawn on the device from ``seed``. Returns
+    ``repro.launch.serve.serve``'s dict: ``generated`` (n_requests,
+    gen_len) int, ``prefill_s``, ``decode_s_per_token``,
+    ``tokens_per_s``."""
     if not greedy:
         raise NotImplementedError(
             "only greedy decoding, as repro.launch.serve")
@@ -75,6 +87,10 @@ def serve(arch: str, reduced: bool, n_requests: int, prompt_len: int,
         batch["prefix_embeds"] = torch.zeros(
             (n_requests, n_prefix, cfg.d_model), dtype=torch.float32,
             device=dev)
+    if cfg.frontend == "audio":
+        batch["audio_embeds"] = torch.zeros(
+            (n_requests, cfg.n_frontend_tokens, cfg.d_model),
+            dtype=torch.float32, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = api.prefill(params, batch)

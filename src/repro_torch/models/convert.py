@@ -8,6 +8,10 @@ transformer: its ``blocks`` leaves carry a leading group axis. Any missing
 or extra key, and any shape mismatch, raises. A JAX ``AdamState`` loads into
 the port's (``adam_state_from_jax``), its moments in the order of
 ``MeshGraphNet.leaves()``, and ``adam_state_to_jax`` writes it back.
+Whisper (``whisper_from_jax``): its ``enc_blocks`` and ``dec_blocks``
+stacks are unstacked into the layer lists; the xLSTM (``xlstm_from_jax``):
+its ``blocks`` (groups, each a list of mLSTM blocks and an sLSTM block)
+into ``blocks[g]``.
 X-UNet3D (``xunet_from_jax``, ``xunet_to_jax``): convolution weights go
 from JAX's DHWIO ``(k, k, k, cin, cout)`` to PyTorch's OIDHW ``(cout, cin,
 k, k, k)`` and back; without attention gates the tree's ``gates`` entries
@@ -23,7 +27,9 @@ import torch
 from repro_torch.configs.base import GNNConfig, ModelConfig, UNetConfig
 from repro_torch.device import resolve
 from repro_torch.models.meshgraphnet import MeshGraphNet
+from repro_torch.models.stacks import XLSTM, xlstm_group_layout
 from repro_torch.models.transformer import Transformer, group_structure
+from repro_torch.models.whisper import Whisper
 from repro_torch.models.xunet3d import XUNet3D, full_f32
 from repro_torch.optim.adam import AdamState
 
@@ -171,6 +177,35 @@ def adam_state_to_jax(state: AdamState, model: MeshGraphNet) -> dict:
             "mu": tree(state.mu), "nu": tree(state.nu)}
 
 
+def _llm_from_jax(tree, cfg: ModelConfig, model: torch.nn.Module,
+                  stacked: Dict[str, tuple], device) -> torch.nn.Module:
+    """Load a JAX LLM pytree into ``model`` (built on ``meta``), in
+    ``cfg.dtype``: each subtree named in ``stacked`` has a leading axis of
+    ``(length, what it counts)``, split into ``{name}.{i}.``; the rest
+    loads by name."""
+    if not isinstance(tree, dict):
+        raise TypeError(f"expected a dict param tree, got {type(tree)}")
+    flat: Dict[str, np.ndarray] = {}
+    for name, sub in tree.items():
+        if name not in stacked:
+            _flatten(sub, f"{name}.", flat)
+            continue
+        n, what = stacked[name]
+        leaves: Dict[str, np.ndarray] = {}
+        _flatten(sub, "", leaves)
+        for key, arr in leaves.items():
+            if arr.ndim == 0 or arr.shape[0] != n:
+                raise ValueError(f"{name}.{key}: leading axis "
+                                 f"{arr.shape[:1]} != {n} {what}")
+            for i in range(n):
+                flat[f"{name}.{i}.{key}"] = arr[i]
+    dtype = getattr(torch, cfg.dtype)
+    got = {k: torch.tensor(np.asarray(v, np.float32)).to(dtype)
+           for k, v in flat.items()}
+    _load(model, got, assign=True)
+    return model.to(resolve(device))
+
+
 def transformer_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:
     """A :class:`Transformer` holding a JAX decoder pytree (numpy arrays),
     in ``cfg.dtype`` (default device: the card). The ``blocks`` subtree,
@@ -178,28 +213,30 @@ def transformer_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:
     ``blocks[g].layers[i]``; ``w`` stays (in, out). The rest loads by name:
     ``first_layers`` (a list), a layer's ``moe`` subtree (``router.w``, the
     (E, ., .) expert stacks, ``shared``) and ``vision_proj``."""
-    if not isinstance(tree, dict):
-        raise TypeError(f"expected a dict param tree, got {type(tree)}")
     _, n_groups, _ = group_structure(cfg)
-    flat: Dict[str, np.ndarray] = {}
-    for name, sub in tree.items():
-        if name != "blocks":
-            _flatten(sub, f"{name}.", flat)
-            continue
-        stacked: Dict[str, np.ndarray] = {}
-        _flatten(sub, "", stacked)
-        for key, arr in stacked.items():
-            if arr.ndim == 0 or arr.shape[0] != n_groups:
-                raise ValueError(f"blocks.{key}: leading axis "
-                                 f"{arr.shape[:1]} != {n_groups} groups")
-            for g in range(n_groups):
-                flat[f"blocks.{g}.{key}"] = arr[g]
-    dtype = getattr(torch, cfg.dtype)
-    got = {k: torch.tensor(np.asarray(v, np.float32)).to(dtype)
-           for k, v in flat.items()}
-    model = Transformer(cfg, device="meta")     # no weights drawn
-    _load(model, got, assign=True)
-    return model.to(resolve(device))
+    return _llm_from_jax(tree, cfg, Transformer(cfg, device="meta"),
+                         {"blocks": (n_groups, "groups")}, device)
+
+
+def whisper_from_jax(tree, cfg: ModelConfig, device=None) -> Whisper:
+    """A :class:`Whisper` holding a JAX whisper pytree (numpy arrays), in
+    ``cfg.dtype`` (default device: the card): ``enc_blocks`` and
+    ``dec_blocks``, stacked on a leading layer axis, are split into the
+    layer lists (a decoder layer's ``xattn`` and ``ln_x`` with it); the
+    rest (``embed``, ``enc_ln``, ``dec_ln``, ``lm_head``) loads by name."""
+    return _llm_from_jax(tree, cfg, Whisper(cfg, device="meta"),
+                         {"enc_blocks": (cfg.encoder_layers, "layers"),
+                          "dec_blocks": (cfg.n_layers, "layers")}, device)
+
+
+def xlstm_from_jax(tree, cfg: ModelConfig, device=None) -> XLSTM:
+    """An :class:`XLSTM` holding a JAX xLSTM pytree (numpy arrays), in
+    ``cfg.dtype`` (default device: the card): ``blocks``, stacked on a
+    leading group axis around ``{'mlstm': [...], 'slstm': {...}}``, is split
+    into ``blocks[g].mlstm[i]`` and ``blocks[g].slstm``."""
+    _, n_groups = xlstm_group_layout(cfg)
+    return _llm_from_jax(tree, cfg, XLSTM(cfg, device="meta"),
+                         {"blocks": (n_groups, "groups")}, device)
 
 
 def xunet_from_jax(tree, cfg: UNetConfig, device=None) -> XUNet3D:

@@ -1,17 +1,21 @@
-"""Model API over the LLM families the port runs: the decoders.
+"""Model API over the LLM families the port runs.
 
-``get_model(cfg)`` returns a :class:`ModelAPI`, the counterpart of
-``repro.models.registry._decoder_api``, for the ``dense``, ``moe`` and
-``vlm`` families:
-  init(seed=0, device=None) -> params (a ``Transformer``)
+``get_model(cfg)`` returns a :class:`ModelAPI`, dispatched as
+``repro.models.registry.get_model``: an encoder-decoder (whisper), then a
+config with SSM blocks and a shared attention block (the hybrid, still to
+port: it raises), then one with SSM blocks (the xLSTM stack), else the
+decoders (``dense``, ``moe``, ``vlm``):
+  init(seed=0, device=None) -> params (an ``nn.Module``)
   prefill(params, batch) -> (logits, cache)
   decode(params, cache, batch, pos) -> (logits, cache)   cache updated in place
-  empty_cache(batch, seq_len, device=None) -> zero KV cache, bf16
+  empty_cache(batch, seq_len, device=None) -> zero KV cache (bf16) or
+      recurrent state
 ``batch`` holds ``tokens`` (B, S) int on the params' device and, for a
-vision frontend, ``prefix_embeds`` (B, P, d). The MoE aux loss is dropped,
-as serving drops it. ``train_loss`` comes with the training slice.
-:func:`param_count` and :func:`active_param_count` count a config's
-parameters without drawing them.
+vision frontend, ``prefix_embeds`` (B, P, d), for an audio frontend
+``audio_embeds`` (B, T, d). The MoE aux loss is dropped, as serving drops
+it. ``train_loss`` comes with the training slice. :func:`param_count` and
+:func:`active_param_count` count a config's parameters without drawing
+them.
 """
 from __future__ import annotations
 
@@ -22,9 +26,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.models import stacks
 from repro_torch.models import transformer as tfm
-
-DECODER_FAMILIES = ("dense", "moe", "vlm")
+from repro_torch.models import whisper as whi
 
 
 @dataclass(frozen=True)
@@ -59,21 +63,74 @@ def _decoder_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(cfg, init, prefill, decode, empty_cache)
 
 
+def _whisper_api(cfg: ModelConfig) -> ModelAPI:
+    def init(seed: int = 0, device=None):
+        return whi.init(cfg, seed, device)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        enc_out = params.encode(batch["audio_embeds"])
+        return params.decode_stack(batch["tokens"], None, mode="prefill",
+                                   enc_out=enc_out)
+
+    @torch.no_grad()
+    def decode(params, cache, batch, pos: int):
+        return params.decode_stack(batch["tokens"], cache, mode="decode",
+                                   decode_pos=int(pos))
+
+    def empty_cache(batch: int, seq_len: int, device=None):
+        return whi.empty_cache(cfg, batch, seq_len,
+                               t_audio=cfg.n_frontend_tokens,
+                               device=resolve(device))
+
+    return ModelAPI(cfg, init, prefill, decode, empty_cache)
+
+
+def _xlstm_api(cfg: ModelConfig) -> ModelAPI:
+    def init(seed: int = 0, device=None):
+        return stacks.xlstm_init(cfg, seed, device)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        return params(batch["tokens"])
+
+    @torch.no_grad()
+    def decode(params, state, batch, pos: int):
+        del pos  # the recurrent state carries no position
+        return params(batch["tokens"], state)
+
+    def empty_cache(batch: int, seq_len: int, device=None):
+        del seq_len  # O(1) state, whatever the length
+        return stacks.xlstm_empty_state(cfg, batch, device=resolve(device))
+
+    return ModelAPI(cfg, init, prefill, decode, empty_cache)
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in DECODER_FAMILIES:
+    if cfg.is_encoder_decoder:
+        return _whisper_api(cfg)
+    if cfg.ssm is not None and cfg.attn_every:
         raise NotImplementedError(
-            f"the port runs the decoder families {DECODER_FAMILIES}; family "
-            f"{cfg.family!r} (encoder-decoder audio, SSM, hybrid) is still "
-            "to port, see ROADMAP.md")
+            f"{cfg.name}: the hybrid stack (Mamba2 blocks and a shared "
+            "attention block, zamba2) is still to port, see ROADMAP.md")
+    if cfg.ssm is not None:
+        return _xlstm_api(cfg)
     return _decoder_api(cfg)
+
+
+def _meta_model(cfg: ModelConfig):
+    get_model(cfg)
+    if cfg.is_encoder_decoder:
+        return whi.Whisper(cfg, device="meta")
+    if cfg.ssm is not None:
+        return stacks.XLSTM(cfg, device="meta")
+    return tfm.Transformer(cfg, device="meta")
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of the config's model, counted on the ``meta`` device
     (nothing is drawn or allocated)."""
-    get_model(cfg)
-    model = tfm.Transformer(cfg, device="meta")
-    return sum(p.numel() for p in model.parameters())
+    return sum(p.numel() for p in _meta_model(cfg).parameters())
 
 
 def active_param_count(cfg: ModelConfig) -> int:

@@ -106,11 +106,11 @@ class Attention(nn.Module):
 
     def forward(self, x, q_pos, *, window: Optional[int], mode: str,
                 cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                decode_pos: Optional[int] = None):
-        """mode 'prefill': x (B, S, d), returns (out, (k, v)). mode
-        'decode': x (B, 1, d); ``cache_kv`` is the layer's (k, v) cache
-        (B, Smax, KV, hd), written at ``decode_pos`` in place; returns
-        (out, cache_kv)."""
+                decode_pos: Optional[int] = None, causal: bool = True):
+        """mode 'prefill': x (B, S, d), returns (out, (k, v)); ``causal``
+        False attends both ways (whisper's encoder). mode 'decode': x (B, 1,
+        d); ``cache_kv`` is the layer's (k, v) cache (B, Smax, KV, hd),
+        written at ``decode_pos`` in place; returns (out, cache_kv)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -136,7 +136,7 @@ class Attention(nn.Module):
                          window=window, cap=cfg.attn_softcap)
             new_kv = cache_kv
         elif mode == "prefill":
-            out = fa_ops.mha(q, k, v, causal=True, window=window,
+            out = fa_ops.mha(q, k, v, causal=causal, window=window,
                              softcap=cfg.attn_softcap)
             new_kv = (k, v)
         else:

@@ -453,6 +453,64 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
             FA_BF16_ROW_RTOL
 
 
+# Whisper's contract at hd 64, both dtypes: the bidirectional encoder
+# (Skv = Sq = 1,500 = 23 x 64 + 28, a ragged last key tile that must be
+# masked past Skv without causal masking or a window; and at 1,536 = 24 x
+# 64, where no tile is masked), the cross-attention (Sq 224 against Skv
+# 1,500, and 64 and 300 against 1,536 and 100), and the decoder's causal
+# self-attention at 224. (dtype, B, Sq, Skv, H, KV, causal)
+FA_SKV_CASES = [
+    (dtype, *shape) for dtype in ("bfloat16", "float32") for shape in (
+        (2, 1500, 1500, 4, 4, False),
+        (1, 1536, 1536, 4, 2, False),
+        (2, 224, 1500, 4, 4, False),
+        (1, 64, 1536, 2, 2, False),
+        (1, 300, 100, 4, 2, False),
+        (2, 224, 224, 4, 4, True))]
+
+
+def _plain_dropping_last_tile(qf, kf, vf, gs):
+    """A stand-in for a wrong non-causal kernel: the plain version with the
+    last key tile (the ragged one where Skv is not a multiple of 64)
+    dropped."""
+    skv, hd = kf.shape[1:]
+    keep = torch.arange(skv, device=qf.device) < (skv - 1) // KEY_TILE * \
+        KEY_TILE
+    kr, vr = (t.repeat_interleave(gs, 0).float() for t in (kf, vf))
+    sc = torch.einsum("hqd,hkd->hqk", qf.float(), kr) / math.sqrt(hd)
+    sc = torch.where(keep, sc, -1e30)
+    return torch.einsum("hqk,hkd->hqd", sc.softmax(-1), vr).to(qf.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_SKV_CASES)
+def test_flash_attention_kernel_matches_plain_at_hd64(cuda, case):
+    dtype, b, sq, skv, h, kvh, causal = case
+    hd = 64
+    rng = np.random.default_rng(sq + skv + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, heads, hd)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype))
+        for n, heads in ((sq, h), (skv, kvh), (skv, kvh)))
+    before = fa_ops.mha.launches
+    got = fa_ops.mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.mha.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    qf = q.transpose(1, 2).reshape(-1, sq, hd)
+    kf, vf = (t.transpose(1, 2).reshape(-1, skv, hd) for t in (k, v))
+    want = fa_ref.attention(qf, kf, vf, group_size=h // kvh, causal=causal)
+    want = want.reshape(b, h, sq, hd).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_TOL[dtype],
+                               rtol=FA_TOL[dtype])
+    if dtype == "bfloat16":
+        assert float(_row_rel_err(got, want).max()) <= FA_BF16_ROW_RTOL
+        wrong = (_plain_dropping_a_tile(qf, kf, vf, h // kvh, True, None,
+                                        None) if causal else
+                 _plain_dropping_last_tile(qf, kf, vf, h // kvh))
+        wrong = wrong.reshape(b, h, sq, hd).transpose(1, 2)
+        assert float(_row_rel_err(wrong, want).max()) > FA_BF16_ROW_RTOL
+
+
 @pytest.mark.parametrize("s,window", [(640, None), (1000, 300)])
 def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
     """The bf16 row check admits the plain version's own bf16 rounding and
@@ -471,35 +529,41 @@ def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_is_not_built_for(cuda):
-    """Both kernels are built for hd 128 and 256 in bf16 and f32 only, with
-    Skv == Sq; the bf16 kernel's grid takes at most 65,535 blocks of 128
-    rows, which its C entry checks before it reads any memory. Each C entry
-    refuses any other hd itself."""
+    """Both kernels are built for hd 64, 128 and 256 in bf16 and f32 only,
+    and take causal masking only with Skv == Sq; the bf16 kernel's grid
+    takes at most 65,535 blocks of 128 rows, which its C entry checks
+    before it reads any memory. Each C entry refuses any other hd, and
+    causal masking with Skv != Sq, itself."""
+    stream = torch.cuda.current_stream(cuda).cuda_stream
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t.to(cuda, dtype)
-                   for t in _fa_case(0, 1, 64, 2, 1, hd=64))
-        with pytest.raises(ValueError, match=r"\(128, 256\), got hd=64"):
+                   for t in _fa_case(0, 1, 64, 2, 1, hd=80))
+        with pytest.raises(ValueError,
+                           match=r"\(64, 128, 256\), got hd=80"):
             fa_ops.mha(q, k, v)
-        stream = torch.cuda.current_stream(cuda).cuda_stream
-        qf = q.transpose(1, 2).reshape(2, 64, 64).contiguous()
+        qf = q.transpose(1, 2).reshape(2, 64, 80).contiguous()
         status = fa_ops._lib(dtype)(
             qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 2, 1,
-            64, 1, 0, 64, 1 / 8, 0.0, stream)
+            64, 64, 1, 0, 80, 80 ** -0.5, 0.0, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(status, "flash_attention")
+        q, k, v = (t.to(cuda, dtype)
+                   for t in _fa_case(0, 1, 130, 2, 1, hd=64))
+        with pytest.raises(ValueError, match="Skv == Sq"):
+            fa_ops.mha(q, k[:, :128], v[:, :128])
+        qf = q.transpose(1, 2).reshape(2, 130, 64).contiguous()
+        status = fa_ops._lib(dtype)(
+            qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 2, 2,
+            130, 128, 1, 0, 64, 1 / 8, 0.0, stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.check(status, "flash_attention")
     q, k, v = (t.to(cuda, torch.float16) for t in _fa_case(0, 1, 64, 2, 1))
     with pytest.raises(ValueError, match="bfloat16 and float32"):
         fa_ops.mha(q, k, v)
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (t.to(cuda, dtype)
-                   for t in _fa_case(0, 1, 130, 2, 1))
-        with pytest.raises(ValueError, match="Skv == Sq"):
-            fa_ops.mha(q, k[:, :128], v[:, :128])
     q = torch.zeros((1, 128, 256), dtype=torch.bfloat16, device=cuda)
-    stream = torch.cuda.current_stream(cuda).cuda_stream
     status = fa_ops._lib(torch.bfloat16)(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 1,
-        65535 * 128 + 1, 1, 0, 256, 1 / 16, 0.0, stream)
+        65535 * 128 + 1, 65535 * 128 + 1, 1, 0, 256, 1 / 16, 0.0, stream)
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check(status, "flash_attention")
 

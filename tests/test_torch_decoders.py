@@ -20,7 +20,7 @@ from repro.configs import get_config as jax_get_config
 from repro.launch.serve import serve as jax_serve
 from repro.models import registry as jregistry
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.launch.serve import serve
 from repro_torch.models import registry
 from repro_torch.models.convert import transformer_from_jax
@@ -170,8 +170,14 @@ def test_param_counts_match_jax():
 
 
 def test_other_families_raise():
-    for family in ("audio", "ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_model(get_config("yi-34b").replace(family=family))
+    """The hybrid stack (SSM blocks with a shared attention block) is still
+    to port, and so is zamba2's config; dispatch follows the config's
+    fields, as JAX's ``get_model``, not its family name."""
+    hybrid = get_config("yi-34b").replace(
+        family="hybrid", ssm=SSMConfig(kind="mamba2"), attn_every=6)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        registry.get_model(hybrid)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        registry.param_count(hybrid)
     with pytest.raises(KeyError, match="repro.configs"):
-        get_config("whisper-large-v3")
+        get_config("zamba2-2.7b")

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.flash_attention import ref as jfa_ref
+from repro.models import transformer as jtfm
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 CASES = [
@@ -175,6 +176,73 @@ def test_ragged_length_matches_jax_ref(window):
     np.testing.assert_allclose(_port(q, k, v, case, "float32"),
                                _jax_ref(q, k, v, case, jnp.float32),
                                rtol=TOL["float32"], atol=TOL["float32"])
+
+
+# whisper's contract at hd = 64: the bidirectional encoder (Skv = Sq,
+# ragged), the cross-attention (Sq the prompt, Skv the frames: 1,500 = 23 x
+# 64 + 28 at full width), and the causal decoder, each against JAX's
+# reference (any length).
+CASES_64 = [
+    (2, 150, 150, 4, 4, 64, False, None, None),    # encoder, ragged
+    (2, 24, 100, 4, 4, 64, False, None, None),     # cross, Sq < Skv
+    (1, 100, 36, 4, 2, 64, False, None, None),     # cross, Sq > Skv, GQA
+    (2, 70, 70, 4, 4, 64, True, None, None),       # decoder self
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES_64,
+                         ids=["encoder", "cross", "cross_gqa", "causal"])
+def test_mha_matches_jax_ref_at_hd64(case, dtype):
+    q, k, v = _inputs(case, 60 + CASES_64.index(case))
+    np.testing.assert_allclose(_port(q, k, v, case, dtype),
+                               _jax_ref(q, k, v, case, getattr(jnp, dtype)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_noncausal_skv_matches_jax_pallas_interpret():
+    """causal=False with Skv != Sq (64 against 256, shapes the Pallas
+    kernel's 128-key blocks take) within 1e-5 of JAX's kernel in interpret
+    mode."""
+    case = (1, 64, 256, 4, 2, 64, False, None, None)
+    q, k, v = _inputs(case, 70)
+    b, sq, skv, h, kvh, hd = case[:6]
+    want = jfa_ops.flash_attention(
+        *(jnp.asarray(a).transpose(0, 2, 1, 3).reshape(-1, a.shape[1], hd)
+          for a in (q, k, v)), group_size=h // kvh, causal=False,
+        interpret=True)
+    want = np.asarray(want).reshape(b, h, sq, hd).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_cross_attention_matches_jax_attend():
+    """Whisper's cross-attention as JAX computes it (``tfm._attend`` with
+    q_pos zeros, every frame valid, causal=False) at a ragged Skv, within
+    1e-5."""
+    case = (2, 24, 100, 4, 2, 64, False, None, None)
+    q, k, v = _inputs(case, 71)
+    b, sq, skv = case[:3]
+    want = jtfm._attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        jnp.zeros((b, sq), jnp.int32),
+                        jnp.arange(skv, dtype=jnp.int32)[None].repeat(b, 0),
+                        causal=False, window=None, softcap=None)
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_causal_with_skv_unlike_sq_raises():
+    """JAX's causal mask compares positions within each tensor, so it
+    assumes Sq == Skv; the wrapper refuses causal masking otherwise, on
+    either device and through either entry."""
+    q, k, v = (torch.from_numpy(a) for a in
+               _inputs((1, 24, 100, 2, 2, 64), 72))
+    with pytest.raises(ValueError, match="Skv == Sq"):
+        fa_ops.mha(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="Skv == Sq"):
+        fa_ops.flash_attention(q[0].transpose(0, 1).contiguous(),
+                               k[0].transpose(0, 1).contiguous(),
+                               v[0].transpose(0, 1).contiguous())
 
 
 def test_cpu_path_launches_no_kernel():

@@ -46,7 +46,9 @@ def test_import_loads_no_jax_or_repro():
                  "models.moe", "configs.qwen3_moe_30b_a3b",
                  "configs.deepseek_moe_16b", "configs.pixtral_12b",
                  "configs.granite_3_8b", "configs.starcoder2_15b",
-                 "configs.yi_34b"):
+                 "configs.yi_34b", "models.whisper", "models.ssm",
+                 "models.stacks", "configs.whisper_large_v3",
+                 "configs.xlstm_350m"):
         assert f"repro_torch.{name}" in res["modules"]
 
 

@@ -17,7 +17,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import registry as jregistry
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.models import registry, transformer as tfm
 from repro_torch.models.convert import transformer_from_jax
 from repro_torch.models.nn import ACTS
@@ -73,7 +73,8 @@ def test_unknown_config_and_family_raise():
     with pytest.raises(KeyError, match="repro.configs"):
         get_config("zamba2-2.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_model(get_config("gemma2-9b").replace(family="ssm"))
+        registry.get_model(get_config("gemma2-9b").replace(
+            family="hybrid", ssm=SSMConfig(kind="mamba2"), attn_every=6))
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
