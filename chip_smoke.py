@@ -10,8 +10,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 1. card: print the card's name and power limit (nvidia-smi);
 2. build: compile every CUDA kernel of the serving and training paths from
    the sources in this checkout (nvcc, sm_90a, one process per source, each
-   timed) into build/kernels/; the bf16 flash kernel's SASS must hold HGMMA
-   (wgmma on the tensor cores) and UTMALDG (TMA loads);
+   timed) into build/kernels/; each instance of the bf16 flash kernel (one
+   per head_dim) must hold HGMMA (wgmma on the tensor cores) and UTMALDG
+   (TMA loads) in its SASS;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at its serving path's shapes (kNN: bit-equal at all six level shapes of
    the two buckets, on each bucket's calibrated grid; segment-sum: the
@@ -31,7 +32,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    the plain version with the last key tile (non-causal) or the first tile
    of each row (causal) dropped must fail; the encoder shape timed in both
    dtypes beside SDPA (non-causal: the same function), the cross shape in
-   bf16),
+   bf16; the same at head_dim 80 (padded to 128 inside both kernels; run
+   in phase 21's child process), zamba2-2.7b's shared attention: its
+   prefill, 2 x 4,096 tokens, H = KV =
+   32, causal, timed in both dtypes beside SDPA (the same function), the
+   bf16 per row where the plain version with a key tile dropped must fail,
+   and for correctness only at 1,000 queries a ragged non-causal case, Skv
+   != Sq, GQA group 4 and a window with a softcap, in both dtypes),
    and time each (f32 flash too, by CUDA events: its time,
    its bound at 67 TFLOP/s, its TFLOP/s, ``flex_attention`` compiled in
    f32, and its ``torch.profiler`` device time if a profile of 10 launches
@@ -150,6 +157,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    tokens and 32 generated, no launch of the port's kernels: peak memory,
    ``prefill_s``, decode ms/token, the sLSTM blocks' seconds in one
    prefill and the launches of one profiled decode step.
+21. zamba2-2.7b, the hybrid (after phase 20, in a spawned child process
+   with the head_dim-80 part of phase 3, so that its profiles start from a
+   fresh torch.profiler and leave the later phases' alone; the child's
+   launch counts join the parent's): (a) at full width cut to one
+   group (5 Mamba2 blocks and the shared attention block), 2 x 256 tokens,
+   f32, in phase 7's form: tokens equal and logits within LLM_ATOL, the f32
+   flash kernel launched once at head_dim 80, in the prefill; (b)
+   ``serve`` of zamba2-2.7b at full width and depth in bf16, 2 x 4,096
+   tokens and 32 generated: 9 flash launches in the prefill (one per
+   shared-attention occurrence) and none in decode, no other kernel of the
+   port, peak memory, ``prefill_s``, decode ms/token, and one profiled
+   prefill, its 9 launches all ``flash_wgmma_kernel<80>``, its device time
+   split between the Mamba2 blocks (the GLA core within them) and the
+   shared attention by the model's marks, then one profiled decode step
+   with its launches.
 
 9. training whole path: ``GNNConfig()`` at full width cut to 2
    message-passing layers and halo 2, a 2,048-point sample in 2 partitions;
@@ -256,7 +278,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    finite losses, step seconds and peak memory.
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
-freed before the LLM phases (the flash row of 3, then 7, 8, 19 and 20), all
+freed before the LLM phases (the flash row of 3, then 7, 8, 19, 20 and
+21), all
 but phase 5's weights; the training phases (the backward row of 3, then 9, 14,
 10 and 11) run in another, and phases 13 and 15 run last, on phase 5's weights,
 each in a function of its own, then phase 16, 17 (b, c) and 18, each in its
@@ -417,6 +440,27 @@ WHISPER_ARCH, XLSTM_ARCH = "whisper-large-v3", "xlstm-350m"
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 8, 224, 32
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_GEN = 2, 4096, 32
 WHOLE_AUDIO_PROMPT, WHOLE_XLSTM_PROMPT = 64, 256
+# Phase 3 at head_dim 80 and phase 21: zamba2-2.7b, the hybrid (2 x 4,096
+# tokens, 32 generated; 9 shared-attention occurrences a prefill); (a) cuts
+# it to one group (5 Mamba2 blocks and the shared block), card against CPU
+# in f32. Phase 3 holds both flash kernels at zamba2's prefill shape, timed,
+# then for correctness only at HD80_SHORT_S tokens: a ragged non-causal
+# case (1,000 = 15 x 64 + 40), Skv != Sq, GQA group 4, and a window with a
+# softcap.
+ZAMBA2_ARCH = "zamba2-2.7b"
+ZAMBA2_BATCH, ZAMBA2_PROMPT, ZAMBA2_GEN = 2, 4096, 32
+WHOLE_HYBRID_PROMPT = 256
+HD80_SHORT_S = 1000
+HD80_SHORT_CASES = (          # (Skv, H, KV, causal, window, softcap)
+    (1000, 32, 32, False, None, None),
+    (600, 32, 32, False, None, None),
+    (1000, 32, 8, True, None, None),
+    (1000, 32, 32, True, 256, 50.0))
+# the hybrid's parts, as models/stacks.py marks them for the profiler
+HYBRID_MARKS = ("hybrid.mamba2", "hybrid.shared_attention")
+# they run in a spawned child (a fresh torch.profiler), in this directory
+HYBRID_DIR = ROOT / "build" / "chip_smoke_hybrid"
+HYBRID_TIMEOUT = 600
 # Phase 19 (b): the MoE layer's parts, as models/moe.py marks them for the
 # profiler
 MOE_MARKS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
@@ -2994,6 +3038,166 @@ def flash_check_hd64(dev, card) -> dict:
         float32_library_ms=f32["sdpa_ms"], cross=cross, by_case=by_case)
 
 
+def flash_check_hd80(dev, card) -> dict:
+    """Phase 3 for the flash kernels at head_dim 80 (padded to 128 inside
+    both): against their plain version at zamba2-2.7b's prefill shape
+    (causal, H = KV = 32, no window, no softcap), bf16 (wgmma kernel) and
+    f32 (CUDA-core kernel), each timed beside its bound, the plain version
+    and SDPA (the same function here); bf16 also per (row, head), where the
+    plain version with the first key tile of each row dropped must fail;
+    then for correctness only, at HD80_SHORT_S queries, a ragged
+    non-causal case, Skv != Sq, GQA group 4 and a window with a softcap,
+    in both dtypes."""
+    import torch
+    from torch.nn import functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(ZAMBA2_ARCH)
+    hd = cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
+
+    def unflat(t, b, h):
+        return t.reshape(b, h, -1, hd).transpose(1, 2)
+
+    errs = {}
+    b, sq = ZAMBA2_BATCH, HD80_SHORT_S
+    for skv, h, kvh, causal, window, cap in HD80_SHORT_CASES:
+        base = [torch.randn((b, n, heads, hd), generator=gen, device=dev)
+                for n, heads in ((sq, h), (skv, kvh), (skv, kvh))]
+        for dname in ("bfloat16", "float32"):
+            q, k, v = (t.to(getattr(torch, dname)) for t in base)
+            qf, kf, vf = (flat(t) for t in (q, k, v))
+            got = fa_ops.mha(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+            torch.cuda.synchronize()
+            if got.dtype != q.dtype or got.shape != q.shape:
+                raise RuntimeError(f"flash_attention hd={hd}: bad output")
+            want = unflat(fa_ref.attention(qf, kf, vf, group_size=h // kvh,
+                                           causal=causal, window=window,
+                                           softcap=cap), b, h)
+            what = (f"hd={hd} {dname} Sq={sq} Skv={skv} H={h} KV={kvh} "
+                    f"causal={causal} window={window} softcap={cap}")
+
+            def drop():
+                wrong = (plain_dropping_a_tile(qf, kf, vf, h // kvh, window,
+                                               cap) if causal else
+                         plain_dropping_last_tile(qf, kf, vf, h // kvh))
+                return unflat(wrong, b, h)
+            errs[what] = _flash_case_check(got, want, dname, what, drop)
+        del base, q, k, v, qf, kf, vf, got, want
+
+    b, s = ZAMBA2_BATCH, ZAMBA2_PROMPT
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    gs = h // kvh
+    base = [torch.randn((b, s, n, hd), generator=gen, device=dev)
+            for n in (h, kvh, kvh)]
+    pairs = _window_pairs(s, None)
+    flops = 4.0 * hd * pairs * b * h
+    by_dtype = {}
+    for dname in ("bfloat16", "float32"):
+        q, k, v = (t.to(getattr(torch, dname)) for t in base)
+        qf, kf, vf = (flat(t) for t in (q, k, v))
+        got = fa_ops.mha(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype or got.shape != q.shape:
+            raise RuntimeError(f"flash_attention hd={hd}: bad output")
+        want = unflat(fa_ref.attention(qf, kf, vf, group_size=gs), b, h)
+        what = f"hd={hd} {dname} B={b} S={s} H={h} KV={kvh}"
+        errs[what] = _flash_case_check(
+            got, want, dname, what, lambda: unflat(plain_dropping_a_tile(
+                qf, kf, vf, gs, None, None), b, h))
+        del got
+
+        def kernel():
+            return fa_ops.flash_attention(qf, kf, vf, group_size=gs)
+
+        def plain():
+            return fa_ref.attention(qf, kf, vf, group_size=gs)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        n_bytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh
+                                      * hd)
+        sd = sdpa()
+        row = dict(sdpa_max_abs_err=float(
+            (sd.transpose(1, 2).float() - want.float()).abs().max()))
+        del sd
+        if dname == "bfloat16":
+            bound = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+            row.update(device_ms=device_ms(kernel, 10, FLASH_WGMMA_KERNEL),
+                       call_ms=time_cuda(kernel, 10),
+                       plain_ms=time_cuda(plain, 3, warmup=1),
+                       sdpa_ms=time_cuda(sdpa, 10),
+                       sdpa_device_ms=device_ms(sdpa, 10),
+                       bound_ms=bound[0], bound_by=bound[1])
+            row["fraction_of_bound"] = row["bound_ms"] / row["device_ms"]
+        else:
+            # event-timed, as the f32 rows at hd 256, 128 and 64 (a profile
+            # may hold fewer launches than were made)
+            bound = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+            held = [(ms, n) for name, ms, n in
+                    profiled_rows(kernel, F32_PROFILE_REPS)
+                    if FLASH_KERNEL_RE.search(name)]
+            n_held = sum(n for _, n in held)
+            row.update(ms=time_cuda(kernel, F32_REPS),
+                       plain_ms=time_cuda(plain, 3, warmup=1),
+                       sdpa_ms=time_cuda(sdpa, F32_REPS),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       profile_launches=n_held,
+                       device_ms=sum(ms for ms, _ in held) / n_held
+                       if n_held == F32_PROFILE_REPS else None)
+            row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+            row["tflops"] = flops / row["ms"] / 1e9
+        by_dtype[dname] = row
+        del q, k, v, qf, kf, vf, qt, kt, vt, want
+    del base
+    bf, f32 = by_dtype["bfloat16"], by_dtype["float32"]
+    log(f"[kernels] flash_attention hd={hd} ({ZAMBA2_ARCH} prefill, B={b} "
+        f"S={s} H={h} KV={kvh}, causal, {pairs} pairs per head, "
+        f"{flops:.4g} flops): bf16 device {bf['device_ms']:.4f} ms, call "
+        f"{bf['call_ms']:.4f} ms (bound {bf['bound_ms']:.4f} ms by "
+        f"{bf['bound_by']}, {bf['fraction_of_bound']:.3f} of it; plain "
+        f"{bf['plain_ms']:.3f} ms; SDPA device {bf['sdpa_device_ms']:.4f} "
+        f"ms, call {bf['sdpa_ms']:.4f} ms); f32 {f32['ms']:.3f} ms (events; "
+        f"bound {f32['bound_ms']:.3f} ms by {f32['bound_by']}, "
+        f"{f32['fraction_of_bound']:.3f} of it, {f32['tflops']:.2f} "
+        f"TFLOP/s; the profile held {f32['profile_launches']} of "
+        f"{F32_PROFILE_REPS} launches, device {f32['device_ms']} ms; plain "
+        f"{f32['plain_ms']:.3f} ms; SDPA {f32['sdpa_ms']:.3f} ms) | {card}")
+    log(f"[kernels] flash_attention hd={hd} errors against the plain "
+        "version: "
+        + "; ".join(f"{c}: max abs {e['max_abs_err']:.3g}, row max "
+                    f"{e['row_max']:.3g}"
+                    + (f", tile dropped {e['tile_dropped_max']:.3g}"
+                       if "tile_dropped_max" in e else "")
+                    for c, e in errs.items()))
+    return dict(
+        shape=f"B={b} S={s} H={h} KV={kvh} hd={hd}, causal, no window, no "
+              f"softcap ({ZAMBA2_ARCH} prefill)",
+        max_abs_err=max(e["max_abs_err"] for c, e in errs.items()
+                        if "bfloat16" in c),
+        errors=errs, ms=bf["device_ms"], device_ms=bf["device_ms"],
+        call_ms=bf["call_ms"], plain_ms=bf["plain_ms"],
+        bound_ms=bf["bound_ms"], bound_by=bf["bound_by"],
+        fraction_of_bound=bf["fraction_of_bound"],
+        library_ms=bf["sdpa_ms"], library_device_ms=bf["sdpa_device_ms"],
+        library_note="scaled_dot_product_attention(is_causal=True, "
+                     "enable_gqa=True): the same function (no softcap)",
+        float32_ms=f32["ms"], float32_device_ms=f32["device_ms"],
+        float32_bound_ms=f32["bound_ms"],
+        float32_fraction_of_bound=f32["fraction_of_bound"],
+        float32_tflops=f32["tflops"], float32_plain_ms=f32["plain_ms"],
+        float32_library_ms=f32["sdpa_ms"], by_dtype=by_dtype)
+
+
 def llm_whole_path(dev):
     """Phase 7: gemma2-9b at full width, 2 layers, f32, card against CPU."""
     import torch
@@ -3482,11 +3686,24 @@ def audio_recurrent_whole_path(dev, card, reset_counts, read_counts,
     """Phase 20 (a): whisper-large-v3 (2 encoder and 2 decoder layers, 2
     requests of WHOLE_AUDIO_PROMPT tokens after 1,500 seeded frame
     embeddings) and xlstm-350m (one group: 3 mLSTM and 1 sLSTM blocks, 2 x
-    WHOLE_XLSTM_PROMPT tokens) at full width in f32, initialised once on
-    the card and copied to the CPU, prefilled and decoded
-    WHOLE_LLM_DECODE steps on both (phase 7's form): tokens equal, logits
-    within LLM_ATOL; whisper launches the f32 flash kernel 6 times (2
+    WHOLE_XLSTM_PROMPT tokens) at full width in f32, in phase 7's form
+    (``whole_path_case``); whisper launches the f32 flash kernel 6 times (2
     encoder, 2 self, 2 cross), all in the prefill, the xLSTM none."""
+    cases = ((WHISPER_ARCH, dict(n_layers=2, encoder_layers=2),
+              WHOLE_AUDIO_PROMPT, 6),
+             (XLSTM_ARCH, dict(n_layers=4), WHOLE_XLSTM_PROMPT, 0))
+    for arch, cut, n, want_launches in cases:
+        whole_path_case(dev, card, reset_counts, read_counts, by_phase,
+                        "audio_recurrent", arch, cut, n, want_launches)
+
+
+def whole_path_case(dev, card, reset_counts, read_counts, by_phase, tag: str,
+                    arch: str, cut: dict, n: int, want_launches: int):
+    """One config at full width, cut in depth (``cut``), in f32, initialised
+    once on the card and copied to the CPU, 2 requests of ``n`` tokens
+    prefilled and decoded WHOLE_LLM_DECODE steps on both (phase 7's form):
+    tokens equal, logits within LLM_ATOL, and ``want_launches`` of the f32
+    flash kernel on the card, all in the prefill."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3494,80 +3711,76 @@ def audio_recurrent_whole_path(dev, card, reset_counts, read_counts,
     from repro_torch.launch.serve import pad_cache_to
     from repro_torch.models import registry
 
-    cases = ((WHISPER_ARCH, dict(n_layers=2, encoder_layers=2),
-              WHOLE_AUDIO_PROMPT, 6),
-             (XLSTM_ARCH, dict(n_layers=4), WHOLE_XLSTM_PROMPT, 0))
-    for arch, cut, n, want_launches in cases:
-        t_arch = time.perf_counter()
-        cfg = get_config(arch).replace(dtype="float32", **cut)
-        api = registry.get_model(cfg)
-        model_gpu = api.init(seed=0, device=dev)
-        model_cpu = _model_like(cfg, model_gpu)
-        b = LLM_BATCH
-        rng = np.random.default_rng(0)
-        batch = {"tokens": torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, size=(b, n)).astype(np.int32))}
-        if cfg.frontend == "audio":
-            batch["audio_embeds"] = torch.from_numpy(rng.normal(
-                size=(b, cfg.n_frontend_tokens, cfg.d_model)).astype(
-                    np.float32))
+    t_arch = time.perf_counter()
+    cfg = get_config(arch).replace(dtype="float32", **cut)
+    api = registry.get_model(cfg)
+    model_gpu = api.init(seed=0, device=dev)
+    model_cpu = _model_like(cfg, model_gpu)
+    b = LLM_BATCH
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(b, n)).astype(np.int32))}
+    if cfg.frontend == "audio":
+        batch["audio_embeds"] = torch.from_numpy(rng.normal(
+            size=(b, cfg.n_frontend_tokens, cfg.d_model)).astype(
+                np.float32))
 
-        def run(model, device):
-            t0 = time.perf_counter()
-            logits, cache = api.prefill(
-                model, {k: t.to(device) for k, t in batch.items()})
-            cache = pad_cache_to(cache, api.empty_cache(
-                b, n + WHOLE_LLM_DECODE + 1, device=device))
-            pre = logits.cpu()
-            del logits
-            toks, dec = [pre[:, -1].argmax(-1)], []
-            launched = fa_ops.mha.launches
-            for step in range(WHOLE_LLM_DECODE):
-                logits, cache = api.decode(
-                    model, cache, {"tokens": toks[-1][:, None].to(device)},
-                    n + step)
-                dec.append(logits.cpu())
-                toks.append(dec[-1][:, -1].argmax(-1))
-            return (pre, torch.cat(dec, 1), torch.stack(toks, 1),
-                    time.perf_counter() - t0, launched)
+    def run(model, device):
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(
+            model, {k: t.to(device) for k, t in batch.items()})
+        cache = pad_cache_to(cache, api.empty_cache(
+            b, n + WHOLE_LLM_DECODE + 1, device=device))
+        pre = logits.cpu()
+        del logits
+        toks, dec = [pre[:, -1].argmax(-1)], []
+        launched = fa_ops.mha.launches
+        for step in range(WHOLE_LLM_DECODE):
+            logits, cache = api.decode(
+                model, cache, {"tokens": toks[-1][:, None].to(device)},
+                n + step)
+            dec.append(logits.cpu())
+            toks.append(dec[-1][:, -1].argmax(-1))
+        return (pre, torch.cat(dec, 1), torch.stack(toks, 1),
+                time.perf_counter() - t0, launched)
 
-        reset_counts()
-        g_pre, g_dec, g_tok, t_gpu, g_prefill_launches = run(model_gpu, dev)
-        torch.cuda.synchronize()
-        read_counts(f"whole_{arch}")
-        c_pre, c_dec, c_tok, t_cpu, _ = run(model_cpu, torch.device("cpu"))
-        launches = by_phase["flash_attention"][f"whole_{arch}"]
-        if launches != want_launches or g_prefill_launches != want_launches:
-            raise RuntimeError(
-                f"{arch} whole path: flash attention launched {launches} "
-                f"times on the card ({g_prefill_launches} in the prefill), "
-                f"expected {want_launches}, all in the prefill")
-        if g_pre.shape != (b, n, cfg.padded_vocab) or \
-                not torch.isfinite(g_pre).all() or \
-                not torch.isfinite(g_dec).all():
-            raise RuntimeError(f"{arch} whole path: bad logits on the card")
-        if not torch.equal(g_tok, c_tok):
-            raise RuntimeError(f"{arch} whole path: tokens differ, card "
-                               f"{g_tok.tolist()} CPU {c_tok.tolist()}")
-        pre_err = float((g_pre - c_pre).abs().max())
-        dec_err = float((g_dec - c_dec).abs().max())
-        if not max(pre_err, dec_err) <= LLM_ATOL:
-            raise RuntimeError(f"{arch} whole path: logits differ, prefill "
-                               f"{pre_err}, decode {dec_err} > {LLM_ATOL}")
-        log(f"[audio_recurrent] {arch} width {cfg.d_model}, "
-            + ", ".join(f"{k} {v}" for k, v in cut.items())
-            + f", f32, {b} x {n} tokens"
-            + (f" after {cfg.n_frontend_tokens} frames"
-               if cfg.frontend == "audio" else "")
-            + f" + {WHOLE_LLM_DECODE} decode steps: tokens equal "
-            f"{g_tok.tolist()}; max abs err prefill logits {pre_err:.3g}, "
-            f"decode logits {dec_err:.3g} (atol {LLM_ATOL}); f32 flash "
-            f"launches {launches}, all in the prefill; card {t_gpu:.3f} s "
-            f"(first call), CPU {t_cpu:.2f} s; "
-            f"{time.perf_counter() - t_arch:.1f} s in all | {card}")
-        del model_gpu, model_cpu
-        gc.collect()
-        torch.cuda.empty_cache()
+    reset_counts()
+    g_pre, g_dec, g_tok, t_gpu, g_prefill_launches = run(model_gpu, dev)
+    torch.cuda.synchronize()
+    read_counts(f"whole_{arch}")
+    c_pre, c_dec, c_tok, t_cpu, _ = run(model_cpu, torch.device("cpu"))
+    launches = by_phase["flash_attention"][f"whole_{arch}"]
+    if launches != want_launches or g_prefill_launches != want_launches:
+        raise RuntimeError(
+            f"{arch} whole path: flash attention launched {launches} "
+            f"times on the card ({g_prefill_launches} in the prefill), "
+            f"expected {want_launches}, all in the prefill")
+    if g_pre.shape != (b, n, cfg.padded_vocab) or \
+            not torch.isfinite(g_pre).all() or \
+            not torch.isfinite(g_dec).all():
+        raise RuntimeError(f"{arch} whole path: bad logits on the card")
+    if not torch.equal(g_tok, c_tok):
+        raise RuntimeError(f"{arch} whole path: tokens differ, card "
+                           f"{g_tok.tolist()} CPU {c_tok.tolist()}")
+    pre_err = float((g_pre - c_pre).abs().max())
+    dec_err = float((g_dec - c_dec).abs().max())
+    if not max(pre_err, dec_err) <= LLM_ATOL:
+        raise RuntimeError(f"{arch} whole path: logits differ, prefill "
+                           f"{pre_err}, decode {dec_err} > {LLM_ATOL}")
+    log(f"[{tag}] {arch} width {cfg.d_model}, "
+        + ", ".join(f"{k} {v}" for k, v in cut.items())
+        + f", f32, {b} x {n} tokens"
+        + (f" after {cfg.n_frontend_tokens} frames"
+           if cfg.frontend == "audio" else "")
+        + f" + {WHOLE_LLM_DECODE} decode steps: tokens equal "
+        f"{g_tok.tolist()}; max abs err prefill logits {pre_err:.3g}, "
+        f"decode logits {dec_err:.3g} (atol {LLM_ATOL}); f32 flash "
+        f"launches {launches}, all in the prefill; card {t_gpu:.3f} s "
+        f"(first call), CPU {t_cpu:.2f} s; "
+        f"{time.perf_counter() - t_arch:.1f} s in all | {card}")
+    del model_gpu, model_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _serve_header(api, dev):
@@ -3783,6 +3996,103 @@ def xlstm_serve(dev, card, reset_counts, read_counts, by_phase):
         api.decode(params, state, {"tokens": tok}, XLSTM_PROMPT + 2)
         torch.cuda.synchronize()
     _log_kernels("xlstm decode step", prof, time.perf_counter() - t0)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hybrid_serve(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 21 (b): zamba2-2.7b served at full width and depth in bf16
+    (``serve``): ZAMBA2_BATCH x ZAMBA2_PROMPT tokens, ZAMBA2_GEN generated;
+    one flash launch per shared-attention occurrence in the prefill (9),
+    none in decode; then one profiled prefill, its launches all
+    ``flash_wgmma_kernel<80>``, its device time split between the Mamba2
+    blocks and the shared attention by the model's marks, and one profiled
+    decode step with its launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_cache_to, serve
+    from repro_torch.models import registry, stacks
+
+    cfg = get_config(ZAMBA2_ARCH)
+    api = registry.get_model(cfg)
+    _, want = stacks.hybrid_group_layout(cfg)
+    params, n_params, param_gb, t_init = _serve_header(api, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve(ZAMBA2_ARCH, False, ZAMBA2_BATCH, ZAMBA2_PROMPT, ZAMBA2_GEN,
+                params=params, device=dev)
+    torch.cuda.synchronize()
+    read_counts("zamba2_serve")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = {name: by_phase[name]["zamba2_serve"] for name in by_phase
+                if by_phase[name]["zamba2_serve"]}
+    if launched != {"flash_attention": want}:
+        raise RuntimeError(
+            f"zamba2 serve: launches {launched}, expected {want} of flash "
+            f"attention (one per shared-attention occurrence of the one "
+            "prefill, none in decode) and none of the other kernels")
+    gen = out["generated"]
+    if gen.shape != (ZAMBA2_BATCH, ZAMBA2_GEN) or \
+            not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise RuntimeError(f"zamba2 serve: bad tokens {gen.shape}")
+    log(f"[zamba2_serve] {ZAMBA2_ARCH} full width and depth "
+        f"({n_params} params, {param_gb:.2f} GB bf16, drawn on the card in "
+        f"{t_init:.2f} s), {ZAMBA2_BATCH} requests x {ZAMBA2_PROMPT} prompt "
+        f"tokens + {ZAMBA2_GEN} generated: prefill {out['prefill_s']:.4f} "
+        f"s, decode {out['decode_s_per_token'] * 1e3:.3f} ms/token, "
+        f"{out['tokens_per_s']:.2f} tokens/s, peak memory {peak_gb:.2f} GB "
+        f"| flash launches {want} (1 prefill, 0 in decode) | {card}")
+
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(ZAMBA2_BATCH, ZAMBA2_PROMPT)).astype(
+            np.int32)).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, state = api.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    rows = _log_kernels("zamba2 prefill", prof, time.perf_counter() - t0)
+    wgmma = [(k, n) for k, _, n in rows if FLASH_WGMMA_KERNEL in k]
+    n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
+    if not (sum(n for _, n in wgmma) == n_flash == want
+            and all("<80>" in k for k, _ in wgmma)):
+        raise RuntimeError(
+            f"zamba2 breakdown: the profiled prefill shows {wgmma} and "
+            f"{n_flash} launches of any flash kernel, expected {want} of "
+            f"{FLASH_WGMMA_KERNEL}<80>")
+    marked = _marked_ms(prof, HYBRID_MARKS)
+    total = sum(ms for _, ms, _ in rows)
+    flash = sum(ms for k, ms, _ in rows if FLASH_KERNEL_RE.search(k))
+    gla = _marked_ms(prof, ("mamba2.gla",))["mamba2.gla"]
+    log(f"[zamba2_breakdown] one prefill: device {total:.3f} ms in "
+        f"{sum(n for *_, n in rows)} launches = Mamba2 blocks "
+        f"{marked['hybrid.mamba2']:.3f} (the GLA core {gla:.3f} of it) + "
+        f"shared attention {marked['hybrid.shared_attention']:.3f} (with "
+        f"its projections and FFN; the flash kernel {flash:.3f} of it) + "
+        f"the rest {total - sum(marked.values()):.3f} (embedding, final "
+        f"norm, logits) | {card}")
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    state = pad_cache_to(state, api.empty_cache(
+        ZAMBA2_BATCH, ZAMBA2_PROMPT + ZAMBA2_GEN, device=dev))
+    for step in range(2):        # warm
+        logits, state = api.decode(params, state, {"tokens": tok},
+                                   ZAMBA2_PROMPT + step)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.decode(params, state, {"tokens": tok}, ZAMBA2_PROMPT + 2)
+        torch.cuda.synchronize()
+    rows = _log_kernels("zamba2 decode step", prof, time.perf_counter() - t0)
+    if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows):
+        raise RuntimeError("zamba2 breakdown: a decode step launched flash "
+                           "attention")
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4612,21 +4922,42 @@ def unet_phase(dev, card, features):
         f"{card}")
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
-              "test needs an NVIDIA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
+def flash_sass_check():
+    """Phase 2: each instance of the bf16 flash kernel (one per head_dim of
+    ``KERNEL_HEAD_DIMS``) must hold HGMMA (wgmma on the tensor cores) and
+    UTMALDG (TMA loads) in its SASS."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    sass = subprocess.run(
+        [shutil.which("cuobjdump")
+         or str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+         str(_build.library_path("flash_attention_wgmma"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    # each instance of the kernel (one per head_dim) on its own
+    by_hd = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        hd = re.search(r"flash_wgmma_kernelILi(\d+)E", fn.split("\n", 1)[0])
+        if hd:
+            by_hd[int(hd.group(1))] = {
+                op: len(re.findall(rf"\b{op}\b", fn)) for op in FLASH_SASS}
+    log(f"[build] flash_attention_wgmma SASS by head_dim: " + "; ".join(
+        f"hd {hd}: " + ", ".join(f"{op} x{n}" for op, n in found.items())
+        for hd, found in sorted(by_hd.items())))
+    if sorted(by_hd) != sorted(fa_ops.KERNEL_HEAD_DIMS) or not all(
+            n for found in by_hd.values() for n in found.values()):
+        raise RuntimeError(f"flash_attention_wgmma: SASS by head_dim "
+                           f"{by_hd}, expected {FLASH_SASS} in each of "
+                           f"{fa_ops.KERNEL_HEAD_DIMS}")
+
+
+def launch_counters():
+    """``by_phase`` ({kernel: {phase: launches}}) and its two closures:
+    ``reset_counts()`` sets every wrapper's count to 0, ``read_counts(phase)``
+    records each count under ``phase``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.knn import ops as knn_ops
     from repro_torch.kernels.segment_agg import ops as seg_ops
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     counters = {"segment_sum": seg_ops.segment_sum_prepared,
                 "segment_sum_backward": seg_ops.segment_sum_backward,
                 "gather_rows_backward": seg_ops.gather_rows,
@@ -4641,6 +4972,81 @@ def main() -> int:
     def read_counts(phase):
         for name, fn in counters.items():
             by_phase[name][phase] = fn.launches
+    return by_phase, reset_counts, read_counts
+
+
+def _hybrid_child(card: str, out_dir: str):
+    """Phase 3 at head_dim 80 and phase 21 in a spawned process: writes
+    ``result.json`` (the hd-80 row and the launch counts), or its traceback
+    to ``error.txt`` and fails."""
+    import traceback
+    try:
+        import torch
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda")
+        by_phase, reset_counts, read_counts = launch_counters()
+        reset_counts()
+        row = flash_check_hd80(dev, card)
+        torch.cuda.synchronize()
+        read_counts("flash_check_hd80")
+        whole_path_case(dev, card, reset_counts, read_counts, by_phase,
+                        "hybrid", ZAMBA2_ARCH, dict(n_layers=6),
+                        WHOLE_HYBRID_PROMPT, 1)
+        hybrid_serve(dev, card, reset_counts, read_counts, by_phase)
+        (Path(out_dir) / "result.json").write_text(
+            json.dumps({"hd80": row, "by_phase": by_phase}))
+    except BaseException:
+        (Path(out_dir) / "error.txt").write_text(traceback.format_exc())
+        raise
+
+
+def hybrid_phase(card, by_phase) -> dict:
+    """Phase 3 at head_dim 80 and phase 21 (a) and (b), in a spawned child
+    with a time limit (a failing or overrunning child fails the run). In a
+    process of its own the profiler starts fresh: after phases 3-20's
+    profiles, torch.profiler held only some launches of a profiled call
+    (ROADMAP Queue 3), and phase 21 (b)'s profiled prefill (30,081
+    launches) stays out of the later phases' profiles. Merges the child's
+    launch counts into ``by_phase``; returns the flash row's ``hd80``
+    entry."""
+    import multiprocessing as mp
+    shutil.rmtree(HYBRID_DIR, ignore_errors=True)
+    HYBRID_DIR.mkdir(parents=True)
+    proc = mp.get_context("spawn").Process(
+        target=_hybrid_child, args=(card, str(HYBRID_DIR)))
+    proc.start()
+    proc.join(HYBRID_TIMEOUT)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+        raise RuntimeError(f"phase 21: the child was killed at the "
+                           f"{HYBRID_TIMEOUT} s limit")
+    if proc.exitcode != 0:
+        err = HYBRID_DIR / "error.txt"
+        raise RuntimeError(f"phase 21: the child exited {proc.exitcode}\n"
+                           + (err.read_text() if err.exists() else ""))
+    res = json.loads((HYBRID_DIR / "result.json").read_text())
+    shutil.rmtree(HYBRID_DIR, ignore_errors=True)
+    for name, phases in res["by_phase"].items():
+        by_phase[name].update(phases)
+    return res["hd80"]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    by_phase, reset_counts, read_counts = launch_counters()
 
     # 1. card --------------------------------------------------------------
     card = subprocess.run(
@@ -4668,17 +5074,7 @@ def main() -> int:
         for line in c.log.splitlines():
             if "warning" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
-    sass = subprocess.run(
-        [shutil.which("cuobjdump")
-         or str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
-         str(_build.library_path("flash_attention_wgmma"))],
-        capture_output=True, text=True, check=True, timeout=120).stdout
-    found = {op: len(re.findall(rf"\b{op}\b", sass)) for op in FLASH_SASS}
-    log(f"[build] flash_attention_wgmma SASS: " + ", ".join(
-        f"{op} x{n}" for op, n in found.items()))
-    if not all(found.values()):
-        raise RuntimeError(f"flash_attention_wgmma: SASS lacks "
-                           f"{[op for op, n in found.items() if not n]}")
+    flash_sass_check()
 
     kernels, rollout_ctx = gnn_phases(dev, card, reset_counts, read_counts,
                                       by_phase)
@@ -4687,7 +5083,8 @@ def main() -> int:
     log(f"[llm] GNN phases done and freed: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
-    # 3. (continued) the flash-attention kernels, at head_dim 256 and 128 ---
+    # 3. (continued) the flash-attention kernels, at head_dim 256, 128 and
+    # 64 (80 in phase 21's child) -------------------------------------------
     reset_counts()
     flash_row = flash_check(dev, card)
     flash_row["hd128"] = flash_check_hd128(dev, card)
@@ -4734,6 +5131,15 @@ def main() -> int:
     xlstm_serve(dev, card, reset_counts, read_counts, by_phase)
     log(f"[audio_recurrent] phase 20 took {time.perf_counter() - t0:.1f} s "
         f"| {card}")
+
+    # 21. zamba2-2.7b, the hybrid, in a child process with the hd-80 part
+    # of phase 3: (a) one group (5 Mamba2 blocks and the shared block) at
+    # full width, card against CPU; (b) served at full width and depth, the
+    # main path of the flash kernels at head_dim 80, counted
+    t0 = time.perf_counter()
+    flash_row["hd80"] = hybrid_phase(card, by_phase)
+    log(f"[hybrid] phase 21 and phase 3 at hd 80 took "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
 
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later
@@ -4797,6 +5203,8 @@ def main() -> int:
             kr["hd128"]["launches"] = by_phase[kr["name"]]["moe_serve"]
         if "hd64" in kr:
             kr["hd64"]["launches"] = by_phase[kr["name"]]["whisper_serve"]
+        if "hd80" in kr:
+            kr["hd80"]["launches"] = by_phase[kr["name"]]["zamba2_serve"]
         kr["launches_by_phase"] = by_phase[kr["name"]]
         kr["phases"] = [p for p, n in by_phase[kr["name"]].items() if n]
         kr["card"] = card

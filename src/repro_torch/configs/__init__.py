@@ -1,7 +1,8 @@
 """Config registry of the port: the paper's two models (X-MeshGraphNet and
-X-UNet3D) and the LLM configs it can run so far: the decoders (dense, MoE
-and pixtral's with its stubbed vision prefix), whisper's encoder-decoder
-and the xLSTM."""
+X-UNet3D) and every LLM config of the JAX package: the decoders (dense, MoE
+and pixtral's with its stubbed vision prefix), whisper's encoder-decoder,
+the xLSTM and zamba2's hybrid of Mamba2 blocks and a shared attention
+block."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +20,7 @@ _ARCH_MODULES = {
     "whisper-large-v3": "whisper_large_v3",
     "xlstm-350m": "xlstm_350m",
     "yi-34b": "yi_34b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "xmgn-drivaer": "xmgn_drivaer",
     "xunet3d-drivaer": "xunet3d_drivaer",
 }
@@ -27,9 +29,8 @@ _ARCH_MODULES = {
 def get_config(name: str) -> Union[GNNConfig, ModelConfig, UNetConfig]:
     if name not in _ARCH_MODULES:
         raise KeyError(
-            f"the port has no config {name!r} yet; it knows "
-            f"{sorted(_ARCH_MODULES)}. The JAX package's list is "
-            "repro.configs._ARCH_MODULES (src/repro/configs/__init__.py); "
-            "the others are still to port (ROADMAP.md)")
+            f"unknown config {name!r}; the port knows "
+            f"{sorted(_ARCH_MODULES)}, the configs of "
+            "repro.configs._ARCH_MODULES (src/repro/configs/__init__.py)")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG

@@ -17,7 +17,8 @@ fields, and its rollout engine ``rollout_slots``,
 ``ModelConfig``
 keeps only the fields the served families read (the decoders, dense, MoE
 and the vision prefix; whisper's encoder-decoder and audio frames; the
-xLSTM's recurrent blocks); the sharding and remat fields come with the
+xLSTM's recurrent blocks; zamba2's Mamba2 blocks and shared attention
+cadence ``attn_every``); the sharding and remat fields come with the
 slices that read them. ``MoEConfig`` and ``SSMConfig`` are copied field for
 field.
 """
@@ -58,8 +59,9 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """A transformer-family architecture: a decoder (dense, MoE, with a
-    vision prefix), the encoder-decoder (whisper) or a recurrent stack
-    (xLSTM; the hybrid is still to port)."""
+    vision prefix), the encoder-decoder (whisper), a recurrent stack
+    (xLSTM) or the hybrid of Mamba2 blocks and a shared attention block
+    (zamba2)."""
 
     name: str
     family: str                        # dense | moe | vlm | audio | ssm | hybrid

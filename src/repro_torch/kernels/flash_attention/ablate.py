@@ -1,19 +1,24 @@
 """Where the f32 flash kernel's time goes, on the card.
 
 Builds variants of ``csrc/flash_attention.cu`` that each drop one part of
-the work, and times each beside the kernel itself at gemma2-9b's prefill
-shape (B = 2, S = 4,608, H = 16, KV = 8, hd = 256, softcap 50), local
-(window 4,096) and global layer, by CUDA events, in turns (kernel first,
-then each variant, then back in reverse order; the faster of the two
-medians counts). The parts are not additive: a dropped phase also drops
+the work, and times each beside the kernel itself at a model's prefill
+shape, by CUDA events, in turns (kernel first, then each variant, then
+back in reverse order; the faster of the two medians counts): gemma2-9b's
+(B = 2, S = 4,608, H = 16, KV = 8, hd = 256, softcap 50), local (window
+4,096) and global layer, by default; zamba2-2.7b's shared attention (B =
+2, S = 4,096, H = KV = 32, hd = 80, the kernel's padded instance) with
+``--arch zamba2-2.7b``. The parts are not additive: a dropped phase also drops
 the copies and barrier waits it hid. A variant's output is wrong by design;
 it is a measurement, never a path. Prints the card, the SM clock and power
 while the kernel runs, and one JSON line.
 
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.ablate
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.ablate \
+        --arch zamba2-2.7b
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -24,8 +29,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops
 
-SHAPE = dict(b=2, s=4608, h=16, kvh=8, hd=256, softcap=50.0)
-WINDOWS = (4096, None)
+# arch -> its prefill's attention shape and the windows of its layers
+SHAPES = {
+    "gemma2-9b": dict(b=2, s=4608, h=16, kvh=8, hd=256, softcap=50.0,
+                      windows=(4096, None)),
+    "zamba2-2.7b": dict(b=2, s=4096, h=32, kvh=32, hd=80, softcap=None,
+                        windows=(None,)),
+}
 # variant -> (what it drops, [(text in the source, its replacement)])
 VARIANTS = {
     "kernel": ("nothing", []),
@@ -74,7 +84,11 @@ def build_variants() -> dict:
     return fns
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="gemma2-9b", choices=sorted(SHAPES))
+    shape = SHAPES[ap.parse_args(argv).arch]
+    windows = shape["windows"]
     if not torch.cuda.is_available():
         raise SystemExit("ablate: needs an NVIDIA card")
     card = subprocess.run(
@@ -83,7 +97,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     fns = build_variants()
-    b, s, h, kvh, hd = (SHAPE[key] for key in ("b", "s", "h", "kvh", "hd"))
+    b, s, h, kvh, hd = (shape[key] for key in ("b", "s", "h", "kvh", "hd"))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((b * h, s, hd), generator=gen, device=dev)
@@ -96,7 +110,7 @@ def main() -> int:
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), b * h, h // kvh, s, s, 1,
                         0 if window is None else window, hd, 1 / hd ** 0.5,
-                        SHAPE["softcap"], stream), "ablate")
+                        shape["softcap"] or 0.0, stream), "ablate")
 
     def median_ms(fn, window, reps=5):
         for _ in range(2):
@@ -114,24 +128,24 @@ def main() -> int:
 
     # the kernel's own output against the wrapper's, so the variants are
     # known to be built from the source the wrapper runs
-    launch(fns["kernel"], WINDOWS[0])
+    launch(fns["kernel"], windows[0])
     want = ops.flash_attention(q, k, v, group_size=h // kvh,
-                               window=WINDOWS[0], softcap=SHAPE["softcap"])
+                               window=windows[0], softcap=shape["softcap"])
     if not torch.equal(out, want):
         raise RuntimeError("ablate: the unchanged source differs from the "
                            "wrapper's kernel")
-    ms = {name: {str(w): [] for w in WINDOWS} for name in fns}
+    ms = {name: {str(w): [] for w in windows} for name in fns}
     for name in list(fns) + list(fns)[::-1]:
-        for window in WINDOWS:
+        for window in windows:
             ms[name][str(window)].append(median_ms(fns[name], window))
     rows = {}
     for name, by_window in ms.items():
         best = {w: min(t) for w, t in by_window.items()}
         rows[name] = dict(drops=VARIANTS[name][0], ms=best,
                           mean_ms=sum(best.values()) / len(best))
-        print(f"[ablate] {name:18s} local {best['4096']:.3f} ms, global "
-              f"{best['None']:.3f} ms (drops {VARIANTS[name][0]})",
-              flush=True)
+        print(f"[ablate] {name:18s} " + ", ".join(
+            f"window {w} {t:.3f} ms" for w, t in best.items())
+            + f" (drops {VARIANTS[name][0]})", flush=True)
     smi = subprocess.Popen(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader", "-lms", "500"],
@@ -145,7 +159,7 @@ def main() -> int:
     clocks = [line.strip() for line in smi.communicate()[0].splitlines()]
     print(f"[ablate] the kernel back to back: SM clock, power {clocks}",
           flush=True)
-    print(json.dumps({"card": card, "shape": SHAPE, "variants": rows,
+    print(json.dumps({"card": card, "shape": shape, "variants": rows,
                       "clock_power": clocks}), flush=True)
     return 0
 

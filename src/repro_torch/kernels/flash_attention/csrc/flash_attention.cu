@@ -1,5 +1,5 @@
 // Flash attention with GQA, causal masking, a sliding window and a tanh
-// logit softcap, for head_dim 64, 128 or 256 in f32 on the CUDA cores:
+// logit softcap, for head_dim 64, 80, 128 or 256 in f32 on the CUDA cores:
 //   out[bh, i] = softmax_j(mask(cap(q[bh, i] . k[bh / group, j] / sqrt(hd))))
 //                . v[bh / group, j]
 // with the mask j < Skv, j <= i (causal) and i - j < window, f32
@@ -7,7 +7,8 @@
 // contiguous; Skv may differ from Sq when not causal (whisper's
 // cross-attention). The kernel is a template on hd with one instance for
 // each head_dim on the path, 256 (gemma2), 128 (the llama-style and MoE
-// decoders) and 64 (whisper). bf16 goes to the tensor-core
+// decoders), 80 (zamba2's shared attention) and 64 (whisper). bf16 goes to
+// the tensor-core
 // kernel in flash_attention_wgmma.cu; f32 stays here because the tensor
 // cores' TF32 keeps about three digits and the f32 path is held to 1e-5.
 // Every product is an IEEE f32 FMA; no TF32, bf16 or library call.
@@ -66,6 +67,14 @@
 // keys, and that is wiped by alpha = exp(-1e30 - m) = 0 when the real keys
 // arrive. expf and tanhf (not the fast intrinsics) keep f32 within about
 // 1e-6 of the plain PyTorch version.
+// hd 80 runs in hd 128's layout (shared memory 121,344 bytes, the same
+// thread map): a row is 80 floats in global memory, 20 cp.async copies of
+// 16 bytes, and 128 in shared memory, whose columns 80-127 are zeroed once
+// and never copied to, so they stay zero. S sums over the 80 real dims
+// only; PV runs over all 128 columns (the pad ones give zeros, which a
+// quarter of the threads compute for nothing) and only columns below 80
+// are stored. Zamba2's prefill (B 2, S 4,096, H 32, causal) does 1.7e11
+// flops, 2.6 ms at 67 TFLOP/s.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -79,11 +88,12 @@ constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kKeys == kRows, "load_tile copies 64-row tiles of Q, K, V");
 
-// shared memory at head_dim kHd, in floats
-template <int kHd>
+// shared memory at a row width of kW floats (hd rounded up to a multiple of
+// 64), in floats
+template <int kW>
 struct Layout {
-  static constexpr int kQkStride = kHd + 8;  // floats per Q or K row
-  static constexpr int kVStride = kHd;
+  static constexpr int kQkStride = kW + 8;  // floats per Q or K row
+  static constexpr int kVStride = kW;
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + kRows * kQkStride;
   static constexpr int kVOff = kKOff + kKeys * kQkStride;
@@ -116,10 +126,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // Rows [r0, r0 + 64) of a (s, hd) matrix into shared memory at the given
 // row stride, 16 bytes a copy, neighbouring threads on neighbouring
 // addresses; rows past s are zero-filled (and read row 0, a valid address).
+// Only the hd columns of a row are written.
 template <int kHd>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
                                           const float* src, int r0, int s) {
   constexpr int kVec = kHd / 4;
+  static_assert(kRows * kVec % kThreads == 0, "whole copies a thread");
 #pragma unroll
   for (int n = 0; n < kRows * kVec / kThreads; ++n) {
     const int idx = threadIdx.x + n * kThreads;
@@ -141,14 +153,18 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int group,
              int s, int skv, int causal, int window, float scale,
              float softcap) {
-  using L = Layout<kHd>;
+  // the shared-memory row width: hd, or hd 80 padded to 128
+  constexpr int kW = (kHd + 63) / 64 * 64;
+  static_assert(kHd % 16 == 0 && (kW == 64 || kW == 128 || kW == 256),
+                "hd is 64, 128, 256, or a multiple of 16 padded to one");
+  using L = Layout<kW>;
   constexpr int kQkStride = L::kQkStride, kVStride = L::kVStride;
   // runs of 4 output columns a thread, its rows, and their spacing
-  constexpr int kRuns = kHd >= 128 ? kHd / 128 : 1;
-  constexpr int kORows = kHd >= 128 ? 8 : 4;
+  constexpr int kRuns = kW >= 128 ? kW / 128 : 1;
+  constexpr int kORows = kW >= 128 ? 8 : 4;
   constexpr int kOStep = 32 / kORows;
-  static_assert(kHd / 4 == 32 / kOStep * 4 * kRuns,
-                "a warp's threads tile its hd / 4 columns");
+  static_assert(kW / 4 == 32 / kOStep * 4 * kRuns,
+                "a warp's threads tile its kW / 4 columns");
   extern __shared__ __align__(16) float smem[];
   float* qs = smem + L::kQOff;
   float* ks = smem + L::kKOff;
@@ -177,12 +193,12 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int dh = lane & 1;
   const int s_row = 16 * (warp >> 1) + 8 * (lane >> 4);
   const int s_key = 32 * (warp & 1) + ((lane >> 1) & 7);
-  // O layout: warp w owns rows 32 (w / 4) + [0, 32) and columns hd / 4
-  // (w % 4) + [0, hd / 4); the thread rows o_row + kOStep i, i < kORows
-  // (4i, i < 8 at hd >= 128; 8i, i < 4 at hd 64), columns o_col + 32 r +
+  // O layout: warp w owns rows 32 (w / 4) + [0, 32) and columns kW / 4
+  // (w % 4) + [0, kW / 4); the thread rows o_row + kOStep i, i < kORows
+  // (4i, i < 8 at kW >= 128; 8i, i < 4 at kW 64), columns o_col + 32 r +
   // [0, 4), r < kRuns
   const int o_row = 32 * (warp >> 2) + lane % kOStep;
-  const int o_col = kHd / 4 * (warp & 3) + 4 * (lane / kOStep);
+  const int o_col = kW / 4 * (warp & 3) + 4 * (lane / kOStep);
   // softmax layout: 4 threads per row, 16 keys each
   const int m_row = tid >> 2, m_part = tid & 3;
 
@@ -197,6 +213,17 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // keys [lo, hi) reach the block; causal masking has Skv == Sq
   const int hi = causal ? r_last + 1 : skv;
   const int t_first = lo / kKeys * kKeys;
+  if constexpr (kW != kHd) {
+    // the pad columns of Q, K and V: no copy writes them, so zero once
+    // (the loop's first barrier orders these stores before any read)
+    constexpr int kPad = kW - kHd;
+    for (int idx = tid; idx < kRows * kPad; idx += kThreads) {
+      const int r = idx / kPad, c = kHd + idx % kPad;
+      qs[r * kQkStride + c] = 0.f;
+      ks[r * kQkStride + c] = 0.f;
+      vs[r * kVStride + c] = 0.f;
+    }
+  }
   load_tile<kHd>(qs, kQkStride, q + static_cast<size_t>(bh) * s * kHd, r0,
                  s);
   load_tile<kHd>(ks, kQkStride, kg, t_first, skv);
@@ -352,9 +379,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* dst = out + (static_cast<size_t>(bh) * s + row) * kHd + o_col;
 #pragma unroll
     for (int r = 0; r < kRuns; ++r)
-      *reinterpret_cast<float4*>(dst + 32 * r) =
-          make_float4(o[i][4 * r] / denom, o[i][4 * r + 1] / denom,
-                      o[i][4 * r + 2] / denom, o[i][4 * r + 3] / denom);
+      if (o_col + 32 * r < kHd)  // the pad columns are not stored
+        *reinterpret_cast<float4*>(dst + 32 * r) =
+            make_float4(o[i][4 * r] / denom, o[i][4 * r + 1] / denom,
+                        o[i][4 * r + 2] / denom, o[i][4 * r + 3] / denom);
   }
 }
 
@@ -362,7 +390,7 @@ template <int kHd>
 int launch(const float* q, const float* k, const float* v, float* out,
            int bh, int group, int s, int skv, int causal, int window,
            float scale, float softcap, cudaStream_t stream) {
-  constexpr int kSmemBytes = Layout<kHd>::kSmemBytes;
+  constexpr int kSmemBytes = Layout<(kHd + 63) / 64 * 64>::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
@@ -376,7 +404,7 @@ int launch(const float* q, const float* k, const float* v, float* out,
 }  // namespace
 
 // q, out (bh, s, hd); k, v (bh / group, skv, hd); f32, contiguous and
-// 16-byte aligned; hd 64, 128 or 256; causal needs skv == s. window <= 0:
+// 16-byte aligned; hd 64, 80, 128 or 256; causal needs skv == s. window <= 0:
 // none; softcap <= 0: none. Returns a cudaError_t (cudaErrorInvalidValue for
 // a shape the kernel is not built for).
 extern "C" int flash_attention_f32(const void* q, const void* k,
@@ -394,6 +422,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<64>(qf, kf, vf, of, bh, group, s, skv, causal, window,
+                      scale, softcap, st);
+  if (hd == 80)
+    return launch<80>(qf, kf, vf, of, bh, group, s, skv, causal, window,
                       scale, softcap, st);
   if (hd == 128)
     return launch<128>(qf, kf, vf, of, bh, group, s, skv, causal, window,

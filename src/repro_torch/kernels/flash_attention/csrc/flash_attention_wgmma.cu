@@ -1,5 +1,6 @@
 // Flash attention on Hopper's tensor cores: GQA, causal masking, a sliding
-// window and a tanh logit softcap, head_dim 64, 128 or 256, bf16 in and out:
+// window and a tanh logit softcap, head_dim 64, 80, 128 or 256, bf16 in and
+// out:
 //   out[bh, i] = softmax_j(mask(cap(q[bh, i] . k[bh / group, j] / sqrt(hd))))
 //                . v[bh / group, j]
 // with the mask j < Skv, j <= i (causal) and i - j < window, f32
@@ -8,8 +9,9 @@
 // differ from Sq when not causal (whisper's cross-attention: Sq the prompt,
 // Skv the 1,500 audio frames). The kernel is a template on hd with one
 // instance for each head_dim on the path: 256 (gemma2), 128 (granite,
-// starcoder2, yi, deepseek-moe, qwen3-moe, pixtral) and 64 (whisper). The
-// f32 path is the register-tiled CUDA-core kernel in flash_attention.cu.
+// starcoder2, yi, deepseek-moe, qwen3-moe, pixtral), 80 (zamba2's shared
+// attention) and 64 (whisper). The f32 path is the register-tiled
+// CUDA-core kernel in flash_attention.cu.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py, which walks (128, hd) query
@@ -23,7 +25,8 @@
 // Whisper's bidirectional encoder (hd 64, 1,500 frames, B 8, H 20) does
 // 9.2e10 flops, 0.093 ms, against 0.037 ms for 123 MB; its prefill
 // cross-attention (Sq 224, Skv 1,500) is bound by bytes: 71 MB, 0.021 ms,
-// against 1.4e10 flops, 0.014 ms.
+// against 1.4e10 flops, 0.014 ms. Zamba2's prefill (hd 80, B 2, S 4,096,
+// H 32, causal) does 1.7e11 flops, 0.17 ms, against 0.05 ms for 168 MB.
 //
 // Design: one block of 384 threads per 128 query rows of one (batch, head),
 // in three warpgroups.
@@ -52,10 +55,17 @@
 //   16-byte stores of whole rows.
 // At hd 128 the ring's stages are half as large (shared memory 97 KB, not
 // 193 KB), at hd 64 a quarter (49 KB, a row one 64-column box); the design
-// is otherwise the same. A block's keys end at Skv: the last tile of a
-// ragged Skv (1,500 = 23 x 64 + 28) is masked past Skv even without causal
-// masking or a window, since TMA fills its rows past Skv with zeros, whose
-// scores would be 0, not -1e30.
+// is otherwise the same. hd 80 runs in hd 128's shared-memory layout: the
+// tensor maps have 80 columns (a row stride of 160 bytes), so a row's second
+// 64-column box holds columns 64-79 and TMA fills 80-127 with zeros (the
+// box's full bytes still count toward the barrier's transactions). QK^T
+// runs only the 5 k-steps of 16 that hold data; P V is the n128 wgmma, whose
+// columns 80-127 come out zero; the epilogue stores the 80 real columns, 10
+// 16-byte chunks a row. (An n80 wgmma would skip the zero columns.)
+// A block's keys end at Skv: the last tile of a ragged Skv (1,500 = 23 x 64
+// + 28) is masked past Skv even without causal masking or a window, since
+// TMA fills its rows past Skv with zeros, whose scores would be 0, not
+// -1e30.
 // Masked logits are -1e30, never -inf, as in the TPU kernel: a tile that is
 // wholly masked for a row before its first real key gives p = 1 for its
 // keys, and that is wiped by alpha = exp2(-1e30 - m) = 0 when the real keys
@@ -78,12 +88,12 @@ constexpr int kKVChunk = kBc * kSpan;  // one 64-column box of a K/V tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// hd / 64 boxes of (128 rows, 64 cols) for Q, of (64 keys, 64 cols) for a
-// K or V tile
-template <int kHd>
+// kW / 64 boxes of (128 rows, 64 cols) for Q, of (64 keys, 64 cols) for a
+// K or V tile; kW is hd rounded up to a multiple of 64
+template <int kW>
 struct alignas(1024) Smem {
-  static constexpr int kQBytes = kBr * kHd * 2;
-  static constexpr int kTileBytes = kBc * kHd * 2;
+  static constexpr int kQBytes = kBr * kW * 2;
+  static constexpr int kTileBytes = kBc * kW * 2;
   unsigned char q[kQBytes];
   unsigned char k[kStages][kTileBytes];
   unsigned char v[kStages][kTileBytes];
@@ -306,13 +316,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d,
         "r"(1));
 }
 
-// O (64 x hd) += P (64 x 16 keys) . V (16 keys x hd): one wgmma of width hd.
-template <int kHd>
+// O (64 x kW) += P (64 x 16 keys) . V (16 keys x kW): one wgmma of width kW
+// (hd, or hd rounded up to a multiple of 64).
+template <int kW>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* p,
                                          uint64_t v) {
-  if constexpr (kHd == 256)
+  if constexpr (kW == 256)
     wgmma_m64n256k16_rs(o, p, v);
-  else if constexpr (kHd == 128)
+  else if constexpr (kW == 128)
     wgmma_m64n128k16_rs(o, p, v);
   else
     wgmma_m64n64k16_rs(o, p, v);
@@ -349,9 +360,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    __nv_bfloat16* __restrict__ out, int group, int s,
                    int skv, int causal, int window, float c1, float c2) {
   extern __shared__ unsigned char smem_raw[];
-  static_assert(kHd == 64 || kHd == 128 || kHd == 256,
-                "wgmma_pv has n64, n128 and n256");
-  using S = Smem<kHd>;
+  // the shared-memory row width: hd, or hd 80 padded to 128
+  constexpr int kW = (kHd + 63) / 64 * 64;
+  static_assert(kHd % 16 == 0 && (kW == 64 || kW == 128 || kW == 256),
+                "wgmma_pv has n64, n128 and n256; QK^T k-steps of 16");
+  using S = Smem<kW>;
   S& sm = *reinterpret_cast<S*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int bh = blockIdx.x;
@@ -382,7 +395,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 0) {
       const int kv = bh / group;
       mbar_expect_tx(bar_q, S::kQBytes);
-      for (int c = 0; c < kHd / 64; ++c)
+      for (int c = 0; c < kW / 64; ++c)
         tma_load(smem_u32(sm.q + c * kQChunk), &q_map, bar_q, 64 * c, r0, bh);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
@@ -392,11 +405,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         const uint32_t fk = smem_u32(&sm.full_k[st]);
         const uint32_t fv = smem_u32(&sm.full_v[st]);
         mbar_expect_tx(fk, S::kTileBytes);
-        for (int c = 0; c < kHd / 64; ++c)
+        for (int c = 0; c < kW / 64; ++c)
           tma_load(smem_u32(sm.k[st] + c * kKVChunk), &k_map, fk, 64 * c, t0,
                    kv);
         mbar_expect_tx(fv, S::kTileBytes);
-        for (int c = 0; c < kHd / 64; ++c)
+        for (int c = 0; c < kW / 64; ++c)
           tma_load(smem_u32(sm.v[st] + c * kKVChunk), &v_map, fv, 64 * c, t0,
                    kv);
       }
@@ -414,9 +427,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int col0 = 2 * (lane % 4);
     const uint32_t q_wg = smem_u32(sm.q) + 64 * wg * kSpan;
 
-    float o[kHd / 2];
+    float o[kW / 2];
 #pragma unroll
-    for (int i = 0; i < kHd / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kW / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     mbar_wait(bar_q, 0);
 
@@ -429,8 +442,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                         (window > 0 && wr0 - (t0 + kBc - 1) >= window);
       mbar_wait(smem_u32(&sm.full_k[st]), parity);
       if (!skip) {
-        // S = Q K^T over hd / 16 k-steps of 16 dims; within a 64-column box a
-        // k-step advances the start address by 32 bytes
+        // S = Q K^T over hd / 16 k-steps of 16 dims (the pad columns past hd
+        // are zero and skipped); within a 64-column box a k-step advances the
+        // start address by 32 bytes
         float sc[32];  // the first k-step overwrites it (scale-d = 0)
 #pragma unroll
         for (int j = 0; j < 32; ++j) sc[j] = 0.f;
@@ -488,20 +502,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           p[j / 2] = pack_bf16(p0, p1);
         }
 #pragma unroll
-        for (int j = 0; j < kHd / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+        for (int j = 0; j < kW / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 
         // O += P V over 4 k-steps of 16 keys: V is MN-major, its 64-column
         // boxes lbo = 8 KB apart, groups of 8 keys sbo = 1 KB apart
         mbar_wait(smem_u32(&sm.full_v[st]), parity);
         const uint32_t v_st = smem_u32(sm.v[st]);
-        fence_regs<kHd / 2>(o);
+        fence_regs<kW / 2>(o);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBc / 16; ++kk)
-          wgmma_pv<kHd>(o, p + 4 * kk,
-                        smem_desc(v_st + kk * 16 * kSpan, kKVChunk, 1024));
+          wgmma_pv<kW>(o, p + 4 * kk,
+                       smem_desc(v_st + kk * 16 * kSpan, kKVChunk, 1024));
         wgmma_commit_and_wait();
-        fence_regs<kHd / 2>(o);
+        fence_regs<kW / 2>(o);
       } else {
         mbar_wait(smem_u32(&sm.full_v[st]), parity);
       }
@@ -510,6 +524,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // epilogue: normalise, stage the warpgroup's 64 rows in bf16 in its own
     // rows of the Q buffer (same swizzle), then 16-byte stores of whole rows
+    // (their hd real columns)
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -520,7 +535,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     unsigned char* stage = sm.q + 64 * wg * kSpan;
     warpgroup_sync(1 + wg);  // every warp's last read of these Q rows is done
 #pragma unroll
-    for (int n = 0; n < kHd / 8; ++n) {
+    for (int n = 0; n < kW / 8; ++n) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int rl = 16 * warp + lane / 4 + 8 * h;
@@ -532,6 +547,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
     warpgroup_sync(1 + wg);
+    static_assert(64 * kHd * 2 / 16 % 128 == 0, "whole stores a thread");
 #pragma unroll 4
     for (int it = 0; it < 64 * kHd * 2 / 16 / 128; ++it) {
       constexpr int kRowChunks = kHd * 2 / 16;  // 16-byte columns of a row
@@ -579,8 +595,8 @@ int encode_fn(EncodeTiled* fn) {
 }
 
 // (heads, s, hd) bf16 as a 3-d map of boxes (64 columns, box_rows rows, 1),
-// 128-byte swizzle; rows past s read as zeros. q's map has Sq rows, k's and
-// v's Skv.
+// 128-byte swizzle; rows past s, and columns past hd (hd 80's second box),
+// read as zeros. q's map has Sq rows, k's and v's Skv.
 template <int kHd>
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
                 int s, int box_rows) {
@@ -612,7 +628,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
                                    i ? kBc : kBr);
     if (r != CUDA_SUCCESS) return static_cast<int>(r);
   }
-  const int smem = static_cast<int>(sizeof(Smem<kHd>)) + 1024;  // + align
+  const int smem =
+      static_cast<int>(sizeof(Smem<(kHd + 63) / 64 * 64>)) + 1024;  // + align
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma_kernel<kHd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -629,7 +646,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
 }  // namespace
 
 // q, out (bh, s, hd); k, v (bh / group, skv, hd); bf16, contiguous and
-// 16-byte aligned; hd 64, 128 or 256; s <= 65535 * 128; causal needs
+// 16-byte aligned; hd 64, 80, 128 or 256; s <= 65535 * 128; causal needs
 // skv == s. window <= 0: none; softcap <= 0: none. Returns a cudaError_t
 // (cudaErrorInvalidValue for a shape the kernel is not built for), or the
 // CUresult of a failed tensor-map encode.
@@ -645,6 +662,9 @@ extern "C" int flash_attention_wgmma_bf16(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return launch<64>(q, k, v, out, bh, group, s, skv, causal, window, scale,
+                      softcap, st);
+  if (hd == 80)
+    return launch<80>(q, k, v, out, bh, group, s, skv, causal, window, scale,
                       softcap, st);
   if (hd == 128)
     return launch<128>(q, k, v, out, bh, group, s, skv, causal, window,

@@ -23,8 +23,9 @@ from repro_torch.kernels.flash_attention import ref
 
 # both kernels are templates on head_dim, instanced for those on the path:
 # 256 (gemma2), 128 (granite, starcoder2, yi, deepseek-moe, qwen3-moe,
-# pixtral) and 64 (whisper)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# pixtral), 80 (zamba2's shared attention, padded to 128 inside the
+# kernels) and 64 (whisper)
+KERNEL_HEAD_DIMS = (64, 80, 128, 256)
 # dtype -> (library in _build.SOURCES, C entry point)
 _ENTRY = {torch.bfloat16: ("flash_attention_wgmma",
                            "flash_attention_wgmma_bf16"),

@@ -4,7 +4,9 @@ Port of ``repro.launch.serve``: requests are padded to one prompt length,
 prefilled once (attention through the flash-attention kernel on the card),
 then decoded token by token against the shared KV cache, padded to the
 full length in bf16 as ``repro.launch.serve`` pads it (a recurrent state,
-the xLSTM's, and whisper's cross K/V pass through at their size). Prompts
+the xLSTM's or the hybrid's Mamba2 states, and whisper's cross K/V pass
+through at their size; the hybrid's ``attn_kv`` caches, one per group of
+layers, are padded along their sequence axis). Prompts
 come from ``np.random.default_rng(seed)`` exactly as there. A vision
 frontend (pixtral) gets zero patch embeddings, (B, n_frontend_tokens, d)
 in f32, before the prompt, and the cache and decode positions are offset
@@ -18,6 +20,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --reduced --device cpu
 """
 from __future__ import annotations
@@ -36,8 +40,10 @@ from repro_torch.models import registry
 def pad_cache_to(cache, target):
     """Copy each prefill cache tensor into the front of its zero target,
     cast to the target's dtype (``repro.launch.serve``'s pad, then
-    ``astype``); a tensor of the target's shape and dtype (a recurrent
-    state) is taken as it is. Fills ``target`` in place and returns it."""
+    ``astype``), whatever axis is shorter (the sequence axis: third for
+    the hybrid's ``attn_kv``, after its group and batch axes); a tensor of
+    the target's shape and dtype (a recurrent state) is taken as it is.
+    Fills ``target`` in place and returns it."""
     for name, t in target.items():
         c = cache[name]
         if c.dim() != t.dim() or any(a > b for a, b in zip(c.shape, t.shape)):
@@ -60,7 +66,8 @@ def serve(arch: str, reduced: bool, n_requests: int, prompt_len: int,
           device=None):
     """Prefill ``n_requests`` random prompts of ``prompt_len`` tokens, then
     decode ``gen_len - 1`` more tokens greedily. ``params`` (the family's
-    module on ``device``: a ``Transformer``, a ``Whisper`` or an ``XLSTM``)
+    module on ``device``: a ``Transformer``, a ``Whisper``, an ``XLSTM`` or
+    a ``Hybrid``)
     defaults to random weights drawn on the device from ``seed``. Returns
     ``repro.launch.serve.serve``'s dict: ``generated`` (n_requests,
     gen_len) int, ``prefill_s``, ``decode_s_per_token``,

@@ -11,7 +11,9 @@ the port's (``adam_state_from_jax``), its moments in the order of
 Whisper (``whisper_from_jax``): its ``enc_blocks`` and ``dec_blocks``
 stacks are unstacked into the layer lists; the xLSTM (``xlstm_from_jax``):
 its ``blocks`` (groups, each a list of mLSTM blocks and an sLSTM block)
-into ``blocks[g]``.
+into ``blocks[g]``; the hybrid (``hybrid_from_jax``): its ``blocks``
+(groups, each a list of Mamba2 blocks) into ``blocks[g].mamba[i]``, the one
+``shared_attn`` layer by name.
 X-UNet3D (``xunet_from_jax``, ``xunet_to_jax``): convolution weights go
 from JAX's DHWIO ``(k, k, k, cin, cout)`` to PyTorch's OIDHW ``(cout, cin,
 k, k, k)`` and back; without attention gates the tree's ``gates`` entries
@@ -27,7 +29,8 @@ import torch
 from repro_torch.configs.base import GNNConfig, ModelConfig, UNetConfig
 from repro_torch.device import resolve
 from repro_torch.models.meshgraphnet import MeshGraphNet
-from repro_torch.models.stacks import XLSTM, xlstm_group_layout
+from repro_torch.models.stacks import (XLSTM, Hybrid, hybrid_group_layout,
+                                      xlstm_group_layout)
 from repro_torch.models.transformer import Transformer, group_structure
 from repro_torch.models.whisper import Whisper
 from repro_torch.models.xunet3d import XUNet3D, full_f32
@@ -179,8 +182,10 @@ def adam_state_to_jax(state: AdamState, model: MeshGraphNet) -> dict:
 
 def _llm_from_jax(tree, cfg: ModelConfig, model: torch.nn.Module,
                   stacked: Dict[str, tuple], device) -> torch.nn.Module:
-    """Load a JAX LLM pytree into ``model`` (built on ``meta``), in
-    ``cfg.dtype``: each subtree named in ``stacked`` has a leading axis of
+    """Load a JAX LLM pytree into ``model`` (built on ``meta``), each leaf
+    in its parameter's dtype (``cfg.dtype``, or float32 where the model
+    keeps one whatever the config: Mamba2's ``A_log``, ``dt_bias``,
+    ``D``): each subtree named in ``stacked`` has a leading axis of
     ``(length, what it counts)``, split into ``{name}.{i}.``; the rest
     loads by name."""
     if not isinstance(tree, dict):
@@ -200,8 +205,9 @@ def _llm_from_jax(tree, cfg: ModelConfig, model: torch.nn.Module,
             for i in range(n):
                 flat[f"{name}.{i}.{key}"] = arr[i]
     dtype = getattr(torch, cfg.dtype)
-    got = {k: torch.tensor(np.asarray(v, np.float32)).to(dtype)
-           for k, v in flat.items()}
+    want = model.state_dict()
+    got = {k: torch.tensor(np.asarray(v, np.float32)).to(
+        want[k].dtype if k in want else dtype) for k, v in flat.items()}
     _load(model, got, assign=True)
     return model.to(resolve(device))
 
@@ -236,6 +242,18 @@ def xlstm_from_jax(tree, cfg: ModelConfig, device=None) -> XLSTM:
     into ``blocks[g].mlstm[i]`` and ``blocks[g].slstm``."""
     _, n_groups = xlstm_group_layout(cfg)
     return _llm_from_jax(tree, cfg, XLSTM(cfg, device="meta"),
+                         {"blocks": (n_groups, "groups")}, device)
+
+
+def hybrid_from_jax(tree, cfg: ModelConfig, device=None) -> Hybrid:
+    """A :class:`Hybrid` holding a JAX zamba2-style pytree (numpy arrays),
+    in ``cfg.dtype`` with Mamba2's ``A_log``, ``dt_bias`` and ``D`` in
+    float32 (default device: the card): ``blocks``, stacked on a leading
+    group axis around ``{'mamba': [...]}``, is split into
+    ``blocks[g].mamba[i]``; the single ``shared_attn`` layer, ``embed``,
+    ``final_norm`` and ``lm_head`` load by name."""
+    _, n_groups = hybrid_group_layout(cfg)
+    return _llm_from_jax(tree, cfg, Hybrid(cfg, device="meta"),
                          {"blocks": (n_groups, "groups")}, device)
 
 

@@ -1,15 +1,16 @@
 """Model API over the LLM families the port runs.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI`, dispatched as
-``repro.models.registry.get_model``: an encoder-decoder (whisper), then a
-config with SSM blocks and a shared attention block (the hybrid, still to
-port: it raises), then one with SSM blocks (the xLSTM stack), else the
-decoders (``dense``, ``moe``, ``vlm``):
+``repro.models.registry.get_model``, by the config's fields: an
+encoder-decoder (whisper), then a config with SSM blocks and a shared
+attention block (zamba2's hybrid), then one with SSM blocks (the xLSTM
+stack), else the decoders (``dense``, ``moe``, ``vlm``). Every LLM family
+of the JAX package runs:
   init(seed=0, device=None) -> params (an ``nn.Module``)
   prefill(params, batch) -> (logits, cache)
   decode(params, cache, batch, pos) -> (logits, cache)   cache updated in place
-  empty_cache(batch, seq_len, device=None) -> zero KV cache (bf16) or
-      recurrent state
+  empty_cache(batch, seq_len, device=None) -> zero KV cache (bf16),
+      recurrent state, or the hybrid's recurrent state and KV caches
 ``batch`` holds ``tokens`` (B, S) int on the params' device and, for a
 vision frontend, ``prefix_embeds`` (B, P, d), for an audio frontend
 ``audio_embeds`` (B, T, d). The MoE aux loss is dropped, as serving drops
@@ -106,22 +107,45 @@ def _xlstm_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(cfg, init, prefill, decode, empty_cache)
 
 
+def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
+    def init(seed: int = 0, device=None):
+        return stacks.hybrid_init(cfg, seed, device)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        state = stacks.hybrid_empty_state(cfg, tokens.shape[0],
+                                          tokens.shape[1],
+                                          device=tokens.device)
+        return params(tokens, state, mode="prefill")
+
+    @torch.no_grad()
+    def decode(params, state, batch, pos: int):
+        return params(batch["tokens"], state, mode="decode",
+                      decode_pos=int(pos))
+
+    def empty_cache(batch: int, seq_len: int, device=None):
+        return stacks.hybrid_empty_state(cfg, batch, seq_len,
+                                         device=resolve(device))
+
+    return ModelAPI(cfg, init, prefill, decode, empty_cache)
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.is_encoder_decoder:
         return _whisper_api(cfg)
     if cfg.ssm is not None and cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid stack (Mamba2 blocks and a shared "
-            "attention block, zamba2) is still to port, see ROADMAP.md")
+        return _hybrid_api(cfg)
     if cfg.ssm is not None:
         return _xlstm_api(cfg)
     return _decoder_api(cfg)
 
 
 def _meta_model(cfg: ModelConfig):
-    get_model(cfg)
     if cfg.is_encoder_decoder:
         return whi.Whisper(cfg, device="meta")
+    if cfg.ssm is not None and cfg.attn_every:
+        return stacks.Hybrid(cfg, device="meta")
     if cfg.ssm is not None:
         return stacks.XLSTM(cfg, device="meta")
     return tfm.Transformer(cfg, device="meta")

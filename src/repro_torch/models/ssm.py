@@ -1,8 +1,8 @@
-"""Recurrent blocks of the xLSTM: the gated linear attention (GLA) core, the
-mLSTM block on it, and the sLSTM block.
+"""Recurrent blocks: the gated linear attention (GLA) core, Mamba2's SSD
+block and the xLSTM's mLSTM block on it, and the sLSTM block.
 
-Port of the xLSTM part of ``repro.models.ssm`` (the Mamba2 block comes with
-the hybrid stack). The GLA recurrence, per head, with scalar gates:
+Port of ``repro.models.ssm``. The GLA recurrence, per head, with scalar
+gates:
 
     S_t = a_t S_{t-1} + b_t k_t v_t^T,    y_t = q_t^T S_t
 
@@ -10,8 +10,12 @@ is evaluated exactly in chunks (``gla_chunked``): within a chunk a masked
 (Q K^T) V product, across chunks the carried state S. The intra-chunk
 products of every chunk run at once; the loop over chunks carries S only.
 All of it is float32 ``torch.einsum``, as JAX computes it in XLA: no Pallas
-kernel runs here, so the port writes none. The mLSTM folds its
-max-stabilised exponential gating into (a, b) through ``stabilizer_scan``;
+kernel runs here, so the port writes none. Mamba2 (zamba2's blocks) feeds
+it a per-head scalar decay ``a = exp(-dt exp(A_log))`` and input scale
+``b = dt``, with its B and C shared by every head (one group), around a
+causal depthwise conv and a gated output RMSNorm; its GLA core is marked
+``mamba2.gla``. The mLSTM folds its max-stabilised exponential gating
+into (a, b) through ``stabilizer_scan``;
 the sLSTM is a scalar recurrence through its hidden state, a loop over
 time steps. The GLA core and the sLSTM's loop are marked for
 ``torch.profiler`` (``mlstm.gla``, ``slstm.loop``).
@@ -161,6 +165,96 @@ def _chunk_for(T: int, chunk_size: int) -> int:
     if T % chunk:
         chunk = math.gcd(T, chunk) or 1
     return chunk
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_dims(cfg: ModelConfig):
+    """(d_inner, heads, head width, conv width) of Mamba2: the conv runs
+    over [x, B, C] (one group)."""
+    ssm = cfg.ssm
+    d_inner = ssm.expand * cfg.d_model
+    n_heads = ssm.n_ssm_heads
+    return d_inner, n_heads, d_inner // n_heads, d_inner + 2 * ssm.d_state
+
+
+class Mamba2(nn.Module):
+    """Pre-norm, the input projection to (z, x, B, C, dt), a causal
+    depthwise conv and SiLU over [x, B, C], the SSD recurrence through the
+    GLA core (``D`` skip in f32), an output RMSNorm gated by ``silu(z)``,
+    the output projection, and the residual. ``A_log``, ``dt_bias`` and
+    ``D`` are float32 whatever the model's dtype, as in
+    ``repro.models.ssm.mamba2_init``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        d, ssm = cfg.d_model, cfg.ssm
+        d_inner, n_heads, _, conv_dim = mamba2_dims(cfg)
+        init = dict(generator=generator, device=device, dtype=dtype)
+        self.norm = RMSNorm(d, device=device, dtype=dtype)
+        self.in_proj = Dense(d, 2 * d_inner + 2 * ssm.d_state + n_heads,
+                             use_bias=False, **init)
+        w = torch.randn((ssm.d_conv, conv_dim), generator=generator,
+                        device=device)
+        self.conv_w = nn.Parameter(w.mul_(0.1).to(dtype))
+        self.conv_b = nn.Parameter(torch.zeros(conv_dim, device=device,
+                                               dtype=dtype))
+        f32 = dict(device=device, dtype=torch.float32)
+        self.A_log = nn.Parameter(torch.zeros(n_heads, **f32))  # A = -1
+        self.dt_bias = nn.Parameter(torch.zeros(n_heads, **f32))
+        self.D = nn.Parameter(torch.ones(n_heads, **f32))
+        self.out_norm = RMSNorm(d_inner, device=device, dtype=dtype)
+        self.out_proj = Dense(d_inner, d, use_bias=False, **init)
+
+    def forward(self, u, state: Optional[State] = None):
+        """u (B, T, d); ``state`` {conv, S} of the previous steps, or None
+        (zeros). T == 1 with a state is one decode step; otherwise the
+        chunked recurrence starts from ``state['S']``. Returns (u + out,
+        new state)."""
+        ssm = self.cfg.ssm
+        d_inner, H, hd, conv_dim = mamba2_dims(self.cfg)
+        B, T, _ = u.shape
+        z, xbc, dt_raw = torch.split(self.in_proj(self.norm(u)),
+                                     [d_inner, conv_dim, H], dim=-1)
+        xbc, new_conv = causal_conv(xbc, self.conv_w, self.conv_b,
+                                    None if state is None else state["conv"])
+        x, Bm, Cm = torch.split(F.silu(xbc),
+                                [d_inner, ssm.d_state, ssm.d_state], dim=-1)
+        v = x.reshape(B, T, H, hd)
+        # B and C are shared by every head (one group)
+        k = Bm[:, :, None, :].expand(B, T, H, ssm.d_state)
+        q = Cm[:, :, None, :].expand(B, T, H, ssm.d_state)
+        dt = F.softplus(dt_raw.float() + self.dt_bias)           # (B, T, H)
+        log_a = -dt * torch.exp(self.A_log)                       # <= 0
+        log_b = torch.log(dt + 1e-20)
+        S0 = torch.zeros((B, H, ssm.d_state, hd), device=u.device) \
+            if state is None else state["S"]
+        with annotate("mamba2.gla"):
+            if T == 1 and state is not None:
+                y, _, S, _ = gla_decode_step(q[:, 0], k[:, 0], v[:, 0],
+                                             log_a[:, 0], log_b[:, 0], S0)
+                y = y[:, None]
+            else:
+                y, _, S, _ = gla_chunked(q, k, v, log_a, log_b, S0,
+                                         chunk=_chunk_for(T, ssm.chunk_size))
+        y = y.reshape(B, T, d_inner) + \
+            self.D.repeat_interleave(hd) * x.float()
+        y = self.out_norm(y.to(u.dtype)) * F.silu(z)
+        return u + self.out_proj(y), {"conv": new_conv, "S": S}
+
+
+def mamba2_empty_state(cfg: ModelConfig, batch: int, device=None) -> State:
+    """Zero state: the conv inputs in ``cfg.dtype``, S float32."""
+    d_inner, H, hd, conv_dim = mamba2_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, conv_dim),
+                            dtype=getattr(torch, cfg.dtype), device=device),
+        "S": torch.zeros((batch, H, cfg.ssm.d_state, hd), device=device),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,26 @@
-"""The xLSTM layer stack (xlstm-350m): groups of ``slstm_every - 1`` mLSTM
-blocks and one sLSTM block, between the embedding and an RMSNorm and LM
-head.
+"""The layer stacks of the recurrent families, between the embedding and an
+RMSNorm and LM head.
 
-Port of the xLSTM part of ``repro.models.stacks`` (the zamba2-style hybrid
-stack comes with Mamba2). Parameters are ``nn.Module``s named as the JAX
-pytree, ``blocks[g].mlstm[i]`` and ``blocks[g].slstm`` for its ``blocks``
-subtree stacked on a leading group axis (``models.convert.
-xlstm_from_jax``). The recurrent state is a flat dict of tensors, each with
-a leading group axis: ``mlstm.{i}.{conv,S,n,m}`` and ``slstm.{c,n,m,h}``
-(JAX's ``{'mlstm': [...], 'slstm': {...}}`` stacked over groups). A forward
-writes the new state into the dict it is given, in place.
+* The xLSTM stack (xlstm-350m): groups of ``slstm_every - 1`` mLSTM blocks
+  and one sLSTM block.
+* The zamba2-style hybrid (zamba2-2.7b): groups of ``attn_every - 1``
+  Mamba2 blocks and ONE shared attention+FFN block (``transformer.Layer``),
+  whose weights serve every group while each occurrence keeps its own KV
+  cache. As in the JAX package, zamba2's per-occurrence LoRA deltas on the
+  shared block are omitted. Its prefill attention goes through the flash
+  kernel, once per group. The Mamba2 blocks and the shared block are
+  marked for ``torch.profiler`` (``hybrid.mamba2``,
+  ``hybrid.shared_attention``).
+
+Port of ``repro.models.stacks``. Parameters are ``nn.Module``s named as the
+JAX pytree, ``blocks[g].mlstm[i]``, ``blocks[g].slstm`` and
+``blocks[g].mamba[i]`` for its ``blocks`` subtree stacked on a leading
+group axis (``models.convert.xlstm_from_jax``, ``hybrid_from_jax``). The
+recurrent state is a flat dict of tensors, each with a leading group axis:
+``mlstm.{i}.{conv,S,n,m}`` and ``slstm.{c,n,m,h}`` (JAX's ``{'mlstm':
+[...], 'slstm': {...}}`` stacked over groups); ``mamba.{i}.{conv,S}`` and
+``attn_kv.{k,v}`` (JAX's ``{'mamba': [...], 'attn_kv': {k, v}}``). A
+forward writes the new state into the dict it is given, in place.
 """
 from __future__ import annotations
 
@@ -21,7 +32,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import ssm
+from repro_torch.models import transformer as tfm
 from repro_torch.models.nn import Dense, Embed, RMSNorm
+from repro_torch.telemetry.profiler import annotate
 
 State = Dict[str, torch.Tensor]
 
@@ -107,3 +120,126 @@ def xlstm_init(cfg: ModelConfig, seed: int = 0, device=None) -> XLSTM:
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return XLSTM(cfg, generator=gen, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# zamba2-style hybrid stack
+# ---------------------------------------------------------------------------
+
+def hybrid_group_layout(cfg: ModelConfig):
+    """(group_size, n_groups): each group is ``attn_every - 1`` Mamba2
+    blocks and one occurrence of the shared attention block."""
+    ae = cfg.attn_every
+    if ae < 2 or cfg.n_layers % ae:
+        raise ValueError(f"hybrid: n_layers={cfg.n_layers} is not a "
+                         f"multiple of attn_every={ae} >= 2")
+    return ae, cfg.n_layers // ae
+
+
+class HybridGroup(nn.Module):
+    def __init__(self, cfg: ModelConfig, ae: int, **init):
+        super().__init__()
+        self.mamba = nn.ModuleList(ssm.Mamba2(cfg, **init)
+                                   for _ in range(ae - 1))
+
+
+def hybrid_empty_state(cfg: ModelConfig, batch: int, seq_len: int,
+                       device=None) -> State:
+    """Zero state: each group's Mamba2 states (conv in ``cfg.dtype``, S
+    float32) and its occurrence's KV cache ``attn_kv.{k,v}`` (G, B,
+    seq_len, KV, hd) in bf16, as in JAX, whatever ``cfg.dtype``."""
+    ae, ng = hybrid_group_layout(cfg)
+    state = {f"mamba.{i}.{k}": t.new_zeros((ng,) + t.shape)
+             for i in range(ae - 1)
+             for k, t in ssm.mamba2_empty_state(cfg, batch, device).items()}
+    kv = (ng, batch, seq_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    for name in ("attn_kv.k", "attn_kv.v"):
+        state[name] = torch.zeros(kv, dtype=torch.bfloat16, device=device)
+    return state
+
+
+class Hybrid(nn.Module):
+    """``embed``, ``blocks[g].mamba[i]``, ``shared_attn`` (one
+    ``transformer.Layer`` with an FFN), ``final_norm``, ``lm_head``, as the
+    JAX pytree."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.cfg = cfg
+        init = dict(generator=generator, device=device,
+                    dtype=dtype or getattr(torch, cfg.dtype))
+        ae, ng = hybrid_group_layout(cfg)
+        self.embed = Embed(cfg.padded_vocab, cfg.d_model, **init)
+        self.blocks = nn.ModuleList(HybridGroup(cfg, ae, **init)
+                                    for _ in range(ng))
+        self.shared_attn = tfm.Layer(cfg, use_moe=False, **init)
+        self.final_norm = RMSNorm(cfg.d_model, device=device,
+                                  dtype=init["dtype"])
+        self.lm_head = Dense(cfg.d_model, cfg.padded_vocab, use_bias=False,
+                             **init)
+
+    def forward(self, tokens, state: Optional[State] = None,
+                mode: str = "train", decode_pos: Optional[int] = None):
+        """tokens (B, S) int. 'train' (no state): the stack over the whole
+        sequence, returns (logits, None). 'prefill': ``state`` from
+        :func:`hybrid_empty_state` (zeros); the Mamba2 states are written
+        in place and ``attn_kv`` becomes each occurrence's fresh K and V
+        (G, B, S, KV, hd) in the model's dtype, as JAX's attention returns
+        them. 'decode': one token at ``decode_pos`` against the padded
+        state, updated in place. Returns (logits (B, S, V_padded) f32,
+        state)."""
+        h = self.embed(tokens)
+        b, s = tokens.shape
+        if mode == "decode":
+            q_pos = torch.full((b, s), decode_pos, dtype=torch.int64,
+                               device=h.device)
+        else:
+            q_pos = torch.arange(s, device=h.device)[None].expand(b, s)
+        if mode == "train":
+            if state is not None:
+                raise ValueError("hybrid: training runs without a state")
+            for group in self.blocks:
+                for block in group.mamba:
+                    with annotate("hybrid.mamba2"):
+                        h, _ = block(h)
+                # the same causal attention as prefill; no cache is kept
+                with annotate("hybrid.shared_attention"):
+                    h, _, _ = self.shared_attn(h, q_pos, window=None,
+                                               mode="prefill")
+        elif mode in ("prefill", "decode"):
+            if state is None:
+                raise ValueError("hybrid: prefill and decode need a state "
+                                 "(hybrid_empty_state)")
+            fresh = []
+            for g, group in enumerate(self.blocks):
+                for i, block in enumerate(group.mamba):
+                    with annotate("hybrid.mamba2"):
+                        h, new = block(h, _sub(state, f"mamba.{i}.", g))
+                        for k, t in new.items():
+                            state[f"mamba.{i}.{k}"][g] = t
+                ckv = None if mode != "decode" else \
+                    (state["attn_kv.k"][g], state["attn_kv.v"][g])
+                with annotate("hybrid.shared_attention"):
+                    h, kv, _ = self.shared_attn(h, q_pos, window=None,
+                                                mode=mode, cache_kv=ckv,
+                                                decode_pos=decode_pos)
+                fresh.append(kv)
+            if mode == "prefill":
+                state["attn_kv.k"] = torch.stack([k for k, _ in fresh])
+                state["attn_kv.v"] = torch.stack([v for _, v in fresh])
+        else:
+            raise ValueError(f"hybrid: mode must be 'train', 'prefill' or "
+                             f"'decode', got {mode!r}")
+        h = self.final_norm(h)
+        return (h @ self.lm_head.w).float(), state
+
+
+def hybrid_init(cfg: ModelConfig, seed: int = 0, device=None) -> Hybrid:
+    """Random weights in ``cfg.dtype`` (``A_log``, ``dt_bias`` and ``D`` in
+    float32), drawn on ``device`` (default: the card) from a generator on
+    that device seeded with ``seed``."""
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return Hybrid(cfg, generator=gen, device=dev)

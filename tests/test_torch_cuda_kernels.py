@@ -511,6 +511,57 @@ def test_flash_attention_kernel_matches_plain_at_hd64(cuda, case):
         assert float(_row_rel_err(wrong, want).max()) > FA_BF16_ROW_RTOL
 
 
+# Zamba2's shared attention at hd 80 (padded to 128 columns inside both
+# kernels, TMA filling the wgmma kernel's pad columns with zeros), held to
+# every case hd 64 and 128 are: causal at zamba2's head count (H = KV = 32)
+# and at S = 4,096, ragged S, S = 1 and 65 (f32 tile edges), GQA group 4,
+# a window with the softcap, non-causal with a ragged last key tile (1,500)
+# and with Skv != Sq both ways. (dtype, B, Sq, Skv, H, KV, causal, window,
+# softcap)
+FA_HD80_CASES = [
+    (dtype, *shape) for dtype in ("bfloat16", "float32") for shape in (
+        (2, 300, 300, 32, 32, True, None, None),
+        (1, 4096, 4096, 2, 2, True, None, None),
+        (1, 1, 1, 2, 2, True, None, None),
+        (1, 65, 65, 4, 1, True, None, None),
+        (2, 300, 300, 8, 2, True, None, None),
+        (1, 1000, 1000, 2, 1, True, 300, 50.0),
+        (2, 1500, 1500, 4, 4, False, None, None),
+        (2, 224, 1000, 4, 4, False, None, None),
+        (1, 300, 100, 8, 2, False, None, None))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_HD80_CASES)
+def test_flash_attention_kernel_matches_plain_at_hd80(cuda, case):
+    dtype, b, sq, skv, h, kvh, causal, window, cap = case
+    hd = 80
+    rng = np.random.default_rng(sq + skv + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, heads, hd)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype))
+        for n, heads in ((sq, h), (skv, kvh), (skv, kvh)))
+    before = fa_ops.mha.launches
+    got = fa_ops.mha(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.mha.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    qf = q.transpose(1, 2).reshape(-1, sq, hd)
+    kf, vf = (t.transpose(1, 2).reshape(-1, skv, hd) for t in (k, v))
+    want = fa_ref.attention(qf, kf, vf, group_size=h // kvh, causal=causal,
+                            window=window, softcap=cap)
+    want = want.reshape(b, h, sq, hd).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_TOL[dtype],
+                               rtol=FA_TOL[dtype])
+    if dtype == "bfloat16":
+        assert float(_row_rel_err(got, want).max()) <= FA_BF16_ROW_RTOL
+        if sq > KEY_TILE or not causal:
+            wrong = (_plain_dropping_a_tile(qf, kf, vf, h // kvh, True,
+                                            window, cap) if causal else
+                     _plain_dropping_last_tile(qf, kf, vf, h // kvh))
+            wrong = wrong.reshape(b, h, sq, hd).transpose(1, 2)
+            assert float(_row_rel_err(wrong, want).max()) > FA_BF16_ROW_RTOL
+
+
 @pytest.mark.parametrize("s,window", [(640, None), (1000, 300)])
 def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
     """The bf16 row check admits the plain version's own bf16 rounding and
@@ -529,22 +580,22 @@ def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_is_not_built_for(cuda):
-    """Both kernels are built for hd 64, 128 and 256 in bf16 and f32 only,
-    and take causal masking only with Skv == Sq; the bf16 kernel's grid
-    takes at most 65,535 blocks of 128 rows, which its C entry checks
-    before it reads any memory. Each C entry refuses any other hd, and
-    causal masking with Skv != Sq, itself."""
+    """Both kernels are built for hd 64, 80, 128 and 256 in bf16 and f32
+    only, and take causal masking only with Skv == Sq; the bf16 kernel's
+    grid takes at most 65,535 blocks of 128 rows, which its C entry checks
+    before it reads any memory. Each C entry refuses any other hd (96
+    here), and causal masking with Skv != Sq, itself."""
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t.to(cuda, dtype)
-                   for t in _fa_case(0, 1, 64, 2, 1, hd=80))
+                   for t in _fa_case(0, 1, 64, 2, 1, hd=96))
         with pytest.raises(ValueError,
-                           match=r"\(64, 128, 256\), got hd=80"):
+                           match=r"\(64, 80, 128, 256\), got hd=96"):
             fa_ops.mha(q, k, v)
-        qf = q.transpose(1, 2).reshape(2, 64, 80).contiguous()
+        qf = q.transpose(1, 2).reshape(2, 64, 96).contiguous()
         status = fa_ops._lib(dtype)(
             qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 2, 1,
-            64, 64, 1, 0, 80, 80 ** -0.5, 0.0, stream)
+            64, 64, 1, 0, 96, 96 ** -0.5, 0.0, stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.check(status, "flash_attention")
         q, k, v = (t.to(cuda, dtype)

@@ -17,12 +17,14 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs.base import SSMConfig as JSSMConfig
 from repro.launch.serve import serve as jax_serve
 from repro.models import registry as jregistry
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.launch.serve import serve
-from repro_torch.models import registry
+from repro_torch.models import registry, stacks
+from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import transformer_from_jax
 
 TOL = 1e-5
@@ -170,14 +172,18 @@ def test_param_counts_match_jax():
 
 
 def test_other_families_raise():
-    """The hybrid stack (SSM blocks with a shared attention block) is still
-    to port, and so is zamba2's config; dispatch follows the config's
-    fields, as JAX's ``get_model``, not its family name."""
+    """Dispatch follows the config's fields, as JAX's ``get_model``, not its
+    family name: a decoder given Mamba2 blocks and ``attn_every`` is the
+    hybrid stack (tests/test_torch_zamba2.py), its count JAX's; a family
+    name alone changes nothing; a config name neither package has
+    raises."""
     hybrid = get_config("yi-34b").replace(
         family="hybrid", ssm=SSMConfig(kind="mamba2"), attn_every=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_model(hybrid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.param_count(hybrid)
+    jhybrid = jax_get_config("yi-34b").replace(
+        family="hybrid", ssm=JSSMConfig(kind="mamba2"), attn_every=6)
+    assert isinstance(registry._meta_model(hybrid), stacks.Hybrid)
+    assert registry.param_count(hybrid) == jregistry.param_count(jhybrid)
+    named = get_config("yi-34b").replace(family="hybrid")
+    assert isinstance(registry._meta_model(named), tfm.Transformer)
     with pytest.raises(KeyError, match="repro.configs"):
-        get_config("zamba2-2.7b")
+        get_config("zamba2-7b")

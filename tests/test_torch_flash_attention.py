@@ -231,6 +231,52 @@ def test_cross_attention_matches_jax_attend():
                                np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+# zamba2's shared attention at hd = 80 (32 heads of 80; the card's kernels
+# pad it to 128 columns): causal and ragged, non-causal with a ragged last
+# key tile and with Skv != Sq both ways, GQA, and a window with a softcap,
+# each against JAX's reference (any length).
+CASES_80 = [
+    (2, 96, 96, 4, 4, 80, True, None, None),       # zamba2: MHA, causal
+    (1, 150, 150, 4, 4, 80, True, None, None),     # causal, ragged
+    (2, 150, 150, 4, 4, 80, False, None, None),    # non-causal, ragged
+    (2, 24, 100, 4, 4, 80, False, None, None),     # Skv != Sq, Sq < Skv
+    (1, 100, 36, 4, 1, 80, False, None, None),     # Sq > Skv, GQA 4
+    (1, 130, 130, 8, 2, 80, True, None, None),     # GQA 4, causal
+    (1, 160, 160, 4, 2, 80, True, 40, 50.0),       # window and softcap
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES_80,
+                         ids=["causal", "causal_ragged", "noncausal_ragged",
+                              "skv_longer", "skv_shorter_gqa", "gqa",
+                              "window_softcap"])
+def test_mha_matches_jax_ref_at_hd80(case, dtype):
+    q, k, v = _inputs(case, 80 + CASES_80.index(case))
+    np.testing.assert_allclose(_port(q, k, v, case, dtype),
+                               _jax_ref(q, k, v, case, getattr(jnp, dtype)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [(1, 128, 128, 4, 1, 80, True, None, None),
+                                  (1, 128, 256, 4, 4, 80, False, None,
+                                   None)],
+                         ids=["causal_gqa", "noncausal_skv"])
+def test_mha_matches_jax_pallas_interpret_at_hd80(case):
+    """hd = 80 against the Pallas kernel in interpret mode: causal with GQA
+    group 4, and non-causal with Skv != Sq (shapes its 128-row blocks
+    take)."""
+    q, k, v = _inputs(case, 90)
+    b, sq, skv, h, kvh, hd, causal, window, cap = case
+    want = jfa_ops.flash_attention(
+        *(jnp.asarray(a).transpose(0, 2, 1, 3).reshape(-1, a.shape[1], hd)
+          for a in (q, k, v)), group_size=h // kvh, causal=causal,
+        window=window, softcap=cap, interpret=True)
+    want = np.asarray(want).reshape(b, h, sq, hd).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_port(q, k, v, case, "float32"), want,
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
 def test_causal_with_skv_unlike_sq_raises():
     """JAX's causal mask compares positions within each tensor, so it
     assumes Sq == Skv; the wrapper refuses causal masking otherwise, on

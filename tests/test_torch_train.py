@@ -2,10 +2,14 @@
 (``repro.launch.train`` with ``mesh=None``): the same data, the same
 parameters (the JAX init loaded with ``params_from_jax``), the same steps.
 
-Size: ``GNNConfig().reduced()`` with hidden 32, 2 message-passing layers,
-halo 2, levels (64, 128, 256), 4 partitions. Everything runs in f32; the
-host data pipeline is the same numpy code in both packages, so its arrays
-are bit-equal. Tolerances are stated beside each check.
+This file holds one partitioned sample's loss and gradients, remat, Adam,
+the parameter conversion, nonfinite steps, and predict and eval; the
+5-step trajectory and ``train_gnn`` are in ``test_torch_train_trajectory.py``
+and ``test_torch_train_gnn*.py``. Size and set-up: ``_torch_train_common.py``
+(``GNNConfig().reduced()`` with hidden 32, 2 message-passing layers, halo 2,
+levels (64, 128, 256), 4 partitions). Everything runs in f32; the host data
+pipeline is the same numpy code in both packages, so its arrays are
+bit-equal. Tolerances are stated beside each check.
 """
 import jax
 import jax.numpy as jnp
@@ -13,72 +17,23 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import GNNConfig as JaxGNNConfig
-from repro.data import pipeline as jpipe
+from _torch_train_common import (EVAL_TOL, GRAD_TOL, REMAT_TOL, SIZE,
+                                 _close, _model, _np, _torch_batch,
+                                 build_data)
 from repro.launch import train as jtrain
 from repro.models import meshgraphnet as jmgn
 from repro.optim import adam as jadam
-from repro_torch.configs.base import GNNConfig
 from repro_torch.core.gradient_aggregation import aggregate_gradients
-from repro_torch.data import pipeline as pipe
 from repro_torch.kernels.segment_agg import ref as seg_ref
 from repro_torch.launch import train as ptrain
 from repro_torch.models import meshgraphnet as mgn
-from repro_torch.models.convert import (adam_state_from_jax, params_from_jax,
-                                        params_to_jax)
+from repro_torch.models.convert import adam_state_from_jax, params_to_jax
 from repro_torch.optim import adam as padam
-from repro_torch.telemetry import Telemetry
-
-# Loss and gradients of one sample, summed over its partitions: f32 on both
-# sides, matmuls and reductions summed in other orders.
-GRAD_TOL = 1e-5
-# predict_gnn / eval_gnn: denormalized fields, as the JAX package's own
-# eval parity test (1e-4).
-EVAL_TOL = 1e-4
-# Remat on against off: the forward values are recomputed bit for bit, but
-# autograd adds the gradient contributions into each layer's node carry
-# (gathers by sender and receiver, the node MLP, the residual) in another
-# order when the layer is checkpointed: 7.5e-9 (one f32 ulp of 0.05) seen.
-REMAT_TOL = 1e-6
-SIZE = dict(levels=(64, 128, 256), hidden=32, n_mp_layers=2, halo=2,
-            n_partitions=4)
-
-
-def _cfgs(**kw):
-    return (JaxGNNConfig().reduced().replace(**SIZE, **kw),
-            GNNConfig().reduced().replace(**SIZE, **kw))
-
-
-def _np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _close(got, want, atol, rtol=0.0, what=""):
-    for g, w in zip(jax.tree_util.tree_leaves(got),
-                    jax.tree_util.tree_leaves(want)):
-        np.testing.assert_allclose(g, w, atol=atol, rtol=rtol, err_msg=what)
 
 
 @pytest.fixture(scope="module")
 def data():
-    """Both packages' datasets and partitioned samples, 3 samples."""
-    jcfg, cfg = _cfgs()
-    jd = jpipe.build_dataset(jcfg, 3)
-    pd = pipe.build_dataset(cfg, 3)
-    jps = jpipe.partition_samples(jcfg, jd[0], jd[2], jd[3])
-    pps = pipe.partition_samples(cfg, pd[0], pd[2], pd[3])
-    params = _np(jmgn.init(jax.random.PRNGKey(0), jcfg))
-    return dict(jcfg=jcfg, cfg=cfg, jd=jd, pd=pd, jps=jps, pps=pps,
-                params=params)
-
-
-def _model(data, **kw):
-    cfg = data["cfg"].replace(**kw)
-    return params_from_jax(data["params"], cfg, device="cpu")
-
-
-def _torch_batch(ps):
-    return ptrain.prepare_gnn_batch(ps, "cpu")
+    return build_data()
 
 
 def test_dataset_and_partitions_equal_jax(data):
@@ -223,92 +178,6 @@ def test_convert_roundtrip_and_adam_state(data):
     assert names[0].startswith("decoder.")
     i = names.index("proc_edge.0.layers.0.b")
     assert names[i + 1] == "proc_edge.1.layers.0.b"
-
-
-# Parameters after each of 5 Adam steps: 1e-6 (f32 on both sides, gradients
-# agree to 3.3e-7 absolute). Adam divides each gradient element by its own
-# running RMS plus eps = 1e-8, so an element whose gradient is near eps
-# turns the gradient's rounding into an update error of up to the learning
-# rate: at this size one element of proc_node's second weight has a
-# gradient of 5.3e-9 (JAX) against 4.9e-9 (port), the leftover of a
-# cancellation, and its update differs by 1.45e-5. Elements whose gradient
-# fell below NEAR_ZERO at any step so far (0.16 % of them after 5 steps)
-# are held only to that bound, 2 lr_max a step, and may be at most
-# MAX_NEAR_ZERO of all elements; the rest differ by at most 2.2e-7.
-TRAJ_ATOL = 1e-6
-NEAR_ZERO = 1e-7
-MAX_NEAR_ZERO = 0.01
-LOSS_RTOL = 1e-5
-
-
-def test_five_step_trajectory_matches_jax(data):
-    """5 steps of make_gnn_step_fn against JAX make_gnn_step_fn(mesh=None):
-    the losses, the gradient norms, and the parameters after each step."""
-    jcfg, cfg = data["jcfg"], data["cfg"]
-    opt_cfg = padam.AdamConfig(total_steps=5)
-    jstep = jtrain.make_gnn_step_fn(jcfg, jadam.AdamConfig(total_steps=5),
-                                    mesh=None)
-    pstep = ptrain.make_gnn_step_fn(cfg, opt_cfg)
-    params = data["params"]
-    jopt = jadam.adam_init(params)
-    model = _model(data)
-    popt = padam.adam_init([p for _, p in model.leaves()])
-    near_zero = None
-    for it in range(5):
-        jps, pps = data["jps"][it % 2], data["pps"][it % 2]
-        params, jopt, jloss, jgn, jskip = jstep(
-            params, jopt, jax.tree_util.tree_map(jnp.asarray, jps.stacked),
-            jnp.asarray(jps.denom))
-        popt, ploss, pgn, pskip = pstep(model, popt, *_torch_batch(pps))
-        assert not bool(jskip) and not pskip
-        np.testing.assert_allclose(float(ploss), float(jloss),
-                                   rtol=LOSS_RTOL)
-        np.testing.assert_allclose(float(pgn), float(jgn), rtol=LOSS_RTOL)
-        small = [np.abs(g) < NEAR_ZERO for g in jax.tree_util.tree_leaves(
-            params_to_jax(model, grads=True))]
-        near_zero = small if near_zero is None else [
-            a | b for a, b in zip(near_zero, small)]
-        n_near = sum(int(m.sum()) for m in near_zero)
-        assert n_near <= MAX_NEAR_ZERO * sum(m.size for m in near_zero)
-        bound = 2 * opt_cfg.lr_max * (it + 1)
-        for g, w, nz in zip(jax.tree_util.tree_leaves(params_to_jax(model)),
-                            jax.tree_util.tree_leaves(_np(params)),
-                            near_zero):
-            diff = np.abs(g - w)
-            assert diff[~nz].max(initial=0.0) <= TRAJ_ATOL, \
-                f"params after step {it}: {diff[~nz].max()}"
-            assert diff[nz].max(initial=0.0) <= bound
-
-
-@pytest.mark.parametrize("size,noise_std", [("small", 0.0), ("small", 0.1),
-                                            ("reduced", 0.0)])
-def test_train_gnn_losses_match_jax(data, monkeypatch, size, noise_std):
-    """train_gnn for 3 steps against the JAX train_gnn, from the JAX init
-    (the port draws its own weights from a torch.Generator, so init is
-    replaced by the converted JAX params), with and without training noise,
-    at this file's size and at ``GNNConfig().reduced()`` (hidden 64, 3
-    layers, levels (128, 256, 512))."""
-    if size == "small":
-        jcfg, cfg, params = data["jcfg"], data["cfg"], data["params"]
-    else:
-        jcfg, cfg = JaxGNNConfig().reduced(), GNNConfig().reduced()
-        params = _np(jmgn.init(jax.random.PRNGKey(0), jcfg))
-    monkeypatch.setattr(
-        ptrain.meshgraphnet, "init",
-        lambda gen, c, device=None: params_from_jax(params, c, device))
-    _, want, _ = jtrain.train_gnn(jcfg, steps=3, n_samples=3,
-                                  log_every=100, shard_devices=1,
-                                  noise_std=noise_std)
-    tel = Telemetry(enabled=True)
-    _, got, _ = ptrain.train_gnn(cfg, steps=3, n_samples=3, log_every=100,
-                                 noise_std=noise_std, device="cpu",
-                                 telemetry=tel)
-    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
-    hist = tel.metrics.histogram
-    assert hist("train_stage_step_seconds").count == 3
-    assert hist("train_stage_data_seconds").sum > 0
-    assert [r.attrs["it"] for r in tel.tracer.records()
-            if r.name == "step"] == [0, 1, 2]
 
 
 def test_nonfinite_step_is_skipped_bit_for_bit(data):

@@ -9,11 +9,12 @@ checkpoint.
   weights: losses to a relative 1e-5 and parameters to 1e-6
   (``tests/test_torch_train.py``'s limits; its near-zero-gradient split at
   2 lr is not needed here: every element agrees to 3e-8 at this size).
-* Serving: a JAX-trained checkpoint served by the port's
-  ``GNNServer.from_checkpoint``, within 1e-4 of JAX's.
+Serving from a checkpoint is in ``test_torch_serve_ckpt.py``, the training
+CLI's checkpoints and resume in ``test_torch_train_cli.py`` (split from
+this file so that ``--dist loadfile`` spreads them).
 
 Size: ``tests/test_train_resume.py``'s (hidden 16, 2 layers, levels
-(32, 64), 2 partitions). The CPU runs are bit-reproducible at this size; at
+(32, 64), 2 partitions; ``_torch_train_common.resume_cfg``). The CPU runs are bit-reproducible at this size; at
 full width PyTorch's multithreaded CPU kernels are not (3.4e-5 after two
 steps), which is why the card holds the full-width resume (``chip_smoke.py``
 phase 11).
@@ -23,31 +24,17 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_train_common import resume_cfg as _cfg
+from _torch_train_common import resume_jcfg as _jcfg
 from repro.ckpt import checkpoint as jckpt
-from repro.configs.base import GNNConfig as JaxGNNConfig
-from repro.data import geometry as jgeo
-from repro.launch import serve_gnn as jserve
 from repro.launch import train as jtrain
 from repro.models import meshgraphnet as jmgn
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.configs.base import GNNConfig
-from repro_torch.launch import serve_gnn
 from repro_torch.launch import train as ptrain
 from repro_torch.models.convert import params_from_jax, params_to_jax
 
-SIZE = dict(levels=(32, 64), n_partitions=2, hidden=16, n_mp_layers=2,
-            halo=2)
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-6
-SERVE_TOL = 1e-4
-
-
-def _cfg():
-    return GNNConfig().reduced().replace(**SIZE)
-
-
-def _jcfg():
-    return JaxGNNConfig().reduced().replace(**SIZE)
 
 
 def _same(a, b) -> bool:
@@ -131,20 +118,6 @@ def test_periodic_saves_survive_midrun_kill(tmp_path):
     assert losses3 == losses_ref[2:]
 
 
-def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
-    p = str(tmp_path / "cli.msgpack")
-    args = ["--arch", "xmgn-drivaer", "--reduced", "--samples", "3",
-            "--device", "cpu", "--ckpt", p]
-    ptrain.main(args + ["--steps", "2", "--ckpt-every", "1",
-                        "--keep-ckpts", "2", "--total-steps", "3"])
-    assert [s for s, _ in ckpt.retained_steps(p)] == [1]
-    assert ckpt.restore(p)["step"] == 2
-    capsys.readouterr()
-    ptrain.main(args + ["--steps", "3", "--resume", p])
-    assert "resumed" in capsys.readouterr().out
-    assert ckpt.restore(p)["step"] == 3
-
-
 # ------------------------------------------------------ across the packages
 
 @pytest.fixture(scope="module")
@@ -217,53 +190,3 @@ def test_port_checkpoint_reads_as_jax_training_tree(tmp_path):
     for k in ("norm_in", "norm_out"):
         for s in ("mean", "std"):
             np.testing.assert_array_equal(ta[k][s], tb[k][s])
-
-
-# ------------------------------------------------------------------ serving
-
-def test_serve_jax_checkpoint_matches_jax_server(tmp_path):
-    """A checkpoint trained by the JAX package, served by both packages'
-    ``GNNServer.from_checkpoint``: bit-equal points, fields within 1e-4."""
-    jcfg, cfg = _jcfg(), _cfg()
-    p = str(tmp_path / "jax.msgpack")
-    jtrain.train_gnn(jcfg, 2, 2, p, log_every=100, shard_devices=1)
-    reqs = []
-    for i, n in ((1, 100), (2, 128)):
-        verts, faces = jgeo.car_surface(jgeo.sample_params(i))
-        reqs.append((verts, faces, n))
-    want = jserve.GNNServer.from_checkpoint(p, jcfg, (128,), max_batch=2,
-                                            seed=3).serve(reqs)
-    server = serve_gnn.GNNServer.from_checkpoint(p, cfg, (128,),
-                                                 max_batch=2, seed=3,
-                                                 device="cpu")
-    got = server.serve(reqs)
-    norm_in = server._norm_in
-    tree = jckpt.restore(p)
-    np.testing.assert_array_equal(norm_in[0], np.asarray(
-        tree["norm_in"]["mean"]))
-    assert [r.request_id for r in got] == [r.request_id for r in want]
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.points, w.points)
-        np.testing.assert_allclose(g.fields, w.fields, atol=SERVE_TOL,
-                                   rtol=SERVE_TOL)
-    # trained weights, not the random ones
-    random = serve_gnn.GNNServer(cfg, (128,), max_batch=2, seed=3,
-                                 device="cpu").serve(reqs)
-    assert np.abs(random[0].fields - got[0].fields).max() > 1e-3
-
-
-def test_serve_rejects_non_training_checkpoint(tmp_path):
-    p = str(tmp_path / "x.msgpack")
-    ckpt.save(p, {"step": 1})
-    with pytest.raises(ValueError, match="not a GNN training checkpoint"):
-        serve_gnn.load_gnn_checkpoint(p, _cfg(), device="cpu")
-
-
-def test_serve_cli_loads_checkpoint(tmp_path, capsys):
-    p = str(tmp_path / "cli.msgpack")
-    ptrain.train_gnn(GNNConfig().reduced(), 1, 2, p, log_every=100,
-                     device="cpu")
-    serve_gnn.main(["--reduced", "--buckets", "256,512", "--device", "cpu",
-                    "--requests", "2", "--ckpt", p])
-    out = capsys.readouterr().out
-    assert f"loaded checkpoint {p}" in out and "served 2 requests" in out
