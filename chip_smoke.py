@@ -172,6 +172,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    split between the Mamba2 blocks (the GLA core within them) and the
    shared attention by the model's marks, then one profiled decode step
    with its launches.
+22. LLM training (after phase 21, in a spawned child process of its own,
+   as phase 21's: a fresh torch.profiler; the child's launch counts join
+   the parent's): first the flash kernel must refuse a call whose q
+   requires grad (naming the train-mode attention) and launch nothing,
+   and run under ``torch.no_grad()``; (a) gemma2-9b (2 layers, one local
+   and one global), qwen3-moe-30b-a3b (2 layers), whisper-large-v3 (2 + 2
+   layers, 1,500 zero frames), xlstm-350m (one group) and zamba2-2.7b (one
+   group) at full width in f32, initialised once on the card and copied to
+   the CPU: one ``train_loss`` and backward on ``token_batches(seed=0)``
+   at 4 x 64 on both, the loss within TRAIN_LLM_LOSS_RTOL relative, every
+   gradient leaf within TRAIN_LLM_GRAD_RTOL of its largest element (the
+   sLSTM's input-gate bias, whose exact gradient is zero, of the model's
+   largest gradient element), every MoE routing decision equal, and no
+   launch of the port's kernels, none of the flash kernels in the card
+   step's profile either; (b) zamba2-2.7b at full width and depth in bf16
+   (``remat="full"``): ``train_llm`` for 5 steps at 4 x 64 (its loss lines
+   printed, finite), then 3 warm steps of ``make_llm_step_fn`` at 2 x 4,096
+   tokens (step seconds, tokens/s, peak memory) and one more profiled: its
+   device time by kernel and by the marks ``hybrid.mamba2``,
+   ``mamba2.gla``, ``hybrid.shared_attention`` (forward and the remat
+   recompute) and ``llm.adam_update``, its launches, and the shared
+   block's ``wq``, ``wk``, ``wv`` gradient norms, finite and nonzero; (c)
+   whisper-large-v3 (1,500 zero frames) and xlstm-350m at full width and
+   depth in bf16, 3 steps each at 4 x 64: finite losses, step seconds and
+   peak memory.
 
 9. training whole path: ``GNNConfig()`` at full width cut to 2
    message-passing layers and halo 2, a 2,048-point sample in 2 partitions;
@@ -278,8 +303,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    finite losses, step seconds and peak memory.
 
 The GNN serving phases (3-6, 12) run inside one function, so their tensors are
-freed before the LLM phases (the flash row of 3, then 7, 8, 19, 20 and
-21), all
+freed before the LLM phases (the flash row of 3, then 7, 8, 19, 20, and 21
+and 22 in child processes), all
 but phase 5's weights; the training phases (the backward row of 3, then 9, 14,
 10 and 11) run in another, and phases 13 and 15 run last, on phase 5's weights,
 each in a function of its own, then phase 16, 17 (b, c) and 18, each in its
@@ -461,6 +486,37 @@ HYBRID_MARKS = ("hybrid.mamba2", "hybrid.shared_attention")
 # they run in a spawned child (a fresh torch.profiler), in this directory
 HYBRID_DIR = ROOT / "build" / "chip_smoke_hybrid"
 HYBRID_TIMEOUT = 600
+# Phase 22: LLM training. (a) five configs at full width cut in depth (the
+# cuts of phases 19 (a)-21 (a)), f32, card against CPU: cuBLAS and the CPU
+# BLAS sum the f32 products in other orders, so the loss to a relative 1e-5
+# and each gradient leaf to 1e-5 of its own largest element, as phase 9
+# holds the GNN's. A leaf beyond that is held, as phase 18 (c) holds
+# X-UNet3D's, to the same gradient computed in f64 on the CPU: within 1e-5
+# of its largest element, or no further than the CPU's own f32 gradient is
+# (Mamba2's A_log and dt_bias are sums over every position of a cancelling
+# gradient: the CPU's f32 is 8e-6 of the leaf from the f64 one at this
+# size). The sLSTM's input-gate bias has an exact gradient of zero (h = o
+# C / N is unchanged when every input gate shifts by one constant;
+# tests/test_torch_train_llm_recurrent.py), so both sides hold rounding
+# residues there: that leaf is held to 1e-5 of the model's largest gradient
+# element. (b) zamba2-2.7b whole in bf16; (c) whisper-large-v3 and
+# xlstm-350m whole in bf16.
+TRAIN_LLM_CUTS = (("gemma2-9b", dict(n_layers=2)),
+                  ("qwen3-moe-30b-a3b", dict(n_layers=2)),
+                  ("whisper-large-v3", dict(n_layers=2, encoder_layers=2)),
+                  ("xlstm-350m", dict(n_layers=4)),
+                  (ZAMBA2_ARCH, dict(n_layers=6)))
+TRAIN_LLM_BATCH, TRAIN_LLM_SEQ = 4, 64
+TRAIN_LLM_LOSS_RTOL, TRAIN_LLM_GRAD_RTOL = 1e-5, 1e-5
+TRAIN_LLM_ZERO_GRAD = ("slstm.w_i.b",)
+ZAMBA2_TRAIN_STEPS, ZAMBA2_TRAIN_WARM = 5, 3
+TRAIN_LLM_WHOLE_STEPS = 3
+# the training step's parts, as models/stacks.py, models/ssm.py and
+# launch/train.py mark them for the profiler
+TRAIN_LLM_MARKS = ("hybrid.mamba2", "mamba2.gla", "hybrid.shared_attention",
+                   "llm.adam_update")
+TRAIN_LLM_DIR = ROOT / "build" / "chip_smoke_train_llm"
+TRAIN_LLM_TIMEOUT = 600
 # Phase 19 (b): the MoE layer's parts, as models/moe.py marks them for the
 # profiler
 MOE_MARKS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
@@ -3654,10 +3710,60 @@ def moe_serve(dev, card, reset_counts, read_counts, by_phase):
         f"| {card}")
 
 
+def _raw_split(prof, marks):
+    """Device time by kernel, and by ``record_function`` mark, read from
+    the profiler's raw events (``kineto_results``) without building its
+    event tree, which takes minutes for a training step's ~10^5 launches.
+    Returns (``[(kernel name, ms, launches)]`` longest first, {mark: ms}):
+    a kernel counts toward a mark when the runtime call that launched it
+    (its correlation id) ran inside the mark on the same host thread, the
+    tree's attribution."""
+    import bisect
+
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name, kernels, launched = {}, [], {}
+    spans = {}                      # (mark, thread) -> [(start, end)]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            if e.is_user_annotation():
+                continue
+            ms = e.duration_ns() / 1e6
+            row = by_name.setdefault(e.name(), [0.0, 0])
+            row[0] += ms
+            row[1] += 1
+            kernels.append((e.linked_correlation_id(), ms))
+        elif e.is_user_annotation() and e.name() in marks:
+            spans.setdefault((e.name(), e.start_thread_id()), []).append(
+                (e.start_ns(), e.end_ns()))
+        else:
+            launched[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+    starts = {key: sorted(v) for key, v in spans.items()}
+    marked = {m: 0.0 for m in marks}
+    for corr, ms in kernels:
+        if corr not in launched:
+            continue
+        tid, t = launched[corr]
+        for m in marks:
+            iv = starts.get((m, tid))
+            if iv:
+                i = bisect.bisect_right(iv, (t, float("inf"))) - 1
+                if i >= 0 and iv[i][0] <= t <= iv[i][1]:
+                    marked[m] += ms
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
+                  key=lambda r: -r[1])
+    return rows, marked
+
+
 def _log_kernels(what: str, prof, wall_s: float, top: int = 8):
     """Device time by kernel from a ``torch.profiler`` run; returns
     ``[(kernel name, ms, launches)]``, longest first."""
-    rows = device_rows(prof.key_averages())
+    return _log_rows(what, device_rows(prof.key_averages()), wall_s, top)
+
+
+def _log_rows(what: str, rows, wall_s: float, top: int = 8):
+    """Log ``[(kernel name, ms, launches)]`` of one profiled call: its total,
+    flash attention, GEMMs and the longest kernels; returns ``rows``."""
     total = sum(ms for _, ms, _ in rows)
     flash = sum(ms for k, ms, _ in rows if FLASH_KERNEL_RE.search(k))
     gemm = sum(ms for k, ms, _ in rows
@@ -5002,36 +5108,442 @@ def _hybrid_child(card: str, out_dir: str):
         raise
 
 
-def hybrid_phase(card, by_phase) -> dict:
-    """Phase 3 at head_dim 80 and phase 21 (a) and (b), in a spawned child
-    with a time limit (a failing or overrunning child fails the run). In a
-    process of its own the profiler starts fresh: after phases 3-20's
-    profiles, torch.profiler held only some launches of a profiled call
-    (ROADMAP Queue 3), and phase 21 (b)'s profiled prefill (30,081
-    launches) stays out of the later phases' profiles. Merges the child's
-    launch counts into ``by_phase``; returns the flash row's ``hd80``
-    entry."""
+def _run_child(target, card: str, out_dir: Path, timeout: float, what: str,
+               by_phase) -> dict:
+    """Run ``target(card, out_dir)`` in a spawned child with a time limit
+    (a failing or overrunning child fails the run); merge the launch counts
+    of its ``result.json`` into ``by_phase`` and return the result."""
     import multiprocessing as mp
-    shutil.rmtree(HYBRID_DIR, ignore_errors=True)
-    HYBRID_DIR.mkdir(parents=True)
-    proc = mp.get_context("spawn").Process(
-        target=_hybrid_child, args=(card, str(HYBRID_DIR)))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    proc = mp.get_context("spawn").Process(target=target,
+                                           args=(card, str(out_dir)))
     proc.start()
-    proc.join(HYBRID_TIMEOUT)
+    proc.join(timeout)
     if proc.is_alive():
         proc.kill()
         proc.join(30)
-        raise RuntimeError(f"phase 21: the child was killed at the "
-                           f"{HYBRID_TIMEOUT} s limit")
+        raise RuntimeError(f"{what}: the child was killed at the "
+                           f"{timeout} s limit")
     if proc.exitcode != 0:
-        err = HYBRID_DIR / "error.txt"
-        raise RuntimeError(f"phase 21: the child exited {proc.exitcode}\n"
+        err = out_dir / "error.txt"
+        raise RuntimeError(f"{what}: the child exited {proc.exitcode}\n"
                            + (err.read_text() if err.exists() else ""))
-    res = json.loads((HYBRID_DIR / "result.json").read_text())
-    shutil.rmtree(HYBRID_DIR, ignore_errors=True)
+    res = json.loads((out_dir / "result.json").read_text())
+    shutil.rmtree(out_dir, ignore_errors=True)
     for name, phases in res["by_phase"].items():
         by_phase[name].update(phases)
-    return res["hd80"]
+    return res
+
+
+def hybrid_phase(card, by_phase) -> dict:
+    """Phase 3 at head_dim 80 and phase 21 (a) and (b), in a spawned child
+    (``_run_child``). In a process of its own the profiler starts fresh:
+    after phases 3-20's profiles, torch.profiler held only some launches of
+    a profiled call (ROADMAP Queue 3), and phase 21 (b)'s profiled prefill
+    (30,081 launches) stays out of the later phases' profiles. Returns the
+    flash row's ``hd80`` entry."""
+    return _run_child(_hybrid_child, card, HYBRID_DIR, HYBRID_TIMEOUT,
+                      "phase 21", by_phase)["hd80"]
+
+
+def _train_batch(cfg, batch: int, seq: int, seed: int, dev):
+    """``train_llm``'s batch: ``token_batches(seed)``'s first, with zero
+    patch or frame embeddings for a vision or audio frontend."""
+    import torch
+
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.launch.train import stub_frontend
+    b = {k: torch.from_numpy(v).to(dev) for k, v in
+         next(token_batches(cfg.vocab_size, batch, seq, 1, seed)).items()}
+    return {**b, **stub_frontend(cfg, batch, dev)}
+
+
+def flash_autograd_guard(dev):
+    """Phase 22: the flash kernel refuses a call whose q requires grad
+    (it has no backward), launching nothing, and runs the same call under
+    ``torch.no_grad()``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_()
+    before = fa_ops.mha.launches
+    try:
+        fa_ops.mha(q, k, v)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    if refused is None or "mode='train'" not in refused or \
+            fa_ops.mha.launches != before:
+        raise RuntimeError(f"flash guard: a call under autograd was not "
+                           f"refused as it should be ({refused!r}, "
+                           f"{fa_ops.mha.launches - before} launches)")
+    with torch.no_grad():
+        out = fa_ops.mha(q, k, v)
+    torch.cuda.synchronize()
+    if fa_ops.mha.launches != before + 1 or not torch.isfinite(out).all():
+        raise RuntimeError("flash guard: the call under no_grad did not run")
+    log(f"[train_llm] flash guard: refused under autograd ({refused[:60]}"
+        "...), ran under no_grad")
+
+
+def _f64_gradients(model_cpu, api, batch) -> dict:
+    """The model's ``train_loss`` gradients computed in f64 on the CPU: a
+    copy in f64, run with every float32 the model's code asks for (a
+    ``.float()``, a ``torch.float32`` argument, the default dtype) made
+    float64 by a ``TorchFunctionMode``; without remat (the same function:
+    the remat recompute would run outside the mode)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.models.convert import llm_leaves
+
+    class Float64(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.float:
+                return args[0].double()
+
+            def up(a):
+                return torch.float64 if a is torch.float32 else a
+            return func(*(up(a) for a in args),
+                        **{k: up(v) for k, v in (kwargs or {}).items()})
+
+    model = copy.deepcopy(model_cpu).double()
+    model.cfg = model.cfg.replace(remat="none")
+    model.zero_grad(set_to_none=True)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with Float64():
+            loss = api.train_loss(model, batch)
+            loss.backward()
+    finally:
+        torch.set_default_dtype(default)
+    grads = {n: p.grad for n, p in llm_leaves(model)}
+    if loss.dtype != torch.float64 or any(g.dtype != torch.float64
+                                          for g in grads.values()):
+        raise RuntimeError("the f64 reference ran in another dtype")
+    return grads
+
+
+def train_whole_case(dev, card, reset_counts, read_counts, by_phase,
+                     arch: str, cut: dict):
+    """Phase 22 (a): one config at full width cut in depth, f32, one
+    ``train_loss`` and backward on the card and on the CPU from the same
+    weights (module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import registry
+    from repro_torch.models.convert import llm_leaves
+
+    t_arch = time.perf_counter()
+    cfg = get_config(arch).replace(dtype="float32", **cut)
+    api = registry.get_model(cfg)
+    model_gpu = api.init(seed=0, device=dev)
+    model_cpu = _model_like(cfg, model_gpu)
+    batch = _train_batch(cfg, TRAIN_LLM_BATCH, TRAIN_LLM_SEQ, 0, "cpu")
+
+    def run(model, device):
+        moes = [m for m in model.modules() if isinstance(m, moe_lib.MoE)]
+        routed = [[] for _ in moes]
+
+        def keep(mod, args, i):
+            with torch.no_grad():
+                routed[i].append(moe_lib.route(mod, args[0], mod.cfg)[1]
+                                 .cpu().sort(-1).values)
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args, i=i: keep(mod, args, i))
+            for i, m in enumerate(moes)]
+        t0 = time.perf_counter()
+        try:
+            loss = api.train_loss(model, {k: t.to(device)
+                                          for k, t in batch.items()})
+            loss.backward()
+            loss = float(loss.detach())
+        finally:
+            for hk in hooks:
+                hk.remove()
+        grads = {n: p.grad.detach() for n, p in llm_leaves(model)}
+        return loss, grads, routed, time.perf_counter() - t0
+
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g_loss, g_grads, g_routed, t_gpu = run(model_gpu, dev)
+        torch.cuda.synchronize()
+    read_counts(f"train_{arch}")
+    rows, _ = _raw_split(prof, ())
+    n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
+    launched = {name: by_phase[name][f"train_{arch}"] for name in by_phase
+                if by_phase[name][f"train_{arch}"]}
+    if n_flash or launched:
+        raise RuntimeError(f"train {arch}: the step launched the port's "
+                           f"kernels {launched}, {n_flash} flash kernels "
+                           "in its profile; training attends in plain "
+                           "PyTorch")
+    c_loss, c_grads, c_routed, t_cpu = run(model_cpu, torch.device("cpu"))
+    if not (np.isfinite(g_loss) and abs(g_loss - c_loss)
+            <= TRAIN_LLM_LOSS_RTOL * abs(c_loss)):
+        raise RuntimeError(f"train {arch}: loss card {g_loss} CPU {c_loss}")
+    # compared on the card: the CPU's gradients copied over
+    c_grads = {n: g.to(dev) for n, g in c_grads.items()}
+    tree_top = max(float(g.abs().max()) for g in c_grads.values())
+    worst, worst_name, n_zero, beyond = 0.0, "", 0, []
+    for name, want in c_grads.items():
+        got = g_grads[name]
+        zero_grad = name.endswith(TRAIN_LLM_ZERO_GRAD)
+        scale = tree_top if zero_grad else float(want.abs().max())
+        n_zero += scale == 0.0
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or (
+                zero_grad and err > TRAIN_LLM_GRAD_RTOL * scale):
+            raise RuntimeError(f"train {arch}: gradient {name} differs by "
+                               f"{err} (the model's largest element "
+                               f"{scale})")
+        if err > TRAIN_LLM_GRAD_RTOL * scale:
+            beyond.append(name)
+        elif scale and not zero_grad and err / scale > worst:
+            worst, worst_name = err / scale, name
+    held64 = []
+    if beyond:
+        g64 = _f64_gradients(model_cpu, api, batch)
+        for name in beyond:
+            want = g64[name].to(dev)
+            top = float(want.abs().max())
+            card_err = float((g_grads[name].double() - want).abs().max())
+            cpu_err = float((c_grads[name].double() - want).abs().max())
+            held64.append(f"{name}: card {card_err / top:.3g}, CPU "
+                          f"{cpu_err / top:.3g} of its largest f64 element")
+            if not card_err <= max(TRAIN_LLM_GRAD_RTOL * top, cpu_err):
+                raise RuntimeError(
+                    f"train {arch}: gradient {name} is {card_err} from the "
+                    f"f64 gradient on the card, the CPU's f32 {cpu_err} "
+                    f"(its largest element {top})")
+    decisions = differ = 0
+    for g_calls, c_calls in zip(g_routed, c_routed):
+        for ig, ic in zip(g_calls, c_calls):
+            decisions += ic.numel()
+            differ += int((~(ig[..., :, None] == ic[..., None, :]).any(-1))
+                          .sum())
+    if differ or [len(c) for c in g_routed] != [len(c) for c in c_routed]:
+        raise RuntimeError(f"train {arch}: {differ} of {decisions} MoE "
+                           "routing decisions differ between the card and "
+                           "the CPU")
+    log(f"[train_llm] (a) {arch} width {cfg.d_model}, "
+        + ", ".join(f"{k} {v}" for k, v in cut.items())
+        + f", f32, remat {cfg.remat}, {TRAIN_LLM_BATCH} x {TRAIN_LLM_SEQ} "
+        f"tokens: loss card {g_loss:.7f} CPU {c_loss:.7f} (rel "
+        f"{abs(g_loss - c_loss) / abs(c_loss):.3g}); {len(c_grads)} "
+        f"gradient leaves, worst {worst:.3g} of its largest element "
+        f"({worst_name}; {n_zero} leaves all zero)"
+        + (f"; beyond 1e-5 of the CPU's f32, held to f64 ({len(held64)}): "
+           + "; ".join(held64) if held64 else "")
+        + f"; MoE routing "
+        f"{decisions} decisions, {differ} differ; launches of the port's "
+        f"kernels 0, flash in the profile 0; card {t_gpu:.3f} s (first "
+        f"call), CPU {t_cpu:.2f} s; {time.perf_counter() - t_arch:.1f} s "
+        f"in all | {card}")
+    del model_gpu, model_cpu, g_grads, c_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_steps(model, cfg, batches):
+    """``make_llm_step_fn`` steps (lr 3e-4 cosine over the batches, a fresh
+    Adam state) over ``batches``, each synchronised; returns (losses, step
+    seconds)."""
+    import torch
+
+    from repro_torch.launch.train import make_llm_step_fn
+    from repro_torch.models.convert import llm_leaves
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    step_fn = make_llm_step_fn(cfg, AdamConfig(lr_max=3e-4,
+                                               total_steps=len(batches)))
+    opt = adam_init([p for _, p in llm_leaves(model)])
+    losses, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, loss, _ = step_fn(model, opt, b)
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"train {cfg.name}: losses {losses}")
+    return losses, secs
+
+
+def zamba2_train(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 22 (b): zamba2-2.7b at full width and depth in bf16 (module
+    docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.launch.train import train_llm
+
+    cfg = get_config(ZAMBA2_ARCH)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    model, losses = train_llm(ZAMBA2_ARCH, False, ZAMBA2_TRAIN_STEPS,
+                              log_every=1, device=dev)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    read_counts("train_zamba2")
+    launched = {name: by_phase[name]["train_zamba2"] for name in by_phase
+                if by_phase[name]["train_zamba2"]}
+    if launched or len(losses) != ZAMBA2_TRAIN_STEPS or \
+            not np.isfinite(losses).all():
+        raise RuntimeError(f"train zamba2: losses {losses}, launches "
+                           f"{launched}")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train_llm] (b) {ZAMBA2_ARCH} full width and depth ({n_params} "
+        f"params, bf16, remat {cfg.remat}): train_llm {ZAMBA2_TRAIN_STEPS} "
+        f"steps at {TRAIN_LLM_BATCH} x {TRAIN_LLM_SEQ} in {t_train:.2f} s, "
+        f"losses {[round(x, 4) for x in losses]}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+
+    n = ZAMBA2_TRAIN_WARM + 2                 # first, warm ones, profiled
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in token_batches(cfg.vocab_size, ZAMBA2_BATCH,
+                                      ZAMBA2_PROMPT, n, seed=1)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = _timed_steps(model, cfg, batches[:-1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm = secs[1:]
+    tokens = ZAMBA2_BATCH * ZAMBA2_PROMPT
+    log(f"[train_llm] (b) {ZAMBA2_ARCH} {ZAMBA2_BATCH} x {ZAMBA2_PROMPT} "
+        f"tokens a step: first step {secs[0]:.3f} s, warm steps "
+        + ", ".join(f"{x:.4f}" for x in warm)
+        + f" s (mean {np.mean(warm):.4f} s, {tokens / np.mean(warm):.1f} "
+        f"tokens/s), losses {[round(x, 4) for x in losses]}, peak memory "
+        f"{peak_gb:.2f} GB | {card}")
+
+    from repro_torch.launch.train import make_llm_step_fn
+    from repro_torch.models.convert import llm_leaves
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    step_fn = make_llm_step_fn(cfg, AdamConfig(lr_max=3e-4, total_steps=1))
+    opt = adam_init([p for _, p in llm_leaves(model)])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt, loss, gnorm = step_fn(model, opt, batches[-1])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("train_zamba2_profiled")
+    t0 = time.perf_counter()
+    rows, marked = _raw_split(prof, TRAIN_LLM_MARKS)
+    _log_rows("zamba2 training step", rows, wall)
+    if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows) or any(
+            by_phase[name]["train_zamba2_profiled"] for name in by_phase):
+        raise RuntimeError("train zamba2: the profiled step launched the "
+                           "port's kernels")
+    total = sum(ms for _, ms, _ in rows)
+    rest = total - marked["hybrid.mamba2"] - \
+        marked["hybrid.shared_attention"] - marked["llm.adam_update"]
+    attn = model.shared_attn.attn
+    norms = {name: float(getattr(attn, name).w.grad.float().norm())
+             for name in ("wq", "wk", "wv")}
+    if not all(np.isfinite(x) and x > 0 for x in norms.values()):
+        raise RuntimeError(f"train zamba2: shared attention gradient norms "
+                           f"{norms}")
+    log(f"[train_llm] (b) one profiled step: device {total:.3f} ms in "
+        f"{sum(n for *_, n in rows)} launches, loss {float(loss):.4f}, "
+        f"grad norm {float(gnorm):.4f}; by mark (forward and the remat "
+        f"recompute): Mamba2 blocks {marked['hybrid.mamba2']:.3f} (the GLA "
+        f"core {marked['mamba2.gla']:.3f} of it), shared attention "
+        f"{marked['hybrid.shared_attention']:.3f}, Adam update "
+        f"{marked['llm.adam_update']:.3f}; the rest (backward kernels, "
+        f"embedding, logits, loss) {rest:.3f}; "
+        f"shared block gradient norms "
+        + ", ".join(f"{k} {v:.4g}" for k, v in norms.items())
+        + f"; the profile read in {time.perf_counter() - t0:.1f} s; (b) "
+        f"took {time.perf_counter() - t_phase:.1f} s | {card}")
+    del model, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_whole_models(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 22 (c): whisper-large-v3 and xlstm-350m at full width and depth
+    in bf16, TRAIN_LLM_WHOLE_STEPS steps each at 4 x 64 (module
+    docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+
+    for arch in (WHISPER_ARCH, XLSTM_ARCH):
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        model = registry.get_model(cfg).init(seed=0, device=dev)
+        batches = [_train_batch(cfg, TRAIN_LLM_BATCH, TRAIN_LLM_SEQ, seed,
+                                dev)
+                   for seed in range(TRAIN_LLM_WHOLE_STEPS)]
+        losses, secs = _timed_steps(model, cfg, batches)
+        read_counts(f"train_{arch}_whole")
+        launched = {name: by_phase[name][f"train_{arch}_whole"]
+                    for name in by_phase
+                    if by_phase[name][f"train_{arch}_whole"]}
+        if launched:
+            raise RuntimeError(f"train {arch}: launches {launched}")
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[train_llm] (c) {arch} full width and depth ({n_params} "
+            f"params, bf16, remat {cfg.remat}), {TRAIN_LLM_BATCH} x "
+            f"{TRAIN_LLM_SEQ} tokens"
+            + (f" after {cfg.n_frontend_tokens} zero frames"
+               if cfg.frontend == "audio" else "")
+            + f": losses {[round(x, 4) for x in losses]}, step seconds "
+            + ", ".join(f"{x:.4f}" for x in secs)
+            + f" (first, then warm), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}")
+        del model, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _train_llm_child(card: str, out_dir: str):
+    """Phase 22 in a spawned process: writes ``result.json`` (the launch
+    counts), or its traceback to ``error.txt`` and fails."""
+    import traceback
+    try:
+        import torch
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda")
+        by_phase, reset_counts, read_counts = launch_counters()
+        flash_autograd_guard(dev)
+        for arch, cut in TRAIN_LLM_CUTS:
+            train_whole_case(dev, card, reset_counts, read_counts, by_phase,
+                             arch, cut)
+        zamba2_train(dev, card, reset_counts, read_counts, by_phase)
+        train_whole_models(dev, card, reset_counts, read_counts, by_phase)
+        (Path(out_dir) / "result.json").write_text(
+            json.dumps({"by_phase": by_phase}))
+    except BaseException:
+        (Path(out_dir) / "error.txt").write_text(traceback.format_exc())
+        raise
+
+
+def train_llm_phase(card, by_phase):
+    """Phase 22 in a spawned child (``_run_child``), whose profiler starts
+    fresh, as phase 21's."""
+    _run_child(_train_llm_child, card, TRAIN_LLM_DIR, TRAIN_LLM_TIMEOUT,
+               "phase 22", by_phase)
 
 
 def main() -> int:
@@ -5140,6 +5652,14 @@ def main() -> int:
     flash_row["hd80"] = hybrid_phase(card, by_phase)
     log(f"[hybrid] phase 21 and phase 3 at hd 80 took "
         f"{time.perf_counter() - t0:.1f} s | {card}")
+
+    # 22. LLM training, in a child process: (a) five configs cut in depth,
+    # card against CPU; (b) zamba2-2.7b trained whole; (c) whisper and the
+    # xLSTM trained whole; no kernel of the port on the path
+    t0 = time.perf_counter()
+    train_llm_phase(card, by_phase)
+    log(f"[train_llm] phase 22 took {time.perf_counter() - t0:.1f} s | "
+        f"{card}")
 
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later

@@ -25,6 +25,11 @@ _ARCH_MODULES = {
     "xunet3d-drivaer": "xunet3d_drivaer",
 }
 
+# the LLM configs, in the order of ``repro.configs.ASSIGNED_ARCHS``
+ASSIGNED_ARCHS = ["starcoder2-15b", "pixtral-12b", "whisper-large-v3",
+                  "granite-3-8b", "deepseek-moe-16b", "yi-34b", "gemma2-9b",
+                  "xlstm-350m", "qwen3-moe-30b-a3b", "zamba2-2.7b"]
+
 
 def get_config(name: str) -> Union[GNNConfig, ModelConfig, UNetConfig]:
     if name not in _ARCH_MODULES:

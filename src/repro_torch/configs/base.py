@@ -18,9 +18,9 @@ fields, and its rollout engine ``rollout_slots``,
 keeps only the fields the served families read (the decoders, dense, MoE
 and the vision prefix; whisper's encoder-decoder and audio frames; the
 xLSTM's recurrent blocks; zamba2's Mamba2 blocks and shared attention
-cadence ``attn_every``); the sharding and remat fields come with the
-slices that read them. ``MoEConfig`` and ``SSMConfig`` are copied field for
-field.
+cadence ``attn_every``) and ``remat``, which the LLM trainer reads; the
+sharding fields come with the slices that read them. ``MoEConfig`` and
+``SSMConfig`` are copied field for field.
 """
 from __future__ import annotations
 
@@ -94,6 +94,9 @@ class ModelConfig:
     n_frontend_tokens: int = 0
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    remat: str = "full"                # "none" | "full" (a checkpoint per
+                                       # layer group in training); "dots"
+                                       # raises (ROADMAP.md)
     source: str = ""                   # citation
 
     @property
@@ -113,7 +116,7 @@ class ModelConfig:
         """A smoke-test-sized variant (2 layers, d 128, hd 32; MoE: 4
         experts top-2 of width 64, at most 1 dense first layer; 2 encoder
         layers; SSM: d_state 16, chunk 16, 2 heads, an sLSTM every 2nd
-        block; 16 frontend tokens), as the JAX package's
+        block; 16 frontend tokens; f32, no remat), as the JAX package's
         ``ModelConfig.reduced`` gives."""
         kw = dict(
             n_layers=2, d_model=128, n_heads=4,
@@ -123,7 +126,7 @@ class ModelConfig:
             n_frontend_tokens=16 if self.frontend else 0,
             sliding_window=16 if self.sliding_window else None,
             attn_every=2 if self.attn_every else 0,
-            dtype="float32")
+            dtype="float32", remat="none")
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
                 self.moe, n_experts=4, top_k=2, d_ff_expert=64,

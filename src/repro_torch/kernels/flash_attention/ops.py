@@ -9,6 +9,11 @@ tiles of S and O per thread, cp.async-fed K/V tiles); nothing falls back.
 ``flash_attention`` takes flattened heads, ``mha`` the model layout (the
 reshapes of ``repro.kernels.flash_attention.ops.mha``). ``mha.launches``
 counts every launch of either kernel, through either function.
+
+Neither kernel has a backward (the JAX package's has none either): on the
+card, a call that autograd would have to differentiate raises. Training
+attends through the plain ``models.transformer.attend`` (``mode="train"``).
+The plain version on the CPU stays differentiable.
 """
 from __future__ import annotations
 
@@ -55,6 +60,12 @@ def flash_attention(q, k, v, *, group_size: int = 1, causal: bool = True,
     if q.device.type == "cpu":
         return ref.attention(q, k, v, group_size=group_size, causal=causal,
                              window=window, softcap=softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward, and autograd "
+            "would need one here (q, k or v requires grad); train through "
+            "the plain attention, mode='train' (models.transformer.attend), "
+            "or call the kernel under torch.no_grad()")
     return _launch(q, k, v, group_size, causal, window, softcap)
 
 

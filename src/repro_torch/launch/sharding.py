@@ -14,7 +14,8 @@ rank under ``torch.distributed``:
   ``PartitionSpec(axis)`` places them; a rank at or past ``n`` takes none.
 
 The LLM rules of that module (parameter, optimizer-state, batch and cache
-specs) wait for LLM training.
+specs) wait for a multi-rank LLM trainer: ``launch.train.train_llm`` runs
+in one process on one device.
 """
 from __future__ import annotations
 

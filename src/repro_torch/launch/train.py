@@ -1,6 +1,6 @@
-"""The X-MeshGraphNet trainer on PyTorch.
+"""The X-MeshGraphNet trainer, and the LLM trainer, on PyTorch.
 
-Port of the GNN path of ``repro.launch.train``: partitioned training with
+Port of ``repro.launch.train``. The GNN path: partitioned training with
 halo regions and gradient aggregation on synthetic DrivAerML-proxy data
 (paper SIII-A). Each step stages one sample's stacked (P, ...) partition
 batch on the device and runs forward and backward partition by partition,
@@ -26,9 +26,18 @@ same msgpack tree), so a run resumes from either package's file; the loop
 records ``train_stage_*_seconds`` histograms and spans
 (``repro_torch.telemetry``) and has the ``train.batch`` fault site.
 
+The LLM path (``train_llm``, any arch of ``configs.ASSIGNED_ARCHS``) is
+JAX's: synthetic token streams (``data.tokens``), the registry's
+``train_loss`` (plain attention, remat per layer group), autograd, and the
+same Adam over ``models.convert.llm_leaves``, in the config's dtype (bf16
+parameters, f32 moments at full size; f32 reduced). It prints JAX's log
+lines and ``final loss X (from Y)``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
       --reduced --steps 3 --samples 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b \
+      --reduced --steps 3 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch xmgn-drivaer \
       --reduced --steps 3 --samples 3 --device cpu --ckpt ckpts/x.msgpack \
       --ckpt-every 1 --keep-ckpts 2 --telemetry --trace-dir traces/x
@@ -57,22 +66,24 @@ import torch.distributed as dist
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.ckpt import compile_cache
 from repro_torch.configs import get_config
-from repro_torch.configs.base import GNNConfig
+from repro_torch.configs.base import GNNConfig, ModelConfig
 from repro_torch.core.gradient_aggregation import (aggregate_gradients,
                                                    ddp_aggregate_gradients)
 from repro_torch.data import pipeline as pipe
+from repro_torch.data.tokens import token_batches
 from repro_torch.device import resolve
 from repro_torch.launch.sharding import (init_process_group, rank_device,
                                          shard_count_for, shard_put,
                                          shard_range)
-from repro_torch.models import meshgraphnet
+from repro_torch.models import meshgraphnet, registry
 from repro_torch.models.convert import (adam_state_from_jax,
-                                        adam_state_to_jax, params_from_jax,
-                                        params_to_jax)
+                                        adam_state_to_jax, llm_leaves,
+                                        params_from_jax, params_to_jax)
 from repro_torch.models.meshgraphnet import MeshGraphNet, loss_fn
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 from repro_torch.resilience import faults
 from repro_torch.telemetry import Telemetry, default_latency_buckets
+from repro_torch.telemetry.profiler import annotate
 
 # training-loop stages whose wall time lands in the metrics registry as
 # ``train_stage_<name>_seconds`` histograms, as in the JAX trainer
@@ -431,10 +442,85 @@ def eval_gnn(cfg: GNNConfig, model: MeshGraphNet, samples, norm_in,
     return out
 
 
+def make_llm_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig):
+    """One optimizer step of an LLM (JAX's jitted ``step_fn`` of
+    ``train_llm``). Returns ``step(model, opt, batch) -> (opt, loss,
+    grad_norm)``: the registry's ``train_loss`` on ``batch`` (tensors on
+    the model's device), its backward, then ``adam_update`` over
+    ``llm_leaves(model)`` (marked ``llm.adam_update`` for
+    ``torch.profiler``); the parameters are updated in place and their
+    ``.grad`` keep this step's gradients."""
+    api = registry.get_model(cfg)
+
+    def step_fn(model, opt, batch):
+        params = [p for _, p in llm_leaves(model)]
+        for p in params:
+            p.grad = None
+        loss = api.train_loss(model, batch)
+        loss.backward()
+        # a parameter the loss does not reach has JAX's zero gradient
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        with annotate("llm.adam_update"):
+            new_params, opt, metrics = adam_update(opt_cfg, grads, opt,
+                                                   params)
+            with torch.no_grad():
+                for p, new in zip(params, new_params):
+                    p.copy_(new)
+        return opt, loss.detach(), metrics["grad_norm"]
+    return step_fn
+
+
+def stub_frontend(cfg: ModelConfig, batch: int, device) -> dict:
+    """The stubbed frontend's input of a training batch, as JAX's
+    ``train_llm`` gives it: zero patch embeddings (``prefix_embeds``) for a
+    vision frontend, zero frame embeddings (``audio_embeds``) for an audio
+    one, each (batch, n_frontend_tokens, d) f32; none for the rest."""
+    key = {"vision": "prefix_embeds", "audio": "audio_embeds"}.get(
+        cfg.frontend)
+    if key is None:
+        return {}
+    return {key: torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model),
+                             device=device)}
+
+
+def train_llm(arch: str, reduced: bool, steps: int, batch: int = 4,
+              seq: int = 64, log_every: int = 5, *, device=None, model=None):
+    """JAX's ``train_llm``: ``steps`` Adam steps (lr 3e-4, cosine over
+    ``steps``) of ``arch`` (``reduced``: its ``cfg.reduced()``) on
+    ``token_batches(vocab, batch, seq, steps)``, with zero patch or frame
+    embeddings for a vision or audio frontend, printing the loss every
+    ``log_every`` steps. ``device``: the card by default, or "cpu".
+    ``model``: start from these weights (moved to ``device``) instead of
+    ``init(seed=0)``. Returns (model, per-step losses)."""
+    cfg = get_config(arch)
+    if not isinstance(cfg, ModelConfig):
+        raise ValueError(f"train_llm trains an LLM config; {arch!r} is not")
+    if reduced:
+        cfg = cfg.reduced()
+    dev = resolve(device)
+    model = registry.get_model(cfg).init(seed=0, device=dev) \
+        if model is None else model.to(dev)
+    opt_cfg = AdamConfig(lr_max=3e-4, total_steps=steps)
+    opt = adam_init([p for _, p in llm_leaves(model)])
+    step_fn = make_llm_step_fn(cfg, opt_cfg)
+    extra = stub_frontend(cfg, batch, dev)
+    losses = []
+    for it, b in enumerate(token_batches(cfg.vocab_size, batch, seq, steps)):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        b.update(extra)
+        opt, loss, _ = step_fn(model, opt, b)
+        losses.append(float(loss))
+        if it % log_every == 0:
+            print(f"step {it:4d} loss {float(loss):.4f}", flush=True)
+    return model, losses
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="xmgn-drivaer (LLM training is still to port)")
+                    help="xmgn-drivaer, or an LLM of ASSIGNED_ARCHS (which "
+                    "reads only --reduced, --steps and --device)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--samples", type=int, default=6)
@@ -488,11 +574,15 @@ def main(argv=None):
                     "card) or cpu")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
+    if isinstance(cfg, ModelConfig):
+        _, losses = train_llm(args.arch, args.reduced, args.steps,
+                              device=args.device)
+        print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
+        return
     if not isinstance(cfg, GNNConfig):
-        raise SystemExit(f"launch.train trains the GNN only; {args.arch!r} "
-                         "is not a GNN (X-UNet3D trains through "
-                         "repro_torch.launch.xunet_volume; LLM training is "
-                         "still to port, see ROADMAP.md)")
+        raise SystemExit(f"launch.train trains the GNN and the LLMs; "
+                         f"{args.arch!r} is neither (X-UNet3D trains "
+                         "through repro_torch.launch.xunet_volume)")
     if args.reduced:
         cfg = cfg.reduced()
     if args.compile_cache:

@@ -14,6 +14,9 @@ its ``blocks`` (groups, each a list of mLSTM blocks and an sLSTM block)
 into ``blocks[g]``; the hybrid (``hybrid_from_jax``): its ``blocks``
 (groups, each a list of Mamba2 blocks) into ``blocks[g].mamba[i]``, the one
 ``shared_attn`` layer by name.
+:func:`llm_leaves` lists an LLM's parameters in the order of JAX's
+``tree_leaves(params)``, which the LLM trainer's Adam and global norm
+follow, as they follow ``MeshGraphNet.leaves()`` for the GNN.
 X-UNet3D (``xunet_from_jax``, ``xunet_to_jax``): convolution weights go
 from JAX's DHWIO ``(k, k, k, cin, cout)`` to PyTorch's OIDHW ``(cout, cin,
 k, k, k)`` and back; without attention gates the tree's ``gates`` entries
@@ -255,6 +258,31 @@ def hybrid_from_jax(tree, cfg: ModelConfig, device=None) -> Hybrid:
     _, n_groups = hybrid_group_layout(cfg)
     return _llm_from_jax(tree, cfg, Hybrid(cfg, device="meta"),
                          {"blocks": (n_groups, "groups")}, device)
+
+
+def _stacked_names(model: torch.nn.Module) -> tuple:
+    """The subtrees JAX stacks on a leading layer or group axis."""
+    if isinstance(model, Whisper):
+        return ("enc_blocks", "dec_blocks")
+    if isinstance(model, (Transformer, XLSTM, Hybrid)):
+        return ("blocks",)
+    raise TypeError(f"not an LLM of the port: {type(model).__name__}")
+
+
+def llm_leaves(model: torch.nn.Module):
+    """``(name, parameter)`` of a :class:`Transformer`, :class:`Whisper`,
+    :class:`XLSTM` or :class:`Hybrid` in the JAX pytree's leaf order: dict
+    keys sorted at every level, list items in order, and a leaf of a
+    stacked subtree (``blocks``; whisper's ``enc_blocks``, ``dec_blocks``)
+    as its per-group (per-layer) tensors in group order."""
+    stacked = _stacked_names(model)
+
+    def key(name):
+        parts = [int(p) if p.isdigit() else p for p in name.split(".")]
+        if parts[0] in stacked:
+            parts = [parts[0], *parts[2:], parts[1]]
+        return parts
+    return sorted(model.named_parameters(), key=lambda kv: key(kv[0]))
 
 
 def xunet_from_jax(tree, cfg: UNetConfig, device=None) -> XUNet3D:

@@ -25,6 +25,13 @@ Where the port differs in form, not in result:
   is a scatter-add; on the card that would be atomics, whose order, and so
   whose bf16 result, changes from run to run. This one has a fixed order.
 
+Training differentiates ``apply`` by autograd as JAX differentiates its
+own: through the router's softmax and the top-k weights (the sort's
+values), the scatter of the weights into their slots, the gathers and the
+expert products; the slot indices carry no gradient, and the aux loss keeps
+its gradient through the mean router probabilities (tested against
+``jax.value_and_grad`` in ``tests/test_torch_train_llm_decoders.py``).
+
 ``apply`` marks its parts for ``torch.profiler`` (``telemetry.profiler.
 annotate``: ``moe.route``, ``moe.dispatch``, ``moe.experts``,
 ``moe.combine``, ``moe.shared``), so a profile can split a step's device

@@ -7,14 +7,16 @@ attention block (zamba2's hybrid), then one with SSM blocks (the xLSTM
 stack), else the decoders (``dense``, ``moe``, ``vlm``). Every LLM family
 of the JAX package runs:
   init(seed=0, device=None) -> params (an ``nn.Module``)
+  train_loss(params, batch) -> scalar f32 loss, with grad enabled
   prefill(params, batch) -> (logits, cache)
   decode(params, cache, batch, pos) -> (logits, cache)   cache updated in place
   empty_cache(batch, seq_len, device=None) -> zero KV cache (bf16),
       recurrent state, or the hybrid's recurrent state and KV caches
 ``batch`` holds ``tokens`` (B, S) int on the params' device and, for a
 vision frontend, ``prefix_embeds`` (B, P, d), for an audio frontend
-``audio_embeds`` (B, T, d). The MoE aux loss is dropped, as serving drops
-it. ``train_loss`` comes with the training slice. :func:`param_count` and
+``audio_embeds`` (B, T, d), and for ``train_loss`` ``labels`` (B, S). The
+MoE aux loss is dropped in serving, as JAX's serving drops it, and added to
+the training loss. :func:`param_count` and
 :func:`active_param_count` count a config's parameters without drawing
 them.
 """
@@ -36,6 +38,7 @@ from repro_torch.models import whisper as whi
 class ModelAPI:
     cfg: ModelConfig
     init: Callable
+    train_loss: Callable
     prefill: Callable
     decode: Callable
     empty_cache: Callable
@@ -44,6 +47,10 @@ class ModelAPI:
 def _decoder_api(cfg: ModelConfig) -> ModelAPI:
     def init(seed: int = 0, device=None):
         return tfm.init(cfg, seed, device)
+
+    @torch.enable_grad()
+    def train_loss(params, batch):
+        return tfm.train_loss(params, batch)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -61,12 +68,16 @@ def _decoder_api(cfg: ModelConfig) -> ModelAPI:
     def empty_cache(batch: int, seq_len: int, device=None):
         return tfm.empty_cache(cfg, batch, seq_len, device=resolve(device))
 
-    return ModelAPI(cfg, init, prefill, decode, empty_cache)
+    return ModelAPI(cfg, init, train_loss, prefill, decode, empty_cache)
 
 
 def _whisper_api(cfg: ModelConfig) -> ModelAPI:
     def init(seed: int = 0, device=None):
         return whi.init(cfg, seed, device)
+
+    @torch.enable_grad()
+    def train_loss(params, batch):
+        return whi.train_loss(params, batch)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -84,12 +95,17 @@ def _whisper_api(cfg: ModelConfig) -> ModelAPI:
                                t_audio=cfg.n_frontend_tokens,
                                device=resolve(device))
 
-    return ModelAPI(cfg, init, prefill, decode, empty_cache)
+    return ModelAPI(cfg, init, train_loss, prefill, decode, empty_cache)
 
 
 def _xlstm_api(cfg: ModelConfig) -> ModelAPI:
     def init(seed: int = 0, device=None):
         return stacks.xlstm_init(cfg, seed, device)
+
+    @torch.enable_grad()
+    def train_loss(params, batch):
+        logits, _ = params(batch["tokens"], mode="train")
+        return tfm.cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -104,12 +120,17 @@ def _xlstm_api(cfg: ModelConfig) -> ModelAPI:
         del seq_len  # O(1) state, whatever the length
         return stacks.xlstm_empty_state(cfg, batch, device=resolve(device))
 
-    return ModelAPI(cfg, init, prefill, decode, empty_cache)
+    return ModelAPI(cfg, init, train_loss, prefill, decode, empty_cache)
 
 
 def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
     def init(seed: int = 0, device=None):
         return stacks.hybrid_init(cfg, seed, device)
+
+    @torch.enable_grad()
+    def train_loss(params, batch):
+        logits, _ = params(batch["tokens"], mode="train")
+        return tfm.cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
     @torch.no_grad()
     def prefill(params, batch):
@@ -128,7 +149,7 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
         return stacks.hybrid_empty_state(cfg, batch, seq_len,
                                          device=resolve(device))
 
-    return ModelAPI(cfg, init, prefill, decode, empty_cache)
+    return ModelAPI(cfg, init, train_loss, prefill, decode, empty_cache)
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:

@@ -92,24 +92,30 @@ def gla_chunked(q, k, v, log_a, log_b, S0, n0=None, chunk: int = 64):
         lbs.transpose(2, 3)[..., None, :]               # (nc, B, H, C, C)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=q.device))
-    sw = scores * torch.where(mask, torch.exp(dmat), 0.0)
+    # masked before the exp: above the diagonal dmat is a sum of -log decays,
+    # which overflows exp once it passes ~88, and JAX's where(mask,
+    # exp(dmat), 0) then makes the gradient 0 * inf = NaN
+    sw = scores * torch.exp(dmat.masked_fill(~mask, float("-inf")))
     y_intra = torch.einsum("nbhts,nbshv->nbthv", sw, vs)
     qe = qs * e[..., None]
     kr = ks * r[..., None]
     S = S0.to(f32)
     n = n0.to(f32) if track_n else None
     ys, nys = [], []
-    for c in range(nc):
+    # one chunk at a time through unbind, whose backward stacks the chunks'
+    # gradients once (indexing would add nc full-size gradients)
+    for qe_c, kr_c, v_c, yi_c, tot_c, sw_c in zip(
+            *(x.unbind(0) for x in (qe, kr, vs, y_intra, tot, sw))):
         # inter-chunk from the carried state, then the state update
-        ys.append(torch.einsum("bchd,bhdv->bchv", qe[c], S) + y_intra[c])
+        ys.append(torch.einsum("bchd,bhdv->bchv", qe_c, S) + yi_c)
         if track_n:
-            nys.append(torch.einsum("bchd,bhd->bch", qe[c], n)
-                       + sw[c].sum(dim=3).transpose(1, 2))
-        decay = torch.exp(tot[c])
+            nys.append(torch.einsum("bchd,bhd->bch", qe_c, n)
+                       + sw_c.sum(dim=3).transpose(1, 2))
+        decay = torch.exp(tot_c)
         S = decay[..., None, None] * S + \
-            torch.einsum("bshd,bshv->bhdv", kr[c], vs[c])
+            torch.einsum("bshd,bshv->bhdv", kr_c, v_c)
         if track_n:
-            n = decay[..., None] * n + kr[c].sum(dim=1)
+            n = decay[..., None] * n + kr_c.sum(dim=1)
     y = torch.stack(ys, dim=1).reshape(B, T, H, dv)
     if not track_n:
         return y, None, S, None
@@ -398,13 +404,13 @@ class SLSTM(nn.Module):
         R = self.R.float()
         hs = []
         with annotate("slstm.loop"):
-            for t in range(T):
-                zt, it, ft, ot = gates[:, t]
-                rec = torch.einsum("bhd,ghde->gbhe", h, R)
-                z = torch.tanh(zt + rec[0])
-                li = it + rec[1]
-                lf = F.logsigmoid(ft + rec[2])
-                o = torch.sigmoid(ot + rec[3])
+            # unbind: its backward stacks the steps' gradients once
+            for zt, it, ft, ot in gates.unbind(1):
+                rz, ri, rf, ro = torch.einsum("bhd,ghde->gbhe", h, R)
+                z = torch.tanh(zt + rz)
+                li = it + ri
+                lf = F.logsigmoid(ft + rf)
+                o = torch.sigmoid(ot + ro)
                 m_new = torch.maximum(lf + m, li)
                 fp = torch.exp(lf + m - m_new)
                 ip = torch.exp(li - m_new)

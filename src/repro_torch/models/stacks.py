@@ -21,6 +21,12 @@ recurrent state is a flat dict of tensors, each with a leading group axis:
 [...], 'slstm': {...}}`` stacked over groups); ``mamba.{i}.{conv,S}`` and
 ``attn_kv.{k,v}`` (JAX's ``{'mamba': [...], 'attn_kv': {k, v}}``). A
 forward writes the new state into the dict it is given, in place.
+
+Training (``mode="train"``) keeps no state: every block starts from JAX's
+zero state and nothing is written in place, so autograd differentiates the
+whole stack; the hybrid's shared attention is the plain causal attention
+(``transformer.attend``), never the kernel; with ``cfg.remat == "full"``
+each group runs under ``transformer.remat_wrap``.
 """
 from __future__ import annotations
 
@@ -94,12 +100,25 @@ class XLSTM(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.padded_vocab, use_bias=False,
                              **init)
 
-    def forward(self, tokens, state: Optional[State] = None):
+    def forward(self, tokens, state: Optional[State] = None,
+                mode: str = "prefill"):
         """tokens (B, T) int; ``state`` from :func:`xlstm_empty_state` or a
         previous call (None: a fresh zero state, as JAX's prefill passes).
         Returns (logits (B, T, V_padded) f32, state), the state updated in
-        place."""
+        place. ``mode="train"`` (no state) starts every block from the zero
+        state, keeps none and returns (logits, None)."""
         h = self.embed(tokens)
+        if mode == "train":
+            if state is not None:
+                raise ValueError("xLSTM: training runs without a state")
+            body = tfm.remat_wrap(_xlstm_group_train, self.cfg)
+            for group in self.blocks:
+                h = body(group, h)
+            h = self.final_norm(h)
+            return (h @ self.lm_head.w).float(), None
+        if mode != "prefill":
+            raise ValueError(f"xLSTM: mode must be 'prefill' or 'train', "
+                             f"got {mode!r}")
         if state is None:
             state = xlstm_empty_state(self.cfg, h.shape[0], h.device)
         for g, group in enumerate(self.blocks):
@@ -112,6 +131,14 @@ class XLSTM(nn.Module):
                 state[f"slstm.{k}"][g] = t
         h = self.final_norm(h)
         return (h @ self.lm_head.w).float(), state
+
+
+def _xlstm_group_train(group: XLSTMGroup, h):
+    """One group in training: each block from the zero state (None)."""
+    for block in group.mlstm:
+        h, _ = block(h)
+    h, _ = group.slstm(h)
+    return h
 
 
 def xlstm_init(cfg: ModelConfig, seed: int = 0, device=None) -> XLSTM:
@@ -183,7 +210,8 @@ class Hybrid(nn.Module):
     def forward(self, tokens, state: Optional[State] = None,
                 mode: str = "train", decode_pos: Optional[int] = None):
         """tokens (B, S) int. 'train' (no state): the stack over the whole
-        sequence, returns (logits, None). 'prefill': ``state`` from
+        sequence, the shared attention plain, each group through
+        ``remat_wrap``; returns (logits, None). 'prefill': ``state`` from
         :func:`hybrid_empty_state` (zeros); the Mamba2 states are written
         in place and ``attn_kv`` becomes each occurrence's fresh K and V
         (G, B, S, KV, hd) in the model's dtype, as JAX's attention returns
@@ -200,14 +228,9 @@ class Hybrid(nn.Module):
         if mode == "train":
             if state is not None:
                 raise ValueError("hybrid: training runs without a state")
+            body = tfm.remat_wrap(self._group_train, self.cfg)
             for group in self.blocks:
-                for block in group.mamba:
-                    with annotate("hybrid.mamba2"):
-                        h, _ = block(h)
-                # the same causal attention as prefill; no cache is kept
-                with annotate("hybrid.shared_attention"):
-                    h, _, _ = self.shared_attn(h, q_pos, window=None,
-                                               mode="prefill")
+                h = body(group, h, q_pos)
         elif mode in ("prefill", "decode"):
             if state is None:
                 raise ValueError("hybrid: prefill and decode need a state "
@@ -234,6 +257,16 @@ class Hybrid(nn.Module):
                              f"'decode', got {mode!r}")
         h = self.final_norm(h)
         return (h @ self.lm_head.w).float(), state
+
+    def _group_train(self, group: HybridGroup, h, q_pos):
+        """One group in training: its Mamba2 blocks from the zero state,
+        then the shared block's plain causal attention; no cache."""
+        for block in group.mamba:
+            with annotate("hybrid.mamba2"):
+                h, _ = block(h)
+        with annotate("hybrid.shared_attention"):
+            h, _, _ = self.shared_attn(h, q_pos, window=None, mode="train")
+        return h
 
 
 def hybrid_init(cfg: ModelConfig, seed: int = 0, device=None) -> Hybrid:

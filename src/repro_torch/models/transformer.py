@@ -19,6 +19,14 @@ query against the padded cache) is plain PyTorch, as the JAX package
 computes it outside any kernel. Decode writes the new K and V into the cache
 in place (JAX returns an updated copy): at full width the cache is 3.2 GB.
 The layer stack is a Python loop over groups (the JAX ``lax.scan``).
+
+Training (``mode="train"``, :func:`train_loss`) is JAX's: the plain
+:func:`attend` (causal, query-chunked as JAX's ``_attend``) on both
+devices, differentiated by autograd. The flash kernel has no backward, as
+the JAX package's has none, and refuses to run where autograd would need
+one. With ``cfg.remat == "full"`` each layer group runs under
+``torch.utils.checkpoint`` (:func:`remat_wrap`), as JAX wraps its scanned
+group body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -58,25 +67,68 @@ def softcap(logits, cap: Optional[float]):
     return logits if cap is None else cap * torch.tanh(logits / cap)
 
 
+def _pick_q_chunk(sq: int) -> int:
+    """Queries per chunk of :func:`attend`, as JAX's ``_pick_q_chunk``:
+    all of them up to 2,048, else the largest of 2,048, 1,024, 512, 256 that
+    divides ``sq``."""
+    if sq <= 2048:
+        return sq
+    for c in (2048, 1024, 512, 256):
+        if sq % c == 0:
+            return c
+    return sq
+
+
 def attend(q, k, v, q_pos, kv_pos, *, window: Optional[int],
-           cap: Optional[float]):
-    """Plain exact attention, ``repro.models.transformer._attend`` as decode
-    calls it (``causal=False``, one query, no chunking). q (B, Sq, H, hd);
-    k, v (B, Skv, KV, hd); kv_pos entries < 0 mark invalid (future) cache
-    slots."""
+           cap: Optional[float], causal: bool = False):
+    """Plain exact attention, ``repro.models.transformer._attend``: decode
+    calls it with one query and ``causal=False``, training with the whole
+    sequence. q (B, Sq, H, hd); k, v (B, Skv, KV, hd); kv_pos entries < 0
+    mark invalid (future) cache slots; ``causal`` masks kv_pos > q_pos.
+    Queries run in chunks of :func:`_pick_q_chunk`, so that no (Sq, Skv)
+    score matrix of a long sequence is whole at once (the result does not
+    depend on the chunking)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
-    logits = torch.einsum("bckgd,bskd->bckgs", qg.float(),
-                          k.float()) * (1.0 / math.sqrt(hd))
-    logits = softcap(logits, cap)
-    mask = (kv_pos >= 0)[:, None, :]                  # (B, 1, Skv)
-    if window is not None:
-        mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
-    logits = torch.where(mask[:, :, None, None, :], logits, -1e30)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bckgs,bskd->bckgd", w, v.float()).to(q.dtype)
+    kf, vf = k.float(), v.float()
+    valid = (kv_pos >= 0)[:, None, :]                 # (B, 1, Skv)
+
+    def chunk(qc, pc):
+        logits = torch.einsum("bckgd,bskd->bckgs", qc.float(),
+                              kf) * (1.0 / math.sqrt(hd))
+        logits = softcap(logits, cap)
+        mask = valid
+        if causal:
+            mask = mask & (pc[:, :, None] >= kv_pos[:, None, :])
+        if window is not None:
+            mask = mask & (pc[:, :, None] - kv_pos[:, None, :] < window)
+        logits = torch.where(mask[:, :, None, None, :], logits, -1e30)
+        w = torch.softmax(logits, dim=-1)
+        return torch.einsum("bckgs,bskd->bckgd", w, vf).to(q.dtype)
+
+    c = _pick_q_chunk(sq)
+    out = torch.cat([chunk(qc, pc) for qc, pc in
+                     zip(qg.split(c, dim=1), q_pos.split(c, dim=1))], dim=1)
     return out.reshape(b, sq, h, hd)
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` as the training stacks run a layer group (JAX's
+    ``_remat_wrap``): as it is for ``remat="none"``; for ``"full"`` under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    group's inputs and runs its forward again in the backward pass."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        def wrapped(*args):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return wrapped
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (JAX's checkpoint_dots_with_no_batch_dims) is not "
+            "ported: no config uses it (ROADMAP.md, Queue 1)")
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
 def _norm(cfg: ModelConfig, **kw) -> nn.Module:
@@ -108,9 +160,11 @@ class Attention(nn.Module):
                 cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 decode_pos: Optional[int] = None, causal: bool = True):
         """mode 'prefill': x (B, S, d), returns (out, (k, v)); ``causal``
-        False attends both ways (whisper's encoder). mode 'decode': x (B, 1,
-        d); ``cache_kv`` is the layer's (k, v) cache (B, Smax, KV, hd),
-        written at ``decode_pos`` in place; returns (out, cache_kv)."""
+        False attends both ways (whisper's encoder). mode 'train': the same
+        through the plain :func:`attend`, never the kernel; returns (out,
+        None). mode 'decode': x (B, 1, d); ``cache_kv`` is the layer's (k,
+        v) cache (B, Smax, KV, hd), written at ``decode_pos`` in place;
+        returns (out, cache_kv)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -139,9 +193,13 @@ class Attention(nn.Module):
             out = fa_ops.mha(q, k, v, causal=causal, window=window,
                              softcap=cfg.attn_softcap)
             new_kv = (k, v)
+        elif mode == "train":
+            out = attend(q, k, v, q_pos, q_pos, window=window,
+                         cap=cfg.attn_softcap, causal=causal)
+            new_kv = None
         else:
-            raise ValueError(f"mode must be 'prefill' or 'decode', got "
-                             f"{mode!r} (training is still to port)")
+            raise ValueError(f"mode must be 'prefill', 'decode' or 'train', "
+                             f"got {mode!r}")
         return self.wo(out.reshape(b, s, h * hd)), new_kv
 
 
@@ -294,8 +352,11 @@ class Transformer(nn.Module):
         w = self.embed.table.T if self.cfg.tie_embeddings else self.lm_head.w
         logits = (h @ w).float()
         cap = self.cfg.final_softcap
-        if cap is not None:
-            # in place: the f32 logits are a prefill's largest tensor
+        if cap is not None and logits.requires_grad:
+            logits = softcap(logits, cap)
+        elif cap is not None:
+            # in place where autograd saves nothing: the f32 logits are a
+            # prefill's largest tensor
             logits = logits.div_(cap).tanh_().mul_(cap)
         return logits
 
@@ -305,8 +366,10 @@ class Transformer(nn.Module):
         """Run the layer stack on embeddings h (B, S, d): the dense first
         layers, then the groups. Returns (h, cache, aux): for 'prefill' a
         new cache of the layers' K and V in h's dtype, for 'decode' the
-        given cache, updated in place; ``aux`` the layers' MoE load-balance
-        losses summed (float32)."""
+        given cache, updated in place, for 'train' None; ``aux`` the layers'
+        MoE load-balance losses summed (float32) in JAX's order."""
+        if mode == "train":
+            return self._train_stack(h, q_pos)
         _, _, windows = group_structure(self.cfg)
         new_cache = cache
         if mode == "prefill":
@@ -331,12 +394,32 @@ class Transformer(nn.Module):
                 new_cache[vname][at] = v
         return h, new_cache, aux_total
 
+    def _train_stack(self, h, q_pos):
+        """The stack in 'train' mode: the dense first layers, then each
+        group through :func:`remat_wrap`. Returns (h, None, aux)."""
+        _, _, windows = group_structure(self.cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for layer in getattr(self, "first_layers", ()):
+            h, _, a = layer(h, q_pos, window=None, mode="train")
+            aux = aux + a
+
+        def group_body(group, h, aux):
+            for layer, window in zip(group.layers, windows):
+                h, _, a = layer(h, q_pos, window=window, mode="train")
+                aux = aux + a
+            return h, aux
+        body = remat_wrap(group_body, self.cfg)
+        for group in self.blocks:
+            h, aux = body(group, h, aux)
+        return h, None, aux
+
     def forward(self, tokens, *, prefix_embeds=None, mode: str = "prefill",
                 cache: Optional[Cache] = None,
                 decode_pos: Optional[int] = None):
         """tokens (B, S) int; ``prefix_embeds`` (B, P, d) (a vision
         frontend's patch embeddings, any float dtype) go before the tokens,
-        through ``vision_proj``. Returns (logits (B, P + S, V_padded) f32,
+        through ``vision_proj``. ``mode`` 'prefill', 'decode' or 'train'
+        (:meth:`apply_decoder`). Returns (logits (B, P + S, V_padded) f32,
         cache, aux loss)."""
         h = self.embed_tokens(tokens)
         if prefix_embeds is not None:
@@ -353,6 +436,33 @@ class Transformer(nn.Module):
         h, cache, aux = self.apply_decoder(h, q_pos, mode=mode, cache=cache,
                                            decode_pos=decode_pos)
         return self.logits(self.final_norm(h)), cache, aux
+
+
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean cross-entropy over the positions whose label is >= 0: the
+    logsumexp over the first ``vocab_size`` columns (the rest are the
+    vocabulary's padding), less the label's logit. logits (..., V_padded)
+    f32; labels (...) int."""
+    lse = torch.logsumexp(logits[..., :vocab_size], dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = (lse - gold) * mask
+    return ce.sum() / mask.sum().clamp_min(1.0)
+
+
+def train_loss(model: Transformer, batch):
+    """JAX's ``train_loss``: the cross-entropy of the token positions (a
+    vision prefix's positions dropped) against ``batch['labels']``, plus
+    ``router_aux_weight`` times the MoE layers' aux loss."""
+    logits, _, aux = model(batch["tokens"],
+                           prefix_embeds=batch.get("prefix_embeds"),
+                           mode="train")
+    s_tok = batch["tokens"].shape[1]
+    loss = cross_entropy(logits[:, -s_tok:], batch["labels"],
+                         model.cfg.vocab_size)
+    if model.cfg.moe is not None:
+        loss = loss + model.cfg.moe.router_aux_weight * aux
+    return loss
 
 
 def init(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:

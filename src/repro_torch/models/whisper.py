@@ -15,6 +15,11 @@ Skv = the frames, Sq = the prompt), the decoder's self-attention causal.
 Decode attention is the plain ``transformer.attend``, as for the decoders:
 the self cache up to ``decode_pos`` (written in place) and the cross cache
 at every frame. The layer stacks are Python loops (the JAX ``lax.scan``).
+In training (:func:`train_loss`) every attention is the plain
+``transformer.attend`` on both devices (the encoder's and the cross
+non-causal, the decoder's causal), never the kernel, and with
+``cfg.remat == "full"`` each encoder and decoder layer runs under
+``transformer.remat_wrap``, as JAX wraps its scanned layer bodies.
 The attention sublayers are marked for ``torch.profiler``
 (``telemetry.profiler.annotate``: ``whisper.encoder_attention``,
 ``whisper.decoder_attention``, ``whisper.cross_attention``, each with its
@@ -62,10 +67,12 @@ class EncoderLayer(nn.Module):
         self.ln2 = LayerNorm(cfg.d_model, **dd)
         self.mlp = tfm.FFN(cfg, **init)
 
-    def forward(self, h, q_pos):
+    def forward(self, h, q_pos, mode: str = "prefill"):
+        """One bidirectional layer; ``mode`` 'prefill' (the kernel) or
+        'train' (the plain attention)."""
         with annotate("whisper.encoder_attention"):
-            a, _ = self.attn(self.ln1(h), q_pos, window=None,
-                             mode="prefill", causal=False)
+            a, _ = self.attn(self.ln1(h), q_pos, window=None, mode=mode,
+                             causal=False)
         h = h + a
         return h + self.mlp(self.ln2(h))
 
@@ -90,16 +97,16 @@ class DecoderLayer(nn.Module):
         return (self.xattn.wk(enc_out).reshape(shape),
                 self.xattn.wv(enc_out).reshape(shape))
 
-    def cross_attend(self, x, xk, xv, *, decode: bool):
+    def cross_attend(self, x, xk, xv, *, plain: bool):
         """q from the decoder's x (B, S, d); no mask (JAX's ``q_pos`` zeros
-        against every frame). Prefill: the flash kernel, Skv = T; decode:
-        the plain ``attend``."""
+        against every frame). Prefill: the flash kernel, Skv = T; decode
+        and training (``plain``): the plain ``attend``."""
         cfg = self.xattn.cfg
         b, s, _ = x.shape
         h, hd = cfg.n_heads, cfg.resolved_head_dim
         with annotate("whisper.cross_attention"):
             q = self.xattn.wq(x).reshape(b, s, h, hd)
-            if decode:
+            if plain:
                 t = xk.shape[1]
                 out = tfm.attend(
                     q, xk, xv, torch.zeros((b, s), dtype=torch.int64,
@@ -109,6 +116,17 @@ class DecoderLayer(nn.Module):
             else:
                 out = fa_ops.mha(q, xk, xv, causal=False)
             return self.xattn.wo(out.reshape(b, s, h * hd))
+
+    def forward(self, h, q_pos, enc_out):
+        """One layer in training: causal self-attention, cross-attention
+        over ``enc_out``, the FFN; no cache."""
+        with annotate("whisper.decoder_attention"):
+            a, _ = self.attn(self.ln1(h), q_pos, window=None, mode="train")
+        h = h + a
+        with annotate("whisper.cross_attention"):
+            xk, xv = self.cross_kv(enc_out)
+        h = h + self.cross_attend(self.ln_x(h), xk, xv, plain=True)
+        return h + self.mlp(self.ln2(h))
 
 
 def empty_cache(cfg: ModelConfig, batch: int, seq_len: int, t_audio: int,
@@ -147,16 +165,20 @@ class Whisper(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.padded_vocab, use_bias=False,
                              **init)
 
-    def encode(self, audio_embeds):
+    def encode(self, audio_embeds, mode: str = "prefill"):
         """audio_embeds (B, T, d), the stubbed frontend's output, any float
-        dtype -> (B, T, d) in the weights' dtype."""
+        dtype -> (B, T, d) in the weights' dtype. ``mode`` 'prefill' (the
+        kernel) or 'train' (the plain attention, each layer through
+        ``remat_wrap``)."""
         b, t, d = audio_embeds.shape
         h = audio_embeds + sinusoids(t, d).to(audio_embeds.device,
                                               audio_embeds.dtype)[None]
         h = h.to(self.enc_ln.scale.dtype)
         q_pos = torch.arange(t, device=h.device)[None].expand(b, t)
+        body = tfm.remat_wrap(EncoderLayer.forward, self.cfg) \
+            if mode == "train" else EncoderLayer.forward
         for layer in self.enc_blocks:
-            h = layer(h, q_pos)
+            h = body(layer, h, q_pos, mode)
         return self.enc_ln(h)
 
     def decode_stack(self, tokens, cache: Optional[Cache] = None, *,
@@ -165,8 +187,9 @@ class Whisper(nn.Module):
         """The decoder over tokens (B, S). 'prefill' builds the cross K/V
         from ``enc_out`` and returns a new cache in the weights' dtype;
         'decode' reads them from ``cache`` and writes the self cache at
-        ``decode_pos`` in place. Returns (logits (B, S, V_padded) f32,
-        cache)."""
+        ``decode_pos`` in place; 'train' runs each layer's plain attentions
+        over ``enc_out`` through ``remat_wrap`` and keeps no cache (None).
+        Returns (logits (B, S, V_padded) f32, cache)."""
         cfg = self.cfg
         h = self.embed(tokens)
         b, s = tokens.shape
@@ -185,9 +208,17 @@ class Whisper(nn.Module):
             q_pos = torch.arange(s, device=h.device)[None].expand(b, s)
             t = enc_out.shape[1]
             cache = empty_cache(cfg, b, s, t, dtype=h.dtype, device=h.device)
+        elif mode == "train":
+            h = h + sinusoids(s, cfg.d_model).to(h.device, h.dtype)[None]
+            q_pos = torch.arange(s, device=h.device)[None].expand(b, s)
+            body = tfm.remat_wrap(DecoderLayer.forward, cfg)
+            for layer in self.dec_blocks:
+                h = body(layer, h, q_pos, enc_out)
+            h = self.dec_ln(h)
+            return (h @ self.lm_head.w).float(), None
         else:
-            raise ValueError(f"mode must be 'prefill' or 'decode', got "
-                             f"{mode!r} (training is still to port)")
+            raise ValueError(f"mode must be 'prefill', 'decode' or 'train', "
+                             f"got {mode!r}")
         for i, layer in enumerate(self.dec_blocks):
             ckv = (cache["k"][i], cache["v"][i]) if mode == "decode" \
                 else None
@@ -204,10 +235,20 @@ class Whisper(nn.Module):
                 cache["k"][i], cache["v"][i] = k, v
                 cache["xk"][i], cache["xv"][i] = xk, xv
             h = h + layer.cross_attend(layer.ln_x(h), xk, xv,
-                                       decode=mode == "decode")
+                                       plain=mode == "decode")
             h = h + layer.mlp(layer.ln2(h))
         h = self.dec_ln(h)
         return (h @ self.lm_head.w).float(), cache
+
+
+def train_loss(model: Whisper, batch):
+    """JAX's whisper ``train_loss``: the encoder over
+    ``batch['audio_embeds']``, the decoder over ``batch['tokens']``, the
+    cross-entropy against ``batch['labels']``."""
+    enc_out = model.encode(batch["audio_embeds"], mode="train")
+    logits, _ = model.decode_stack(batch["tokens"], mode="train",
+                                   enc_out=enc_out)
+    return tfm.cross_entropy(logits, batch["labels"], model.cfg.vocab_size)
 
 
 def init(cfg: ModelConfig, seed: int = 0, device=None) -> Whisper:

@@ -3,11 +3,14 @@ of tensors (port of ``repro.optim.adam``).
 
 The paper's training recipe: Adam, cosine annealing 1e-3 -> 1e-6, gradient
 clipping at global norm 32. Parameters, gradients and moments are lists in
-one order (for the MeshGraphNet, ``MeshGraphNet.leaves()``, the JAX
-pytree's leaf order, which ``global_norm`` sums in). The arithmetic is the
-JAX package's, in f32: the schedule's ``cos`` in f32, bias correction
-``b ** step`` in f32, ``mhat / (sqrt(vhat) + eps)``, clip scale
-``min(1, max_norm / (norm + 1e-12))``.
+one order (for the MeshGraphNet, ``MeshGraphNet.leaves()``; for an LLM,
+``models.convert.llm_leaves``: the JAX pytree's leaf order, which
+``global_norm`` sums in). The arithmetic is the JAX package's, in f32: the
+schedule's ``cos`` in f32, bias correction ``b ** step`` in f32, ``mhat /
+(sqrt(vhat) + eps)``, clip scale ``min(1, max_norm / (norm + 1e-12))``.
+Moments are f32 whatever the parameter's dtype; a bf16 gradient is clipped
+in f32 and cast back, as JAX's ``clip_by_global_norm`` does, and a bf16
+parameter is updated in f32 and cast back.
 """
 from __future__ import annotations
 

@@ -728,3 +728,26 @@ def test_build_compiles_in_parallel_and_times_each_source(
     assert _build.build() == {}    # nothing left to compile
     assert os.path.exists(_build.library_path("fast").with_suffix(".log"))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_refuses_to_run_under_autograd(cuda, dtype):
+    """Neither kernel has a backward: on the card, a call whose q, k or v
+    requires grad raises (naming the plain train-mode attention) and
+    launches nothing, with grad enabled; under ``torch.no_grad()``, or with
+    inputs that need no grad, it runs."""
+    q, k, v = (t.to(cuda, dtype) for t in _fa_case(0, 1, 64, 2, 1, hd=64))
+    for needs in ("q", "k", "v"):
+        args = {"q": q, "k": k, "v": v}
+        args[needs] = args[needs].detach().requires_grad_()
+        before = fa_ops.mha.launches
+        with pytest.raises(RuntimeError, match="mode='train'"):
+            fa_ops.mha(args["q"], args["k"], args["v"])
+        assert fa_ops.mha.launches == before
+        with torch.no_grad():
+            out = fa_ops.mha(args["q"], args["k"], args["v"])
+        torch.cuda.synchronize()
+        assert fa_ops.mha.launches == before + 1 and not out.requires_grad
+    fa_ops.mha(q, k, v)
+    torch.cuda.synchronize()

@@ -48,7 +48,8 @@ def test_import_loads_no_jax_or_repro():
                  "configs.granite_3_8b", "configs.starcoder2_15b",
                  "configs.yi_34b", "models.whisper", "models.ssm",
                  "models.stacks", "configs.whisper_large_v3",
-                 "configs.xlstm_350m"):
+                 "configs.xlstm_350m", "data.tokens",
+                 "configs.zamba2_2_7b"):
         assert f"repro_torch.{name}" in res["modules"]
 
 
