@@ -197,6 +197,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    whisper-large-v3 (1,500 zero frames) and xlstm-350m at full width and
    depth in bf16, 3 steps each at 4 x 64: finite losses, step seconds and
    peak memory.
+23. the dry run and the roofline layer (after phase 22, in a spawned child
+   process of its own, so that its NCCL group of one rank and the dry
+   run's fake group of 512 ranks meet none of the other phases' groups):
+   (a) the per-device program of the dry run's xmgn-drivaer row at 16 x 16
+   (``GNNConfig()`` at full width, one partition of 7,812 owned, 23,436
+   padded nodes and 187,488 padded edges, seeded) for real on the card:
+   the partitions-as-DDP gradient on a world-1 NCCL group, the warm step's
+   seconds, peak memory and segment-sum launches (forward, backward and
+   the gathers' backward, none 0), beside the dry run's predicted
+   per-device peak and roofline terms; the two peaks within 2x of each
+   other, and the step's share of its roofline at the f32 and the bf16
+   peak; (b) ``hashgrid.knn`` with the csr and the dense layout at phase
+   3's six level shapes: the neighbour sets equal, the kNN kernel launched
+   for both, ``max_knn_cell_ratio`` per level; (c) ``costmodel.step_cost``
+   at the card's constants beside the device time of each step phases 8,
+   19, 21 and 22 measured (handed back by their children): the fraction
+   of roofline of each; (d) ``launch.dryrun`` of xmgn-drivaer and of
+   granite-3-8b ``train_4k`` at 16 x 16 with fake CUDA tensors, each in a
+   process of its own started with the child, no record with an error,
+   and ``report.render``'s table.
 
 9. training whole path: ``GNNConfig()`` at full width cut to 2
    message-passing layers and halo 2, a 2,048-point sample in 2 partitions;
@@ -517,6 +537,22 @@ TRAIN_LLM_MARKS = ("hybrid.mamba2", "mamba2.gla", "hybrid.shared_attention",
                    "llm.adam_update")
 TRAIN_LLM_DIR = ROOT / "build" / "chip_smoke_train_llm"
 TRAIN_LLM_TIMEOUT = 600
+# Phase 23: the dry run and the roofline layer, in a spawned child (its
+# world-1 NCCL group and the dry run's fake group of 512 ranks meet no other
+# group of this script). (a) the xmgn-drivaer 16 x 16 row's per-device
+# program at DRYRUN_CHIPS devices; its measured peak within
+# DRYRUN_PEAK_RATIO of the dry run's prediction either way. (d) the dry
+# run of DRYRUN_PAIRS, each in a process of its own, started once (a) is
+# timed and run beside (b) and (c) on the host's cores.
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT = 420
+DRYRUN_CHIPS = 256
+DRYRUN_PEAK_RATIO = 2.0
+DRYRUN_PAIRS = (("xmgn-drivaer", "train_2M_3level"),
+                ("granite-3-8b", "train_4k"))
+# the steps phases 8, 19, 21 and 22 measure, held against their roofline
+ROOFLINE_TAGS = ("8 prefill", "8 decode", "19 prefill", "19 decode",
+                 "21 prefill", "21 decode", "22 train")
 # Phase 19 (b): the MoE layer's parts, as models/moe.py marks them for the
 # profiler
 MOE_MARKS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
@@ -547,6 +583,20 @@ UNET_TRAIN_X, UNET_TRAIN_STEPS = 80, 3
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+# phase 23 (c): the device time of each step phases 8, 19, 21 and 22 ran,
+# with its shape ({tag: {arch, kind, batch, seq, device_ms}}); the child
+# processes hand theirs back in result.json
+MEASURED = {}
+
+
+def record_measured(tag: str, arch: str, kind: str, batch: int, seq: int,
+                    rows):
+    """Keep one profiled step's device time (the sum of its kernels'
+    ``rows``) and shape for phase 23 (c)."""
+    MEASURED[tag] = dict(arch=arch, kind=kind, batch=batch, seq=seq,
+                         device_ms=sum(ms for _, ms, _ in rows))
 
 
 def time_cuda(fn, reps: int, warmup: int = 2) -> float:
@@ -3366,6 +3416,8 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
         logits, cache = api.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
     rows = _log_kernels("prefill", prof, time.perf_counter() - t0)
+    record_measured("8 prefill", LLM_ARCH, "prefill", LLM_BATCH, LLM_PROMPT,
+                    rows)
     n_wgmma = sum(n for k, _, n in rows if FLASH_WGMMA_KERNEL in k)
     n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
     if not n_wgmma == n_flash == cfg.n_layers:
@@ -3395,7 +3447,10 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
                              ProfilerActivity.CUDA]) as prof:
         api.decode(params, cache, {"tokens": tok}, LLM_PROMPT + LLM_GEN - 1)
         torch.cuda.synchronize()
-    _log_kernels("decode step", prof, time.perf_counter() - t0)
+    record_measured("8 decode", LLM_ARCH, "decode", LLM_BATCH,
+                    LLM_PROMPT + LLM_GEN,
+                    _log_kernels("decode step", prof,
+                                 time.perf_counter() - t0))
 
 
 def _route_flips(moe_gpu, moe_cpu, x_gpu, x_cpu, cfg_moe):
@@ -3683,6 +3738,8 @@ def moe_serve(dev, card, reset_counts, read_counts, by_phase):
             f"expected {cfg.n_layers} of the wgmma kernel")
     _log_kernels("prefill", prof, wall)
     _log_moe_split("prefill", prof, rows)
+    record_measured("19 prefill", MOE_ARCH, "prefill", LLM_BATCH, LLM_PROMPT,
+                    rows)
     tok = logits[:, -1].argmax(-1)[:, None]
     del logits
     cache = pad_cache_to(cache, api.empty_cache(
@@ -3699,6 +3756,8 @@ def moe_serve(dev, card, reset_counts, read_counts, by_phase):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = _log_kernels("decode step", prof, wall)
+    record_measured("19 decode", MOE_ARCH, "decode", LLM_BATCH,
+                    LLM_PROMPT + LLM_GEN, rows)
     if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows):
         raise RuntimeError("moe breakdown: a decode step launched flash "
                            "attention")
@@ -4162,6 +4221,8 @@ def hybrid_serve(dev, card, reset_counts, read_counts, by_phase):
         logits, state = api.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
     rows = _log_kernels("zamba2 prefill", prof, time.perf_counter() - t0)
+    record_measured("21 prefill", ZAMBA2_ARCH, "prefill", ZAMBA2_BATCH,
+                    ZAMBA2_PROMPT, rows)
     wgmma = [(k, n) for k, _, n in rows if FLASH_WGMMA_KERNEL in k]
     n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
     if not (sum(n for _, n in wgmma) == n_flash == want
@@ -4196,6 +4257,8 @@ def hybrid_serve(dev, card, reset_counts, read_counts, by_phase):
         api.decode(params, state, {"tokens": tok}, ZAMBA2_PROMPT + 2)
         torch.cuda.synchronize()
     rows = _log_kernels("zamba2 decode step", prof, time.perf_counter() - t0)
+    record_measured("21 decode", ZAMBA2_ARCH, "decode", ZAMBA2_BATCH,
+                    ZAMBA2_PROMPT + ZAMBA2_GEN, rows)
     if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows):
         raise RuntimeError("zamba2 breakdown: a decode step launched flash "
                            "attention")
@@ -5102,22 +5165,24 @@ def _hybrid_child(card: str, out_dir: str):
                         WHOLE_HYBRID_PROMPT, 1)
         hybrid_serve(dev, card, reset_counts, read_counts, by_phase)
         (Path(out_dir) / "result.json").write_text(
-            json.dumps({"hd80": row, "by_phase": by_phase}))
+            json.dumps({"hd80": row, "by_phase": by_phase,
+                        "measured": MEASURED}))
     except BaseException:
         (Path(out_dir) / "error.txt").write_text(traceback.format_exc())
         raise
 
 
 def _run_child(target, card: str, out_dir: Path, timeout: float, what: str,
-               by_phase) -> dict:
-    """Run ``target(card, out_dir)`` in a spawned child with a time limit
-    (a failing or overrunning child fails the run); merge the launch counts
-    of its ``result.json`` into ``by_phase`` and return the result."""
+               by_phase, extra: tuple = ()) -> dict:
+    """Run ``target(card, out_dir, *extra)`` in a spawned child with a time
+    limit (a failing or overrunning child fails the run); merge the launch
+    counts of its ``result.json`` into ``by_phase``, and its measured
+    device times into ``MEASURED``, and return the result."""
     import multiprocessing as mp
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     proc = mp.get_context("spawn").Process(target=target,
-                                           args=(card, str(out_dir)))
+                                           args=(card, str(out_dir), *extra))
     proc.start()
     proc.join(timeout)
     if proc.is_alive():
@@ -5133,6 +5198,7 @@ def _run_child(target, card: str, out_dir: Path, timeout: float, what: str,
     shutil.rmtree(out_dir, ignore_errors=True)
     for name, phases in res["by_phase"].items():
         by_phase[name].update(phases)
+    MEASURED.update(res.get("measured", {}))
     return res
 
 
@@ -5446,6 +5512,8 @@ def zamba2_train(dev, card, reset_counts, read_counts, by_phase):
     t0 = time.perf_counter()
     rows, marked = _raw_split(prof, TRAIN_LLM_MARKS)
     _log_rows("zamba2 training step", rows, wall)
+    record_measured("22 train", ZAMBA2_ARCH, "train", ZAMBA2_BATCH,
+                    ZAMBA2_PROMPT, rows)
     if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows) or any(
             by_phase[name]["train_zamba2_profiled"] for name in by_phase):
         raise RuntimeError("train zamba2: the profiled step launched the "
@@ -5533,7 +5601,7 @@ def _train_llm_child(card: str, out_dir: str):
         zamba2_train(dev, card, reset_counts, read_counts, by_phase)
         train_whole_models(dev, card, reset_counts, read_counts, by_phase)
         (Path(out_dir) / "result.json").write_text(
-            json.dumps({"by_phase": by_phase}))
+            json.dumps({"by_phase": by_phase, "measured": MEASURED}))
     except BaseException:
         (Path(out_dir) / "error.txt").write_text(traceback.format_exc())
         raise
@@ -5544,6 +5612,281 @@ def train_llm_phase(card, by_phase):
     fresh, as phase 21's."""
     _run_child(_train_llm_child, card, TRAIN_LLM_DIR, TRAIN_LLM_TIMEOUT,
                "phase 22", by_phase)
+
+
+def xmgn_device_step(dev, card, reset_counts, read_counts, by_phase,
+                     store: Path) -> dict:
+    """Phase 23 (a): the per-device program of the dry run's xmgn-drivaer
+    row at 16 x 16, for real on the card: ``GNNConfig()`` (hidden 512, 15
+    layers, remat), one partition at that row's padded local shapes
+    (seeded features; each node the receiver of (k + 2) edges from random
+    senders), the partitions-as-DDP gradient on a world-1 NCCL group. One
+    step warms, the next is timed (host clock, and between CUDA events on
+    its stream) and counted: its peak memory, and the
+    launches of the segment-sum forward, backward and gathers' backward,
+    none of which may be 0. Returns the measured step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.core.distributed_mgn import make_xmgn_ddp_grad_fn
+    from repro_torch.launch.dryrun import xmgn_local_shapes
+    from repro_torch.models import meshgraphnet as mgn
+
+    cfg = GNNConfig()
+    sh = xmgn_local_shapes(cfg, DRYRUN_CHIPS)
+    nodes, edges = sh["pad_nodes"], sh["pad_edges"]
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    batch = {
+        "node_feats": rng.standard_normal((1, nodes, cfg.node_in), f32),
+        "edge_feats": rng.standard_normal((1, edges, cfg.edge_in), f32),
+        "senders": rng.integers(0, nodes, (1, edges)).astype(np.int32),
+        "receivers": np.repeat(np.arange(nodes, dtype=np.int32),
+                               edges // nodes)[None],
+        "targets": rng.standard_normal((1, nodes, cfg.node_out), f32),
+        "loss_mask": (np.arange(nodes) < sh["n_owned"]).astype(f32)[None],
+        "edge_mask": np.ones((1, edges), f32)}
+    stacked = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    denom = float(sh["n_nodes_global"] * cfg.node_out)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        model = mgn.init(torch.Generator().manual_seed(0), cfg, device=dev)
+        grad_fn = make_xmgn_ddp_grad_fn(dist.group.WORLD)
+        t0 = time.perf_counter()
+        grad_fn(model, stacked, denom)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for p in model.parameters():
+            p.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        ev0.record()
+        loss = grad_fn(model, stacked, denom)
+        ev1.record()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        event_s = ev0.elapsed_time(ev1) / 1e3
+        read_counts("xmgn_step")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    if not np.isfinite(float(loss)):
+        raise RuntimeError(f"xmgn step: loss {float(loss)}")
+    counts = {k: by_phase[k]["xmgn_step"] for k in (
+        "segment_sum", "segment_sum_backward", "gather_rows_backward")}
+    if not all(counts.values()):
+        raise RuntimeError(f"xmgn step: a segment-sum kernel was not "
+                           f"launched: {counts}")
+    log(f"[dryrun] (a) xmgn-drivaer per-device program at {DRYRUN_CHIPS} "
+        f"devices: {sh['n_owned']} owned, {nodes} padded nodes, {edges} "
+        f"padded edges, GNNConfig() (hidden {cfg.hidden}, "
+        f"{cfg.n_mp_layers} layers, remat {cfg.remat}); first step "
+        f"{first_s:.3f} s, warm step {step_s:.4f} s (host clock), "
+        f"{event_s:.4f} s between CUDA events, peak memory "
+        f"{peak / 1e9:.3f} GB, loss {float(loss):.6f}; launches: "
+        f"segment_sum {counts['segment_sum']}, segment_sum_backward "
+        f"{counts['segment_sum_backward']}, gather_rows_backward "
+        f"{counts['gather_rows_backward']} | {card}")
+    del model, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, event_s=event_s, peak_bytes=peak,
+                counts=counts, **sh)
+
+
+def knn_layouts(dev, card, by_phase):
+    """Phase 23 (b): ``hashgrid.knn`` with both layouts at phase 3's six
+    level shapes (3 levels of each bucket, on its calibration cloud), each
+    layout on its own calibrated grid: the neighbour sets equal, the kNN
+    kernel launched for both (the dense layout's candidates go through it
+    too), and ``max_knn_cell_ratio`` per level and layout."""
+    import torch
+
+    from repro_torch.core.graph_build import sample_surface
+    from repro_torch.data import geometry as geo
+    from repro_torch.graphx import hashgrid
+    from repro_torch.kernels.knn import ops as knn_ops
+    from repro_torch.launch.serve_gnn import _level_sizes
+
+    verts, faces = geo.car_surface(geo.sample_params(0))
+    launched = {"csr": 0, "dense": 0}
+    for bucket in BUCKETS:
+        ref_pts, _ = sample_surface(verts, faces, bucket,
+                                    np.random.default_rng(0))
+        for m in _level_sizes(bucket, 3):
+            pts = torch.from_numpy(ref_pts[:m]).to(dev)
+            got = {}
+            for layout in ("csr", "dense"):
+                spec = hashgrid.calibrate_spec(ref_pts[:m], 6, n_points=m,
+                                               layout=layout)
+                before = knn_ops.topk_neighbors.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                idx, _, mask = hashgrid.knn(pts, m, spec)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                n = knn_ops.topk_neighbors.launches - before
+                if n == 0:
+                    raise RuntimeError(f"knn {layout} at N={m}: knn_topk "
+                                       "was not launched")
+                launched[layout] += n
+                ratio = hashgrid.max_knn_cell_ratio(ref_pts, m, spec)
+                got[layout] = torch.sort(idx, dim=1).values
+                log(f"[dryrun] (b) knn bucket {bucket} level N={m} "
+                    f"{layout}: resolution {spec.resolution}, neigh_cap "
+                    f"{spec.neigh_cap}, {secs * 1e3:.3f} ms (host clock), "
+                    f"max_knn_cell_ratio {ratio:.4f}, neighbours "
+                    f"{int(mask.sum())}")
+            if not torch.equal(got["csr"], got["dense"]):
+                bad = int((got["csr"] != got["dense"]).any(1).sum())
+                raise RuntimeError(f"knn at N={m}: the dense layout's "
+                                   f"neighbour sets differ from csr's in "
+                                   f"{bad} rows")
+    by_phase["knn_topk"]["knn_csr"] = launched["csr"]
+    by_phase["knn_topk"]["knn_dense"] = launched["dense"]
+    log(f"[dryrun] (b) neighbour sets equal at all six level shapes; "
+        f"knn_topk launches: csr {launched['csr']}, dense "
+        f"{launched['dense']} | {card}")
+
+
+def roofline_fractions(card, measured: dict):
+    """Phase 23 (c): ``costmodel.step_cost`` at the card's constants (``HW``)
+    for each step phases 8, 19, 21 and 22 measured, at the shape it ran:
+    the roofline time (the larger of the compute and memory terms) and its
+    fraction of the measured device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import HW, ShapeConfig
+    from repro_torch.launch import costmodel
+
+    missing = [t for t in ROOFLINE_TAGS if t not in measured]
+    if missing:
+        raise RuntimeError(f"roofline: no measured step for {missing}")
+    for tag in ROOFLINE_TAGS:
+        m = measured[tag]
+        shape = ShapeConfig(tag, m["seq"], m["batch"], m["kind"])
+        cost = costmodel.step_cost(get_config(m["arch"]), shape)
+        t_c = cost.flops / HW.peak_flops
+        t_m = cost.hbm_bytes / HW.hbm_bw
+        roof = max(t_c, t_m)
+        dev_s = m["device_ms"] / 1e3
+        log(f"[dryrun] (c) phase {tag}: {m['arch']} {m['kind']} "
+            f"{m['batch']} x {m['seq']}: {cost.flops:.4e} FLOP, "
+            f"{cost.hbm_bytes:.4e} B; roofline t_compute {t_c * 1e3:.3f} ms, "
+            f"t_memory {t_m * 1e3:.3f} ms; measured device "
+            f"{m['device_ms']:.3f} ms; fraction of roofline "
+            f"{roof / dev_s:.4f} | {card}")
+
+
+def _start_dryruns(out: Path) -> list:
+    """Phase 23 (d): one dry-run process for each of DRYRUN_PAIRS at 16 x
+    16 with fake CUDA tensors, its log beside its record in ``out``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRYRUN_PAIRS:
+        logf = open(out / f"{arch}.log", "w")
+        procs.append((arch, logf, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--device", "cuda", "--out",
+             str(out)], cwd=ROOT, env=env, stdout=logf,
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def _finish_dryruns(procs, out: Path, deadline: float) -> dict:
+    """Wait for the dry-run processes (killed at ``deadline``); returns
+    their records by arch, none with an ``error``."""
+    from repro_torch.launch import report
+    try:
+        for arch, logf, proc in procs:
+            proc.wait(max(deadline - time.perf_counter(), 1))
+            logf.close()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"dry run {arch}: exit {proc.returncode}\n"
+                    + (out / f"{arch}.log").read_text()[-3000:])
+    finally:
+        for _, logf, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+            logf.close()
+    recs = {r["arch"]: r for r in report.rows_of(str(out))}
+    for arch, _ in DRYRUN_PAIRS:
+        if arch not in recs or "error" in recs[arch]:
+            err = recs.get(arch, {}).get("error", "no record")
+            raise RuntimeError(f"dry run {arch}: {err}")
+    report.render([str(out)])
+    return recs
+
+
+def dryrun_check(card, step: dict, recs: dict):
+    """Phase 23 (a) against (d): the measured step beside the dry run's
+    per-device prediction (arguments + temporaries) and roofline terms; the
+    peaks within DRYRUN_PEAK_RATIO of each other."""
+    rec = recs["xmgn-drivaer"]
+    mem, roof = rec["memory"], rec["roofline"]
+    pred = mem["argument_bytes"] + mem["temp_bytes"]
+    ratio = step["peak_bytes"] / pred
+    log(f"[dryrun] (a) xmgn-drivaer {rec['mesh']}: measured peak "
+        f"{step['peak_bytes'] / 1e9:.3f} GB, predicted "
+        f"{pred / 1e9:.3f} GB (arguments {mem['argument_bytes'] / 1e9:.3f} "
+        f"+ temporaries {mem['temp_bytes'] / 1e9:.3f}), measured / "
+        f"predicted {ratio:.3f}; roofline t_compute "
+        f"{roof['t_compute_s']:.4f} s at bf16 peak, "
+        f"{roof['t_compute_f32_s']:.4f} s at f32 peak, t_memory "
+        f"{roof['t_memory_s']:.4f} s, t_collective "
+        f"{roof['t_collective_s']:.6f} s "
+        f"({rec['per_device']['collective_bytes']} B all-reduced); the warm "
+        f"step, {step['event_s']:.4f} s between CUDA events, is "
+        f"{roof['t_compute_f32_s'] / step['event_s']:.4f} of the f32 "
+        f"roofline and {roof['t_compute_s'] / step['event_s']:.4f} of the "
+        f"bf16 one | {card}")
+    if not 1 / DRYRUN_PEAK_RATIO <= ratio <= DRYRUN_PEAK_RATIO:
+        raise RuntimeError(f"dry run: the measured peak is {ratio:.3f} x the "
+                           f"prediction, outside {DRYRUN_PEAK_RATIO} x")
+
+
+def _dryrun_child(card: str, out_dir: str, measured: str):
+    """Phase 23 in a spawned process: writes ``result.json`` (the launch
+    counts), or its traceback to ``error.txt`` and fails."""
+    import traceback
+    try:
+        import torch
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda")
+        out = Path(out_dir)
+        deadline = time.perf_counter() + DRYRUN_TIMEOUT - 30
+        by_phase, reset_counts, read_counts = launch_counters()
+        # (a) is timed before the dry-run processes start, on a host whose
+        # cores they do not yet share
+        step = xmgn_device_step(dev, card, reset_counts, read_counts,
+                                by_phase, out / "nccl_store")
+        procs = _start_dryruns(out)
+        try:
+            knn_layouts(dev, card, by_phase)
+            roofline_fractions(card, json.loads(measured))
+        finally:
+            recs = _finish_dryruns(procs, out, deadline)
+        dryrun_check(card, step, recs)
+        (out / "result.json").write_text(json.dumps({"by_phase": by_phase}))
+    except BaseException:
+        (Path(out_dir) / "error.txt").write_text(traceback.format_exc())
+        raise
+
+
+def dryrun_phase(card, by_phase):
+    """Phase 23 in a spawned child (``_run_child``), handed the device
+    times phases 8, 19, 21 and 22 measured."""
+    _run_child(_dryrun_child, card, DRYRUN_DIR, DRYRUN_TIMEOUT, "phase 23",
+               by_phase, extra=(json.dumps(MEASURED),))
 
 
 def main() -> int:
@@ -5660,6 +6003,14 @@ def main() -> int:
     train_llm_phase(card, by_phase)
     log(f"[train_llm] phase 22 took {time.perf_counter() - t0:.1f} s | "
         f"{card}")
+
+    # 23. the dry run and the roofline layer, in a child process: (a) the
+    # xmgn 16 x 16 row's per-device program on the card; (b) kNN with both
+    # hash-grid layouts; (c) the roofline fractions of phases 8-22's steps;
+    # (d) the dry run of xmgn-drivaer and granite-3-8b train_4k at 16 x 16
+    t0 = time.perf_counter()
+    dryrun_phase(card, by_phase)
+    log(f"[dryrun] phase 23 took {time.perf_counter() - t0:.1f} s | {card}")
 
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later

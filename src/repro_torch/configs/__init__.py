@@ -2,13 +2,16 @@
 X-UNet3D) and every LLM config of the JAX package: the decoders (dense, MoE
 and pixtral's with its stubbed vision prefix), whisper's encoder-decoder,
 the xLSTM and zamba2's hybrid of Mamba2 blocks and a shared attention
-block."""
+block. ``SHAPES`` are the four input shapes of the dry run and the cost
+model, as ``repro.configs.SHAPES``."""
 from __future__ import annotations
 
 import importlib
 from typing import Union
 
-from repro_torch.configs.base import GNNConfig, ModelConfig, UNetConfig
+from repro_torch.configs.base import (GNNConfig, HardwareSpec, HW,  # noqa: F401
+                                      ModelConfig, SHAPES, ShapeConfig,
+                                      UNetConfig)
 
 _ARCH_MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",

@@ -14,13 +14,13 @@ the resilience knobs (``request_timeout_s``, ``max_queue_depth``,
 fields, and its rollout engine ``rollout_slots``,
 ``rollout_steps_per_flush``, ``rollout_timeout_s``, and (through
 ``MeshGraphNet.step``) ``rollout_state_feats`` and ``rollout_integrator``.
-``ModelConfig``
-keeps only the fields the served families read (the decoders, dense, MoE
-and the vision prefix; whisper's encoder-decoder and audio frames; the
-xLSTM's recurrent blocks; zamba2's Mamba2 blocks and shared attention
-cadence ``attn_every``) and ``remat``, which the LLM trainer reads; the
-sharding fields come with the slices that read them. ``MoEConfig`` and
-``SSMConfig`` are copied field for field.
+``ModelConfig``, ``MoEConfig`` and ``SSMConfig`` are copied field for
+field: the families' fields, ``remat`` (the LLM trainer), and the systems
+knobs the dry run reads (``param_sharding``, ``serve_param_sharding``,
+``decode_param_sharding``, ``grad_accum``, ``supports_long_context``).
+``ShapeConfig`` and ``SHAPES`` are the JAX package's four input shapes;
+``HardwareSpec`` and ``HW`` hold the H100's constants, which the cost
+model's roofline reads.
 """
 from __future__ import annotations
 
@@ -93,11 +93,18 @@ class ModelConfig:
     frontend: Optional[str] = None     # None | "audio" | "vision" (stubbed)
     n_frontend_tokens: int = 0
     tie_embeddings: bool = False
-    dtype: str = "bfloat16"
-    remat: str = "full"                # "none" | "full" (a checkpoint per
-                                       # layer group in training); "dots"
-                                       # raises (ROADMAP.md)
     source: str = ""                   # citation
+    # systems knobs
+    param_sharding: str = "fsdp_tp"    # "tp" | "fsdp_tp" | "dp" (replicate)
+    serve_param_sharding: str = "tp"   # serving has no optimizer state
+    decode_param_sharding: str = ""    # decode override ("" -> serve_...)
+    dtype: str = "bfloat16"
+    remat: str = "full"                # "none" | "dots" | "full": a
+                                       # checkpoint per layer group in
+                                       # training (transformer.remat_wrap)
+    grad_accum: int = 1                # microbatches per training step
+    # can this arch serve long_500k sub-quadratically?
+    supports_long_context: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
@@ -116,8 +123,8 @@ class ModelConfig:
         """A smoke-test-sized variant (2 layers, d 128, hd 32; MoE: 4
         experts top-2 of width 64, at most 1 dense first layer; 2 encoder
         layers; SSM: d_state 16, chunk 16, 2 heads, an sLSTM every 2nd
-        block; 16 frontend tokens; f32, no remat), as the JAX package's
-        ``ModelConfig.reduced`` gives."""
+        block; 16 frontend tokens; f32, no remat, ``tp`` parameter
+        sharding), as the JAX package's ``ModelConfig.reduced`` gives."""
         kw = dict(
             n_layers=2, d_model=128, n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 2), head_dim=32, d_ff=256,
@@ -126,7 +133,7 @@ class ModelConfig:
             n_frontend_tokens=16 if self.frontend else 0,
             sliding_window=16 if self.sliding_window else None,
             attn_every=2 if self.attn_every else 0,
-            dtype="float32", remat="none")
+            dtype="float32", remat="none", param_sharding="tp")
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
                 self.moe, n_experts=4, top_k=2, d_ff_expert=64,
@@ -233,3 +240,36 @@ class UNetConfig:
     def reduced(self) -> "UNetConfig":
         return self.replace(base_channels=8, depth=2, grid=(32, 16, 16),
                             halo=8, n_partitions=2)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """Per-card constants of the roofline analysis: NVIDIA H100 80GB HBM3
+    (SXM), 700 W, from its data sheet."""
+
+    peak_flops: float = 989e12         # dense bf16 FLOP/s (tensor cores)
+    hbm_bw: float = 3.35e12            # HBM3 bytes/s
+    ici_bw: float = 450e9              # NVLink 4, bytes/s one way per GPU
+                                       # (JAX's field name for the chip link)
+    peak_flops_f32: float = 67e12      # f32 FLOP/s (CUDA cores, no TF32)
+
+
+HW = HardwareSpec()

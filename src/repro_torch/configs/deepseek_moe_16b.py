@@ -20,5 +20,6 @@ CONFIG = ModelConfig(
         n_shared_experts=2,
         first_dense_layers=1,
     ),
+    grad_accum=2,                  # microbatches: the MoE dispatch buffers
     source="arXiv:2401.06066",
 )

@@ -21,5 +21,6 @@ CONFIG = ModelConfig(
     act="gelu",
     post_norms=True,
     scale_embeddings=True,
+    supports_long_context=True,
     source="arXiv:2408.00118",
 )

@@ -19,5 +19,6 @@ CONFIG = ModelConfig(
         top_k=8,
         d_ff_expert=768,
     ),
+    grad_accum=4,                  # microbatches: the MoE dispatch buffers
     source="hf:Qwen/Qwen3-30B-A3B",
 )

@@ -20,5 +20,8 @@ CONFIG = ModelConfig(
         n_ssm_heads=4,
         slstm_every=4,
     ),
+    supports_long_context=True,
+    param_sharding="dp",           # 350M parameters: replicate
+    serve_param_sharding="dp",
     source="arXiv:2405.04517",
 )

@@ -13,5 +13,6 @@ CONFIG = ModelConfig(
     d_ff=20480,
     vocab_size=64000,
     rope_theta=5e6,
+    decode_param_sharding="fsdp_tp",  # decode is bound by bytes
     source="arXiv:2403.04652",
 )

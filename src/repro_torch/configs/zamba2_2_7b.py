@@ -25,5 +25,6 @@ CONFIG = ModelConfig(
         n_ssm_heads=80,            # d_inner 5120 / head_dim 64
     ),
     attn_every=6,
+    supports_long_context=True,
     source="arXiv:2411.15242",
 )

@@ -1,14 +1,17 @@
 """Graph construction from tessellated geometry on the host (numpy and
 scipy), copied from the JAX package (``repro.core.graph_build``): surface
-sampling (the port samples the same clouds from the same generator), vertex
-normals, k-NN edges by cKDTree and the node input features of the training
-path."""
+and volume sampling (the port samples the same clouds from the same
+generator), vertex normals, k-NN and radius edges by cKDTree, a whole
+:class:`Graph` (:func:`build_graph`) and the node input features of the
+training path."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
 from scipy.spatial import cKDTree
+
+from repro_torch.core.graph import Graph, relative_edge_features
 
 
 def triangle_areas(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
@@ -67,6 +70,15 @@ def vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
                             1e-12)).astype(np.float32)
 
 
+def sample_volume(vertices: np.ndarray, n_points: int,
+                  rng: np.random.Generator) -> np.ndarray:
+    """Uniform point cloud inside the axis-aligned bounding box of a geometry
+    (volume-mode construction, paper SIII-B)."""
+    lo = vertices.min(axis=0)
+    hi = vertices.max(axis=0)
+    return (lo + rng.random((n_points, 3)) * (hi - lo)).astype(np.float32)
+
+
 def knn_edges(points: np.ndarray, k: int, *,
               bidirectional: bool = True,
               max_radius: Optional[float] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -102,6 +114,35 @@ def knn_edges(points: np.ndarray, k: int, *,
         uniq = np.unique(np.stack([s, r], axis=1), axis=0)
         senders, receivers = uniq[:, 0], uniq[:, 1]
     return senders.astype(np.int32), receivers.astype(np.int32)
+
+
+def radius_edges(points: np.ndarray, radius: float,
+                 max_degree: int = 64) -> Tuple[np.ndarray, np.ndarray]:
+    """Alternative connectivity (paper SVII future work): connect all pairs
+    within ``radius``, capped at ``max_degree`` per receiver."""
+    tree = cKDTree(points)
+    pairs = tree.query_pairs(radius, output_type="ndarray")
+    if len(pairs) == 0:
+        return (np.zeros((0,), np.int32),) * 2
+    s = np.concatenate([pairs[:, 0], pairs[:, 1]])
+    r = np.concatenate([pairs[:, 1], pairs[:, 0]])
+    order = np.argsort(r, kind="stable")
+    s, r = s[order], r[order]
+    pos = np.arange(len(r)) - np.searchsorted(r, r, side="left")
+    keep = pos < max_degree
+    return s[keep].astype(np.int32), r[keep].astype(np.int32)
+
+
+def build_graph(points: np.ndarray, k: int,
+                normals: Optional[np.ndarray] = None) -> Graph:
+    """The bidirectional k-NN :class:`Graph` of ``points`` with its
+    relative-position edge features, validated."""
+    senders, receivers = knn_edges(points, k)
+    g = Graph(positions=points, senders=senders, receivers=receivers,
+              normals=normals)
+    g.edge_feats = relative_edge_features(points, senders, receivers)
+    g.validate()
+    return g
 
 
 def fourier_features(x: np.ndarray, freqs) -> np.ndarray:

@@ -1,9 +1,14 @@
 """Hash-grid (cell-list) k-nearest-neighbor search on tensors.
 
-Port of ``repro.graphx.hashgrid`` with the occupied-cell CSR layout only:
-points are stably sorted by cell id, and each query's candidate row is
-assembled from the 9 contiguous cell-id ranges of its 3x3x3 window by 18
-binary searches. ``kernels.knn`` then keeps the k nearest candidates.
+Port of ``repro.graphx.hashgrid``, both layouts. ``layout='csr'`` (the
+default): points are stably sorted by cell id, and each query's candidate
+row is assembled from the 9 contiguous cell-id ranges of its 3x3x3 window
+by 18 binary searches; nothing is held over the grid. ``layout='dense'``:
+:func:`build_table` writes every cell's neighbourhood row of point ids
+(O(n_cells * neigh_cap) memory, so ``calibrate_spec`` bounds its cell count
+at ``cell_budget * n_points``), and a query reads its own cell's row. Both
+give the same neighbour sets, and either way ``kernels.knn`` then keeps the
+k nearest candidates (one call, whatever the layout).
 
 Shapes are static per ``GridSpec``, as in the JAX package. The search is
 exact whenever every point's k-th neighbor lies within one cell width on
@@ -46,42 +51,74 @@ class GridSpec:
     k: int                            # neighbors per query
     resolution: Tuple[int, int, int]  # cells per axis (rx, ry, rz)
     neigh_cap: int                    # candidate capacity per query (C)
-    layout: str = "csr"               # 'csr' only; round-trips JAX specs
+    layout: str = "csr"               # 'csr' (occupied-cell) | 'dense' table
 
     @property
     def n_cells(self) -> int:
         rx, ry, rz = self.resolution
         return rx * ry * rz
 
+    @property
+    def n_candidates(self) -> int:
+        return self.neigh_cap
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def auto_spec(n_points: int, k: int = 6) -> GridSpec:
-    """Heuristic spec for a roughly isotropic uniform surface cloud (the
-    JAX package's ``mode='surface'``; prefer ``calibrate_spec`` for real
-    geometries)."""
-    r = max(2, min(int(round(math.sqrt(n_points / max(k, 1)) / 2)), 128))
-    est = n_points / (r * r)
-    neigh_cap = _round_up(max(4 * k, int(math.ceil(3 * 9 * est))), 128)
-    return GridSpec(n_points=n_points, k=k, resolution=(r, r, r),
-                    neigh_cap=min(neigh_cap, n_points))
+def auto_spec(n_points: int, k: int = 6, mode: str = "surface",
+              resolution: int | Tuple[int, int, int] | None = None,
+              neigh_cap: int | None = None, layout: str = "csr") -> GridSpec:
+    """Heuristic spec for roughly isotropic uniform point clouds.
+
+    ``mode='surface'``: points on a 2-manifold, occupied cells scale like
+    R^2, so R ~ sqrt(n/k)/2. ``mode='volume'``: R ~ (n/k)^(1/3).
+    ``resolution`` and ``neigh_cap`` override the heuristic. For real
+    geometries prefer ``calibrate_spec`` (measures the cloud).
+    """
+    if resolution is None:
+        if mode == "surface":
+            r = int(round(math.sqrt(n_points / max(k, 1)) / 2))
+        else:
+            r = int(round((n_points / max(k, 1)) ** (1.0 / 3.0)))
+        resolution = max(2, min(r, 128))
+    if isinstance(resolution, int):
+        resolution = (resolution,) * 3
+    if neigh_cap is None:
+        rx, ry, rz = resolution
+        if mode == "surface":
+            est = n_points / max(rx * ry, 1)   # occupied cells ~ one face
+        else:
+            est = n_points / max(rx * ry * rz, 1)
+        # a 3x3x3 neighborhood crosses the surface in ~9 occupied cells
+        occ_cells = 9 if mode == "surface" else 27
+        neigh_cap = _round_up(max(4 * k, int(math.ceil(3 * occ_cells * est))),
+                              128)
+        neigh_cap = min(neigh_cap, n_points)
+    return GridSpec(n_points=n_points, k=k, resolution=tuple(resolution),
+                    neigh_cap=neigh_cap, layout=layout)
 
 
-# calibrate_spec's margins, the JAX package's defaults: the cell is 1.3x the
+# calibrate_spec's default margins, the JAX package's: the cell is 1.3x the
 # largest k-th-neighbor distance, the capacity 1.5x the fullest neighborhood
-_CELL_SAFETY = 1.3
-_OCCUPANCY_SAFETY = 1.5
+CELL_SAFETY = 1.3
+OCCUPANCY_SAFETY = 1.5
 
 
-def calibrate_spec(points: np.ndarray, k: int,
-                   n_points: int | None = None) -> GridSpec:
+def calibrate_spec(points: np.ndarray, k: int, n_points: int | None = None,
+                   cell_safety: float = CELL_SAFETY,
+                   occupancy_safety: float = OCCUPANCY_SAFETY,
+                   cell_budget: float = 8.0, layout: str = "csr") -> GridSpec:
     """Measure a reference cloud and return an exact-by-construction spec.
 
     Host-side, setup-time only (one cKDTree query): the cell is
-    ``_CELL_SAFETY`` times the largest k-th-neighbor distance, and the
-    capacity ``_OCCUPANCY_SAFETY`` times the fullest 3x3x3 neighborhood.
+    ``cell_safety`` times the largest k-th-neighbor distance, and the
+    capacity ``occupancy_safety`` times the fullest 3x3x3 neighborhood.
+    ``layout='dense'`` holds a row per cell, so its cell count is bounded
+    by ``cell_budget * n``; ``'csr'`` holds nothing over the grid, so only
+    the int32 cell-id range bounds it. Fewer, larger cells keep the search
+    exact, at the price of a larger ``neigh_cap``.
     """
     from scipy.spatial import cKDTree
     pts = np.asarray(points, np.float32)
@@ -89,17 +126,19 @@ def calibrate_spec(points: np.ndarray, k: int,
     dist, _ = cKDTree(pts).query(pts, k=min(k + 1, n))
     kth = float(dist[:, -1].max())
     extent = np.maximum(pts.max(0) - pts.min(0), 1e-6)
-    cell = max(kth * _CELL_SAFETY, 1e-6)
+    cell = max(kth * cell_safety, 1e-6)
     res = tuple(int(max(1, math.floor(e / cell))) for e in extent)
     n_cells = res[0] * res[1] * res[2]
-    if n_cells > _MAX_INT32_CELLS:
-        shrink = (_MAX_INT32_CELLS / n_cells) ** (1.0 / 3.0)
+    max_cells = (max(int(cell_budget * n), 27) if layout == "dense"
+                 else _MAX_INT32_CELLS)
+    if n_cells > max_cells:
+        shrink = (max_cells / n_cells) ** (1.0 / 3.0)
         res = tuple(int(max(1, math.floor(r * shrink))) for r in res)
     occ = int(neighborhood_counts(pts, res).max())
-    cap = _round_up(max(int(math.ceil(occ * _OCCUPANCY_SAFETY)), 2 * k + 2),
+    cap = _round_up(max(int(math.ceil(occ * occupancy_safety)), 2 * k + 2),
                     128)
     return GridSpec(n_points=n_points or n, k=k, resolution=res,
-                    neigh_cap=min(cap, n_points or n))
+                    neigh_cap=min(cap, n_points or n), layout=layout)
 
 
 def _cells(points, valid, spec: GridSpec):
@@ -187,12 +226,85 @@ def csr_candidate_lists(points, n_valid, spec: GridSpec):
     return cand, cand_valid, valid
 
 
+def build_table(points, n_valid, spec: GridSpec):
+    """Compacted neighborhood table: (n_cells, neigh_cap) i32 point ids,
+    -1 where empty.
+
+    One stable sort by cell id orders the points; per-(cell, offset)
+    exclusive prefix sums give each point a slot in the rows of the 27
+    cells around it, and one scatter fills the table. Out-of-grid
+    neighbours, padding points and slots past ``neigh_cap`` go to one
+    trash slot that is dropped (JAX's ``mode='drop'``); every other slot is
+    written once.
+
+    Returns (table, cid (N,) i32 per-point cell id, valid (N,) bool).
+    """
+    n = spec.n_points
+    n_cells = spec.n_cells
+    cap = spec.neigh_cap
+    _, ry, rz = spec.resolution
+    dev = points.device
+    res = torch.tensor(spec.resolution, dtype=torch.int32, device=dev)
+    valid = torch.arange(n, device=dev) < n_valid
+    cc, cid = _cells(points, valid, spec)
+
+    order = torch.argsort(cid, stable=True)        # sentinel rows last
+    sorted_cid = cid[order].contiguous()
+    starts = torch.searchsorted(
+        sorted_cid, torch.arange(n_cells + 1, dtype=torch.int32, device=dev))
+    counts = starts[1:] - starts[:-1]                           # (n_cells,)
+    rank = torch.arange(n, device=dev) - \
+        starts[torch.clamp(sorted_cid, 0, n_cells - 1).long()]
+
+    # slot base of offset j in cell c's row: the exclusive prefix sum of
+    # the 27 neighbour cells' occupancies
+    offs = torch.from_numpy(_OFFSETS).to(dev)
+    cell_ids = torch.arange(n_cells, dtype=torch.int32, device=dev)
+    cell_cc = torch.stack([cell_ids // (ry * rz), (cell_ids // rz) % ry,
+                           cell_ids % rz], dim=-1)              # (n_cells, 3)
+    nbr_cc = cell_cc[:, None, :] + offs[None]
+    nbr_ok = torch.all((nbr_cc >= 0) & (nbr_cc < res), dim=-1)
+    nbr_cid = _flat_cid(torch.minimum(torch.clamp(nbr_cc, min=0), res - 1),
+                        spec)
+    nbr_counts = torch.where(nbr_ok, counts[nbr_cid.long()], 0)
+    base = torch.cumsum(nbr_counts, dim=1) - nbr_counts        # (n_cells, 27)
+
+    # sorted point i (cell c_p, rank m) takes slot base[c', j] + m of every
+    # cell c' = c_p - offset_j it neighbours
+    sorted_cc = torch.minimum(torch.clamp(cc[order], min=0), res - 1)
+    home_cc = sorted_cc[:, None, :] - offs[None]                # (N, 27, 3)
+    home_ok = torch.all((home_cc >= 0) & (home_cc < res), dim=-1)
+    home_ok &= (sorted_cid < n_cells)[:, None]
+    home_cid = _flat_cid(torch.minimum(torch.clamp(home_cc, min=0), res - 1),
+                         spec).long()
+    j_ids = torch.arange(27, device=dev)[None, :]
+    col = base[home_cid, j_ids] + rank[:, None]
+    keep = home_ok & (col < cap)
+    trash = n_cells * cap
+    flat = torch.where(keep, home_cid * cap + col, trash)
+    table = torch.full((trash + 1,), -1, dtype=torch.int32, device=dev)
+    table.scatter_(0, flat.reshape(-1),
+                   order.to(torch.int32)[:, None].expand(n, 27).reshape(-1))
+    return table[:trash].reshape(n_cells, cap), cid, valid
+
+
 def candidate_lists(points, n_valid, spec: GridSpec):
-    """Fixed-size per-query candidate ids (``layout='csr'`` only)."""
-    if spec.layout != "csr":
-        raise ValueError(f"the port implements layout='csr' only, "
-                         f"got {spec.layout!r}")
-    return csr_candidate_lists(points, n_valid, spec)
+    """Fixed-size per-query candidate ids: the csr layout's packed window
+    (:func:`csr_candidate_lists`), or the dense table's row of the query's
+    cell (:func:`build_table`).
+
+    Returns (cand_idx (N, C) i32 safe-valued, cand_valid (N, C) bool,
+    valid (N,) bool query mask)."""
+    if spec.layout == "csr":
+        return csr_candidate_lists(points, n_valid, spec)
+    if spec.layout != "dense":
+        raise ValueError(f"unknown layout {spec.layout!r}")
+    table, cid, valid = build_table(points, n_valid, spec)
+    cand = table[torch.clamp(cid, 0, spec.n_cells - 1).long()]  # (N, C)
+    self_ids = torch.arange(spec.n_points, dtype=torch.int32,
+                            device=points.device)[:, None]
+    cand_valid = (cand >= 0) & (cand != self_ids) & valid[:, None]
+    return torch.clamp(cand, min=0), cand_valid, valid
 
 
 def knn(points, n_valid, spec: GridSpec):
@@ -266,3 +378,18 @@ def overflow_count(points: np.ndarray, n_valid: int, spec: GridSpec) -> int:
     """Host-side: candidate slots lost to neighborhood-capacity overflow."""
     nc = neighborhood_counts(np.asarray(points)[:n_valid], spec.resolution)
     return int(np.maximum(nc - spec.neigh_cap, 0).sum())
+
+
+def max_knn_cell_ratio(points: np.ndarray, n_valid: int,
+                       spec: GridSpec) -> float:
+    """Host-side: max over points of (k-th NN distance / narrowest cell
+    width). <= 1.0 guarantees the 27-cell window contains the true kNN
+    (exactness, given no overflow). Uses cKDTree: diagnostics only, never
+    the hot path."""
+    from scipy.spatial import cKDTree
+    pts = np.asarray(points)[:n_valid]
+    dist, _ = cKDTree(pts).query(pts, k=min(spec.k + 1, len(pts)))
+    kth = dist[:, -1]
+    widths = np.maximum(pts.max(0) - pts.min(0), 1e-6) / \
+        np.asarray(spec.resolution)
+    return float(kth.max() / max(widths.min(), 1e-12))

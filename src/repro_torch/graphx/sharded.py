@@ -292,7 +292,7 @@ def _merge_calibrate(clouds: Sequence[np.ndarray], k: int,
     res = tuple(min(s.resolution[a] for s in specs) for a in range(3))
     occ = max(int(hashgrid.neighborhood_counts(c, res).max())
               for c in usable)
-    cap = _round_up(max(int(np.ceil(occ * hashgrid._OCCUPANCY_SAFETY)),
+    cap = _round_up(max(int(np.ceil(occ * hashgrid.OCCUPANCY_SAFETY)),
                         2 * k + 2), 128)
     return hashgrid.GridSpec(n_points=n_points, k=k, resolution=res,
                              neigh_cap=min(cap, n_points))

@@ -13,9 +13,14 @@ compile_cache.enable`` points it elsewhere, and a restarted process that
 finds a library there loads it instead of running ``nvcc``. ``counts``
 holds the process's totals: ``misses``, one per ``nvcc`` run that
 succeeded, and ``hits``, one per library :func:`load` found on disk.
+:func:`plain` is the wrappers' dispatch: the plain version for a tensor
+on the CPU, and for every tensor inside :func:`dry_run` (the dry run's
+fake tensors have no memory for a kernel to read); a kernel for every
+other tensor; it raises on a fake one.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -138,6 +143,43 @@ def load(name: str) -> ctypes.CDLL:
             if on_disk:
                 counts["hits"] += 1
         return lib
+
+
+# depth of nested dry_run() contexts; a module global, not a thread-local,
+# because autograd runs a card tensor's backward on a thread of its own
+_dry_run_depth = 0
+
+
+@contextlib.contextmanager
+def dry_run():
+    """Shapes only (``launch.dryrun``'s step under ``FakeTensorMode``):
+    while active, every wrapper takes its plain version whatever its
+    tensors' device, and the segment-sum references take their shape-only
+    form on a fake tensor. Outside it both raise on a fake tensor."""
+    global _dry_run_depth
+    _dry_run_depth += 1
+    try:
+        yield
+    finally:
+        _dry_run_depth -= 1
+
+
+def in_dry_run() -> bool:
+    return _dry_run_depth > 0
+
+
+def plain(t) -> bool:
+    """Whether a wrapper takes its plain PyTorch version for ``t``: ``t`` on
+    the CPU, or any ``t`` inside :func:`dry_run`. A fake tensor on the card
+    outside it raises: a kernel would read a null pointer."""
+    if t.device.type == "cpu" or in_dry_run():
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(t):
+        raise RuntimeError(
+            "a fake tensor on the card outside kernels._build.dry_run(): it "
+            "has no memory for a kernel to read")
+    return False
 
 
 def check(status: int, what: str):

@@ -57,7 +57,7 @@ def flash_attention(q, k, v, *, group_size: int = 1, causal: bool = True,
     if causal and q.dim() == k.dim() == 3 and k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention: causal masking needs Skv == Sq, "
                          f"got Sq={q.shape[1]} Skv={k.shape[1]}")
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return ref.attention(q, k, v, group_size=group_size, causal=causal,
                              window=window, softcap=softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

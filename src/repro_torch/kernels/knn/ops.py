@@ -25,7 +25,7 @@ def topk_neighbors(q_pos, cand_pos, cand_idx, cand_valid, k: int):
     """q_pos (N, 3) f32; cand_pos (N, C, 3) f32; cand_idx (N, C) i32;
     cand_valid (N, C) bool. Returns (idx (N, k) i32 with -1 missing,
     d2 (N, k) f32, mask (N, k) bool)."""
-    if q_pos.device.type == "cpu":
+    if _build.plain(q_pos):
         return ref.topk_neighbors(q_pos, cand_pos, cand_idx, cand_valid, k)
     return _launch(q_pos, cand_pos, cand_idx, cand_valid, k)
 

@@ -55,7 +55,7 @@ class SegmentSum(torch.autograd.Function):
     def forward(ctx, messages, perm, row_ptr):
         ctx.save_for_backward(perm, row_ptr)
         ctx.n_edges = messages.shape[0]
-        if messages.device.type == "cpu":
+        if _build.plain(messages):
             return ref.segment_sum_csr(messages, perm, row_ptr)
         return _launch(SegmentCSR(perm, row_ptr), messages,
                        segment_sum_prepared)
@@ -79,7 +79,7 @@ segment_sum_prepared.launches = 0
 def segment_sum_backward(prep: SegmentCSR, grad_out, n_edges: int):
     """grad_out (N, D) f32 -> grad_msg (n_edges, D) f32: the transpose of
     :func:`segment_sum_prepared` over the same CSR."""
-    if grad_out.device.type == "cpu":
+    if _build.plain(grad_out):
         return ref.segment_sum_csr_backward(grad_out, prep.perm,
                                             prep.row_ptr, n_edges)
     return _launch_backward(prep, grad_out, n_edges)
@@ -134,7 +134,7 @@ def gather_rows_backward(prep: SegmentCSR, grad):
     the segment-sum of ``grad`` over ``prep``, the CSR of ``idx``. ``grad``
     may be a column slice of a wider tensor (the gradient of
     ``torch.cat``); the kernel reads it in place."""
-    if grad.device.type == "cpu":
+    if _build.plain(grad):
         return ref.segment_sum_csr(grad, prep.perm, prep.row_ptr)
     return _launch(prep, grad, gather_rows)
 

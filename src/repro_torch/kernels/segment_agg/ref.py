@@ -1,11 +1,35 @@
 """Plain PyTorch versions of the segment-sum kernels, forward and backward
 (the CPU path and the references the CUDA kernels are held against), and the
-CSR preparation both paths share."""
+CSR preparation both paths share.
+
+A fake tensor (``FakeTensorMode``) has shapes but no values, so no degrees
+to loop over. Inside the dry run (``kernels._build.dry_run``, set by
+``launch.dryrun``) each function takes a shape-only form for one: results
+of the right shapes and dtypes, made by ops that read and write as many
+bytes as the real ones (an ``index_add_`` of the messages into the (N, D)
+result, a row gather for its transpose, zero run lengths), whose values
+are not a segment sum. Outside the dry run a fake tensor raises."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.kernels import _build
+
+
+def _shape_only(t) -> bool:
+    """Whether ``t`` takes the shape-only form: a fake tensor, inside the
+    dry run; a fake tensor elsewhere raises rather than get a result that
+    is not a segment sum."""
+    if not is_fake(t):
+        return False
+    if not _build.in_dry_run():
+        raise RuntimeError(
+            "segment_agg: a fake tensor outside kernels._build.dry_run() has "
+            "no values to take segment sums of")
+    return True
 
 
 class SegmentCSR(NamedTuple):
@@ -33,7 +57,11 @@ def prepare(segment_ids, num_segments: int,
     if mask is not None:
         seg = torch.where(mask.bool(), seg, num_segments)
     order = torch.argsort(seg, stable=True)
-    counts = torch.bincount(seg, minlength=num_segments + 1)[:num_segments]
+    if _shape_only(seg):
+        counts = seg.new_zeros(num_segments)
+    else:
+        counts = torch.bincount(seg, minlength=num_segments + 1)[
+            :num_segments]
     row_ptr = torch.zeros(num_segments + 1, dtype=torch.int32,
                           device=seg.device)
     row_ptr[1:] = torch.cumsum(counts, 0)
@@ -48,6 +76,8 @@ def segment_sum_csr(messages, perm, row_ptr):
     """
     n = row_ptr.numel() - 1
     out = messages.new_zeros((n, messages.shape[1]))
+    if _shape_only(messages):
+        return out.index_add_(0, perm.long(), messages)
     start = row_ptr[:-1].long()
     deg = row_ptr[1:].long() - start
     max_deg = int(deg.max()) if n else 0
@@ -63,6 +93,8 @@ def segment_sum_csr_backward(grad_out, perm, row_ptr, n_edges: int):
     for the edges outside every run (the masked ones). A copy, so the
     kernel's result equals it bit for bit."""
     n = row_ptr.numel() - 1
+    if _shape_only(grad_out):
+        return grad_out.index_select(0, perm.long())
     out = grad_out.new_zeros((n_edges, grad_out.shape[1]))
     deg = row_ptr[1:].long() - row_ptr[:-1].long()
     seg = torch.repeat_interleave(torch.arange(n, device=deg.device), deg)

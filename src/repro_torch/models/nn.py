@@ -8,13 +8,19 @@ limits, normal embedding scale and zero biases as ``repro.models.nn``, but
 not the same numbers, since ``jax.random`` and PyTorch's generator differ.
 They are drawn in float32 on ``device`` (the generator's device), then cast
 to ``dtype``: a 10 B-parameter model is drawn on the card, never on the
-host.
+host. :func:`splittable` and :func:`whole` mark where a sharded layout must
+change (a head split, a recurrence along time): they leave a plain tensor as
+it is, and on the dry run's ``DTensor``s (``launch.dryrun``) gather the
+shardings a later view cannot take. The dry run's other rules, for ops
+``DTensor`` shards differently from GSPMD, live in ``launch.dryrun``.
 """
 from __future__ import annotations
 
 import functools
 import math
 from typing import Optional, Sequence
+
+import sys
 
 import torch
 from torch import nn
@@ -28,6 +34,55 @@ ACTS = {
     "relu": F.relu,
     "tanh": torch.tanh,
 }
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` (only the dry run makes them), read
+    without importing ``torch.distributed.tensor``: until something has
+    imported it, no tensor can be one."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _gathered(t, pl):
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p is None else p for p in pl]
+    if pl != list(t.placements):
+        t = t.redistribute(t.device_mesh, pl)
+    return t
+
+
+def splittable(t, dim: int, n: int):
+    """``t``, ready for a view that splits ``dim`` into ``n`` parts. A
+    ``DTensor`` (the dry run's) sharded on ``dim`` over a mesh dim whose
+    size does not divide ``n`` is gathered on that mesh dim first: DTensor
+    cannot split a shard across the parts."""
+    if is_dtensor(t):
+        dim = dim % t.ndim
+        t = _gathered(t, [None if p.is_shard(dim) and
+                          n % t.device_mesh.size(i) else p
+                          for i, p in enumerate(t.placements)])
+    return t
+
+
+def whole(t, *dims: int):
+    """``t`` with ``dims`` whole on every device and no dim sharded over two
+    mesh dims. A ``DTensor`` (the dry run's) can take the time dim sharded
+    (a sequence-parallel layout), or the batch dim on 'data' and 'model'
+    at once, from an elementwise op; a recurrence along time needs time
+    whole, and a view of a twice-sharded dim, as inside ``einsum``, gets
+    wrong local shapes. Such mesh dims are gathered."""
+    if is_dtensor(t):
+        dims = {d % t.ndim for d in dims}
+        seen, pl = set(), []
+        for p in t.placements:
+            if p.is_shard() and (p.dim in dims or p.dim in seen):
+                p = None
+            elif p.is_shard():
+                seen.add(p.dim)
+            pl.append(p)
+        t = _gathered(t, pl)
+    return t
 
 
 class Dense(nn.Module):
@@ -85,7 +140,10 @@ class RMSNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """Token embedding table (vocab, dim), normal times ``1/sqrt(dim)``."""
+    """Token embedding table (vocab, dim), normal times ``1/sqrt(dim)``.
+    The lookup is ``F.embedding`` (a row gather), which ``DTensor`` shards
+    as a vocabulary-parallel lookup (the dry run's) where an index would
+    gather the whole table."""
 
     def __init__(self, vocab: int, dim: int, *,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -95,7 +153,7 @@ class Embed(nn.Module):
         self.table = nn.Parameter(t.mul_(1.0 / math.sqrt(dim)).to(dtype))
 
     def forward(self, ids):
-        return self.table[ids.long()]
+        return F.embedding(ids.long(), self.table)
 
 
 class MLP(nn.Module):

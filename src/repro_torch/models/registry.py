@@ -18,7 +18,7 @@ vision frontend, ``prefix_embeds`` (B, P, d), for an audio frontend
 MoE aux loss is dropped in serving, as JAX's serving drops it, and added to
 the training loss. :func:`param_count` and
 :func:`active_param_count` count a config's parameters without drawing
-them.
+them, on :func:`meta_model`.
 """
 from __future__ import annotations
 
@@ -162,7 +162,9 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     return _decoder_api(cfg)
 
 
-def _meta_model(cfg: ModelConfig):
+def meta_model(cfg: ModelConfig):
+    """The config's model on the ``meta`` device: shapes and dtypes, no
+    memory."""
     if cfg.is_encoder_decoder:
         return whi.Whisper(cfg, device="meta")
     if cfg.ssm is not None and cfg.attn_every:
@@ -175,7 +177,7 @@ def _meta_model(cfg: ModelConfig):
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of the config's model, counted on the ``meta`` device
     (nothing is drawn or allocated)."""
-    return sum(p.numel() for p in _meta_model(cfg).parameters())
+    return sum(p.numel() for p in meta_model(cfg).parameters())
 
 
 def active_param_count(cfg: ModelConfig) -> int:

@@ -30,7 +30,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.nn import ACTS, Dense, RMSNorm
+from repro_torch.models.nn import ACTS, Dense, RMSNorm, whole
 from repro_torch.telemetry.profiler import annotate
 
 State = Dict[str, torch.Tensor]
@@ -74,7 +74,8 @@ def gla_chunked(q, k, v, log_a, log_b, S0, n0=None, chunk: int = 64):
                          f"chunk={chunk}")
     nc = T // chunk
     f32 = torch.float32
-    q, k, v, log_a, log_b = (x.to(f32) for x in (q, k, v, log_a, log_b))
+    q, k, v, log_a, log_b = (whole(x, 1).to(f32)
+                             for x in (q, k, v, log_a, log_b))
     track_n = n0 is not None
 
     def resh(x):          # (B, T, ...) -> (nc, B, C, ...)

@@ -24,24 +24,27 @@ Training (``mode="train"``, :func:`train_loss`) is JAX's: the plain
 :func:`attend` (causal, query-chunked as JAX's ``_attend``) on both
 devices, differentiated by autograd. The flash kernel has no backward, as
 the JAX package's has none, and refuses to run where autograd would need
-one. With ``cfg.remat == "full"`` each layer group runs under
+one. With ``cfg.remat`` ``"full"`` or ``"dots"`` each layer group runs under
 ``torch.utils.checkpoint`` (:func:`remat_wrap`), as JAX wraps its scanned
-group body in ``jax.checkpoint``.
+group body in ``jax.checkpoint`` with that policy.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.nn import ACTS, Dense, Embed, LayerNorm, RMSNorm
+from repro_torch.models.nn import (ACTS, Dense, Embed, LayerNorm, RMSNorm,
+                                  is_dtensor, splittable)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -90,7 +93,7 @@ def attend(q, k, v, q_pos, kv_pos, *, window: Optional[int],
     depend on the chunking)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    qg = splittable(q, 2, kvh).reshape(b, sq, kvh, h // kvh, hd)
     kf, vf = k.float(), v.float()
     valid = (kv_pos >= 0)[:, None, :]                 # (B, 1, Skv)
 
@@ -113,11 +116,26 @@ def attend(q, k, v, q_pos, kv_pos, *, window: Optional[int],
     return out.reshape(b, sq, h, hd)
 
 
+# matrix products with no batch dimension: what remat "dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_wrap(fn, cfg: ModelConfig):
     """``fn`` as the training stacks run a layer group (JAX's
     ``_remat_wrap``): as it is for ``remat="none"``; for ``"full"`` under
     ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
-    group's inputs and runs its forward again in the backward pass."""
+    group's inputs and runs its forward again in the backward pass; for
+    ``"dots"`` (JAX's ``checkpoint_dots_with_no_batch_dims``) under a
+    selective checkpoint that also keeps the outputs of the matrix products
+    with no batch dimension (``aten.mm``, ``aten.addmm``: the weights'
+    products) and recomputes everything else (attention's batched
+    ``bmm``s, norms, activations)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
@@ -125,10 +143,19 @@ def remat_wrap(fn, cfg: ModelConfig):
             return checkpoint(fn, *args, use_reentrant=False)
         return wrapped
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (JAX's checkpoint_dots_with_no_batch_dims) is not "
-            "ported: no config uses it (ROADMAP.md, Queue 1)")
+        def dots(*args):
+            return checkpoint(
+                fn, *args, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, _dots_policy))
+        return dots
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
+def split_heads(t, n: int, hd: int):
+    """(B, S, n * hd) -> (B, S, n, hd) (:func:`splittable`)."""
+    t = splittable(t, -1, n)
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def _norm(cfg: ModelConfig, **kw) -> nn.Module:
@@ -168,9 +195,9 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        q = self.wq(x).reshape(b, s, h, hd)
-        k = self.wk(x).reshape(b, s, kvh, hd)
-        v = self.wv(x).reshape(b, s, kvh, hd)
+        q = split_heads(self.wq(x), h, hd)
+        k = split_heads(self.wk(x), kvh, hd)
+        v = split_heads(self.wv(x), kvh, hd)
         if cfg.qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -352,7 +379,10 @@ class Transformer(nn.Module):
         w = self.embed.table.T if self.cfg.tie_embeddings else self.lm_head.w
         logits = (h @ w).float()
         cap = self.cfg.final_softcap
-        if cap is not None and logits.requires_grad:
+        if cap is not None and (logits.requires_grad
+                                or is_dtensor(logits)):
+            # out of place for autograd, and for a DTensor (the dry run's),
+            # whose partial sums an in-place op cannot keep
             logits = softcap(logits, cap)
         elif cap is not None:
             # in place where autograd saves nothing: the f32 logits are a

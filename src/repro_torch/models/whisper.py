@@ -105,7 +105,7 @@ class DecoderLayer(nn.Module):
         b, s, _ = x.shape
         h, hd = cfg.n_heads, cfg.resolved_head_dim
         with annotate("whisper.cross_attention"):
-            q = self.xattn.wq(x).reshape(b, s, h, hd)
+            q = tfm.split_heads(self.xattn.wq(x), h, hd)
             if plain:
                 t = xk.shape[1]
                 out = tfm.attend(

@@ -118,6 +118,30 @@ def test_knn_kernel_matches_plain_on_hash_grid_candidates(cuda):
 
 
 @pytest.mark.cuda
+def test_dense_layout_knn_on_the_card_matches_the_cpu(cuda):
+    """``hashgrid.knn`` with the dense layout (``build_table``'s rows as the
+    candidates) on a 2,048-point car cloud padded to 2,112: the card (kNN
+    kernel launched once) and the CPU (plain version) give equal indices,
+    masks and distances."""
+    from repro_torch.core.graph_build import sample_surface
+    from repro_torch.data import geometry as geo
+    from repro_torch.graphx import hashgrid
+    verts, faces = geo.car_surface(geo.sample_params(1))
+    pts_np, _ = sample_surface(verts, faces, 2048, np.random.default_rng(1))
+    buf = np.zeros((2112, 3), np.float32)
+    buf[:2048] = pts_np
+    spec = hashgrid.calibrate_spec(pts_np, knn_ops.KERNEL_K, n_points=2112,
+                                   layout="dense")
+    before = knn_ops.topk_neighbors.launches
+    got = hashgrid.knn(torch.from_numpy(buf).to(cuda), 2048, spec)
+    torch.cuda.synchronize()
+    assert knn_ops.topk_neighbors.launches == before + 1
+    want = hashgrid.knn(torch.from_numpy(buf), 2048, spec)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,e,d", [(64, 800, 512), (97, 300, 12),
                                    (1000, 20, 64)])
 def test_segment_sum_kernel_matches_plain(cuda, n, e, d):

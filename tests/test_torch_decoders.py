@@ -181,9 +181,9 @@ def test_other_families_raise():
         family="hybrid", ssm=SSMConfig(kind="mamba2"), attn_every=6)
     jhybrid = jax_get_config("yi-34b").replace(
         family="hybrid", ssm=JSSMConfig(kind="mamba2"), attn_every=6)
-    assert isinstance(registry._meta_model(hybrid), stacks.Hybrid)
+    assert isinstance(registry.meta_model(hybrid), stacks.Hybrid)
     assert registry.param_count(hybrid) == jregistry.param_count(jhybrid)
     named = get_config("yi-34b").replace(family="hybrid")
-    assert isinstance(registry._meta_model(named), tfm.Transformer)
+    assert isinstance(registry.meta_model(named), tfm.Transformer)
     with pytest.raises(KeyError, match="repro.configs"):
         get_config("zamba2-7b")

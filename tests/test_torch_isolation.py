@@ -49,7 +49,9 @@ def test_import_loads_no_jax_or_repro():
                  "configs.yi_34b", "models.whisper", "models.ssm",
                  "models.stacks", "configs.whisper_large_v3",
                  "configs.xlstm_350m", "data.tokens",
-                 "configs.zamba2_2_7b"):
+                 "configs.zamba2_2_7b", "launch.costmodel", "launch.mesh",
+                 "launch.dryrun", "launch.report", "graphx.hashgrid",
+                 "core.graph_build"):
         assert f"repro_torch.{name}" in res["modules"]
 
 

@@ -150,3 +150,45 @@ def test_backward_dispatches_cpu_without_launch():
     ops.segment_sum_prepared(prep, x).sum().backward()
     assert ops.segment_sum_backward.launches == before
     assert torch.equal(x.grad, torch.ones_like(x))
+
+
+def test_fake_tensors_take_the_shape_only_form_in_the_dry_run_only():
+    """A fake tensor has no values to sum: inside ``_build.dry_run`` the
+    references give results of the right shapes; outside it they raise
+    rather than return something that is not a segment sum."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import _build
+    with FakeTensorMode():
+        recv = torch.empty(10, dtype=torch.int32)
+        msg = torch.empty(10, 4)
+        with pytest.raises(RuntimeError, match="dry_run"):
+            ref.prepare(recv, 5)
+        with _build.dry_run():
+            prep = ref.prepare(recv, 5)
+            out = ref.segment_sum_csr(msg, prep.perm, prep.row_ptr)
+            grad = ref.segment_sum_csr_backward(out, prep.perm,
+                                                prep.row_ptr, 10)
+        with pytest.raises(RuntimeError, match="dry_run"):
+            ref.segment_sum_csr(msg, prep.perm, prep.row_ptr)
+        with pytest.raises(RuntimeError, match="dry_run"):
+            ref.segment_sum_csr_backward(out, prep.perm, prep.row_ptr, 10)
+    assert not _build.in_dry_run()
+    assert prep.row_ptr.shape == (6,) and out.shape == (5, 4)
+    assert grad.shape == (10, 4)
+
+
+def test_plain_dispatch_refuses_a_fake_card_tensor_outside_the_dry_run():
+    """A fake tensor on the card has no memory: outside ``_build.dry_run``
+    the wrappers' dispatch raises rather than launch a kernel on it (a meta
+    tensor stands in for the card's device here: any device but the
+    CPU's)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import _build
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        t = torch.empty(4, 3, device="meta")
+    assert t.device.type == "meta"
+    with pytest.raises(RuntimeError, match="dry_run"):
+        _build.plain(t)
+    with _build.dry_run():
+        assert _build.plain(t)
+    assert not _build.plain(torch.empty(4, 3, device="meta"))

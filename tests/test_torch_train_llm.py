@@ -1,7 +1,7 @@
 """The LLM trainer's parts on the CPU against the JAX package:
-``token_batches``, ``ASSIGNED_ARCHS``, ``cross_entropy``, remat, Adam on
-mixed bf16 and f32 leaves, the CLI, and training's attention, which never
-reaches the flash kernel. The families' losses, gradients and trajectories
+``token_batches``, ``ASSIGNED_ARCHS``, ``cross_entropy``, remat ("full"
+and "dots"), Adam on mixed bf16 and f32 leaves, the CLI, and training's
+attention, which never reaches the flash kernel. The families' losses, gradients and trajectories
 are in ``test_torch_train_llm_decoders.py`` and
 ``test_torch_train_llm_recurrent.py``."""
 import re
@@ -12,17 +12,21 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_llm_common import (_one_torch_thread, configs,  # noqa: F401
-                               port_loss_and_grads, train_batch)
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from _torch_llm_common import (_one_torch_thread,  # noqa: F401
+                               assert_matches_jax, configs, named_leaves,
+                               port_loss_and_grads, port_model, train_batch)
 from repro import configs as jconfigs
 from repro.data.tokens import token_batches as jax_token_batches
+from repro.models import registry as jregistry
 from repro.models import transformer as jtfm
 from repro.optim import adam as jadam
 from repro_torch import configs as pconfigs
 from repro_torch.data.tokens import token_batches
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch import train as ptrain
-from repro_torch.models import registry
+from repro_torch.models import convert, registry
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adam as padam
 
@@ -94,13 +98,64 @@ def test_remat_full_equals_none(arch):
 
 
 def test_remat_dots_raises():
+    """``remat="dots"`` no longer raises (it is ported: see
+    ``test_remat_dots_matches_jax_and_full``); a policy neither package
+    knows does."""
     _, cfg = configs("granite-3-8b")
     model = registry.get_model(cfg).init(seed=0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
     model.cfg = cfg.replace(remat="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_model(model.cfg).train_loss(
-            model, {k: torch.from_numpy(v)
-                    for k, v in train_batch(cfg).items()})
+    assert torch.isfinite(registry.get_model(model.cfg).train_loss(
+        model, batch))
+    model.cfg = cfg.replace(remat="all")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        registry.get_model(model.cfg).train_loss(model, batch)
+
+
+class _CountMM(TorchDispatchMode):
+    """Counts ``aten.mm`` calls (the weights' products) while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            self.mm += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_dots_matches_jax_and_full():
+    """``remat="dots"`` (JAX's ``checkpoint_dots_with_no_batch_dims``): a
+    reduced decoder's loss and gradients within the trainer's tolerances of
+    ``jax.value_and_grad`` at "dots", bit-equal to the port's own at
+    "full", and its backward runs fewer ``aten.mm`` than "full"'s, whose
+    recompute runs the forward's products again."""
+    jcfg, cfg = configs("granite-3-8b")
+    jcfg, cfg = jcfg.replace(remat="dots"), cfg.replace(remat="dots")
+    api = jregistry.get_model(jcfg)
+    params = api.init(jax.random.PRNGKey(0))
+    batch = train_batch(cfg)
+    jloss, jgrads = jax.jit(jax.value_and_grad(api.train_loss))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    ref = dict(cfg=cfg, params=params, batch=batch, loss=float(jloss),
+               grads=named_leaves(jgrads, cfg))
+    assert_matches_jax(ref)
+    out, mms = [], []
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for remat in ("dots", "full"):
+        c = cfg.replace(remat=remat)
+        model = port_model(params, c)
+        loss = registry.get_model(c).train_loss(model, tbatch)
+        with _CountMM() as count:
+            loss.backward()
+        mms.append(count.mm)
+        out.append((float(loss.detach()),
+                    {n: p.grad.numpy() for n, p in convert.llm_leaves(model)}))
+    assert out[0][0] == out[1][0]
+    for name, g in out[0][1].items():
+        np.testing.assert_array_equal(out[1][1][name], g, err_msg=name)
+    assert 0 < mms[0] < mms[1], mms
 
 
 @pytest.mark.parametrize("steps", [1, 2])
