@@ -217,6 +217,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    granite-3-8b ``train_4k`` at 16 x 16 with fake CUDA tensors, each in a
    process of its own started with the child, no record with an error,
    and ``report.render``'s table.
+24. the examples' twins (``repro_torch.examples``, after phase 23, before
+   the training phases) at the JAX examples' sizes on the card, each
+   ``main`` run with the counts set to 0 just before and read just after:
+   (a) ``serve_llm`` (4 requests, 16-token prompts, 12 tokens: reduced
+   gemma2-9b and xlstm-350m, f32) with weights drawn on the card, tokens
+   equal to the CPU's on a copy of the same weights, 2 launches of the f32
+   flash kernel at hd 32 (gemma2 reduced's prefill); then every reduced
+   LLM config served on the card, tokens equal to the CPU's, its flash
+   launches logged; (b) ``realtime_inference`` single and in 4 shards
+   (1,024 points, 4 requests and one through the worker): fields within
+   WHOLE_PATH_ATOL of the CPU's unsharded run, 3 kNN and 3 segment-sum
+   launches a row (a shard's row when sharded); (c)
+   ``partition_equivalence``: loss and gradient differences of P = 2, 4, 8
+   within TWIN_PART_TOL; (d) ``quickstart`` (60 steps, 8 cars, its
+   checkpoint under build/, removed after): finite, falling losses and
+   Table I metrics, the training kernels launched; (e) a server of
+   TWIN_LEVELS levels a bucket, card against CPU, one kNN launch a level.
+   Phase 3 also holds the f32 flash kernel at hd 32 (every reduced
+   config's, padded to 64 columns) against its plain version at
+   HD32_CASES, times it at B 2, S 4,096 beside its bound and f32 SDPA, and
+   holds bf16 at hd 32 refused.
 
 9. training whole path: ``GNNConfig()`` at full width cut to 2
    message-passing layers and halo 2, a 2,048-point sample in 2 partitions;
@@ -639,19 +660,58 @@ def device_rows(averages):
                   key=lambda r: -r[1])
 
 
+# torch.profiler now and then hands back a profile that holds no device
+# kernel at all, its trace lost: 2 of 300 profiles of 10 launches and 1 of
+# 100 of 200 on an H100 80GB HBM3 at 700 W with torch 2.11, in a process
+# that did nothing else (python -m repro_torch.telemetry.profiler_drops).
+# A profile of calls that launch kernels is taken again, up to
+# PROFILE_TRIES times in all.
+PROFILE_TRIES = 3
+
+
+def holds_kernels(prof) -> bool:
+    """Whether a profile holds any device kernel, read from its raw events
+    (no event tree, which takes minutes for ~10^5 launches)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return any(e.device_type() == cuda and not e.is_user_annotation()
+               for e in prof.profiler.kineto_results.events())
+
+
+def profile_calls(fn, what: str):
+    """``(prof, fn's result, wall seconds)``: a ``torch.profiler`` profile
+    of ``fn()`` and a synchronize. A profile that holds no device kernel
+    lost its trace (PROFILE_TRIES): ``fn`` runs and is profiled again, so
+    it must launch the same kernels each time. After PROFILE_TRIES empty
+    profiles the last is returned, for the caller's checks to refuse."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if attempt == PROFILE_TRIES or holds_kernels(prof):
+            return prof, out, wall
+        log(f"[profile] {what}: profile {attempt} of {PROFILE_TRIES} held "
+            f"no device kernel (a lost trace); profiling again")
+
+
 def profiled_rows(fn, reps: int):
     """``device_rows`` of a ``torch.profiler`` run over ``reps``
     back-to-back calls of ``fn``, after two unprofiled ones."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+    prof, _, _ = profile_calls(calls, f"{reps} timed calls")
     return device_rows(prof.key_averages())
 
 
@@ -1107,16 +1167,13 @@ def serve_engine(dev, card, cfg, params, reqs, phase5, reset_counts,
     ref = flushed["sync"]
 
     # what one row puts on the card's launch queue (about 1,024 deep)
-    from torch.profiler import ProfilerActivity, profile
     srv = server((n_small,))
     p_np, n_np = srv._sample_reference(n_small)
     row = (torch.from_numpy(p_np[None]).to(dev),
            torch.from_numpy(n_np[None]).to(dev))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        srv._buckets[n_small].infer(params, *row, [n_small])
-        torch.cuda.synchronize()
+    prof, _, _ = profile_calls(
+        lambda: srv._buckets[n_small].infer(params, *row, [n_small]),
+        "one serving row")
     averages = prof.key_averages()
     on_card = sum(n for *_, n in device_rows(averages))
     api = {e.key: e.count for e in averages
@@ -2318,7 +2375,6 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase):
     rows and what phase 16 holds its runs against (phase 9's card step,
     phase 10's losses). Its tensors are freed when it returns."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import GNNConfig
     from repro_torch.data import pipeline as pipe
@@ -2464,13 +2520,8 @@ def train_phases(dev, card, reset_counts, read_counts, by_phase):
     stacked, denom = prepare_gnn_batch(ps, dev)
     step = make_gnn_step_fn(cfg, AdamConfig(total_steps=TRAIN_STEPS))
     opt = adam_init([p for _, p in model.leaves()])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(model, opt, stacked, denom)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prof, _, wall = profile_calls(
+        lambda: step(model, opt, stacked, denom), "a GNN training step")
     kernels = device_rows(prof.key_averages())
     total = sum(ms for _, ms, _ in kernels)
     if not total > 0:
@@ -3364,7 +3415,6 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
     """Phase 8: gemma2-9b served at full width in bf16; then one prefill's
     time by kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import pad_cache_to, serve
@@ -3409,13 +3459,9 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(LLM_BATCH, LLM_PROMPT)).astype(
             np.int32)).to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        logits, cache = api.prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-    rows = _log_kernels("prefill", prof, time.perf_counter() - t0)
+    prof, (logits, cache), wall = profile_calls(
+        lambda: api.prefill(params, {"tokens": tokens}), "gemma2 prefill")
+    rows = _log_kernels("prefill", prof, wall)
     record_measured("8 prefill", LLM_ARCH, "prefill", LLM_BATCH, LLM_PROMPT,
                     rows)
     n_wgmma = sum(n for k, _, n in rows if FLASH_WGMMA_KERNEL in k)
@@ -3442,15 +3488,12 @@ def llm_serve(dev, card, reset_counts, read_counts, by_phase):
         f"{step_s[0] * 1e3:.3f}, median of the rest "
         f"{float(np.median(step_s[1:])) * 1e3:.3f}, min "
         f"{min(step_s) * 1e3:.3f}")
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        api.decode(params, cache, {"tokens": tok}, LLM_PROMPT + LLM_GEN - 1)
-        torch.cuda.synchronize()
+    prof, _, wall = profile_calls(
+        lambda: api.decode(params, cache, {"tokens": tok},
+                           LLM_PROMPT + LLM_GEN - 1), "gemma2 decode step")
     record_measured("8 decode", LLM_ARCH, "decode", LLM_BATCH,
                     LLM_PROMPT + LLM_GEN,
-                    _log_kernels("decode step", prof,
-                                 time.perf_counter() - t0))
+                    _log_kernels("decode step", prof, wall))
 
 
 def _route_flips(moe_gpu, moe_cpu, x_gpu, x_cpu, cfg_moe):
@@ -3664,7 +3707,6 @@ def moe_serve(dev, card, reset_counts, read_counts, by_phase):
     bf16 (``serve``, as phase 8); then one prefill and one decode step
     profiled by kernel and by the MoE layer's parts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import pad_cache_to, serve
@@ -3721,13 +3763,8 @@ def moe_serve(dev, card, reset_counts, read_counts, by_phase):
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(LLM_BATCH, LLM_PROMPT)).astype(
             np.int32)).to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        logits, cache = api.prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prof, (logits, cache), wall = profile_calls(
+        lambda: api.prefill(params, {"tokens": tokens}), "qwen3-moe prefill")
     rows = device_rows(prof.key_averages())
     n_wgmma = sum(n for k, _, n in rows if FLASH_WGMMA_KERNEL in k)
     n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
@@ -3748,13 +3785,9 @@ def moe_serve(dev, card, reset_counts, read_counts, by_phase):
         logits, cache = api.decode(params, cache, {"tokens": tok},
                                    LLM_PROMPT + step)
         tok = logits[:, -1].argmax(-1)[:, None]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        api.decode(params, cache, {"tokens": tok}, LLM_PROMPT + 2)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prof, _, wall = profile_calls(
+        lambda: api.decode(params, cache, {"tokens": tok}, LLM_PROMPT + 2),
+        "qwen3-moe decode step")
     rows = _log_kernels("decode step", prof, wall)
     record_measured("19 decode", MOE_ARCH, "decode", LLM_BATCH,
                     LLM_PROMPT + LLM_GEN, rows)
@@ -3971,7 +4004,6 @@ def whisper_serve(dev, card, reset_counts, read_counts, by_phase):
     and its device time split by the model's marks; 4 warm decode steps by
     host clock and one profiled."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import pad_cache_to, serve
@@ -4016,13 +4048,9 @@ def whisper_serve(dev, card, reset_counts, read_counts, by_phase):
             np.int32)).to(dev),
         "audio_embeds": torch.zeros((WHISPER_BATCH, cfg.n_frontend_tokens,
                                      cfg.d_model), device=dev)}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        api.prefill(params, batch)
-        torch.cuda.synchronize()
-    rows = _log_kernels("whisper prefill", prof, time.perf_counter() - t0)
+    prof, _, wall = profile_calls(lambda: api.prefill(params, batch),
+                                  "whisper prefill")
+    rows = _log_kernels("whisper prefill", prof, wall)
     wgmma = [(k, n) for k, _, n in rows if FLASH_WGMMA_KERNEL in k]
     n_flash = sum(n for k, _, n in rows if FLASH_KERNEL_RE.search(k))
     if not (sum(n for _, n in wgmma) == n_flash == want
@@ -4057,15 +4085,12 @@ def whisper_serve(dev, card, reset_counts, read_counts, by_phase):
         tok = logits[:, -1].argmax(-1)[:, None]
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        api.decode(params, cache, {"tokens": tok}, WHISPER_PROMPT + 4)
-        torch.cuda.synchronize()
+    prof, _, wall = profile_calls(
+        lambda: api.decode(params, cache, {"tokens": tok},
+                           WHISPER_PROMPT + 4), "whisper decode step")
     log(f"[whisper_breakdown] decode steps, host clock, ms: "
         + ", ".join(f"{t * 1e3:.3f}" for t in step_s) + f" | {card}")
-    rows = _log_kernels("whisper decode step", prof,
-                        time.perf_counter() - t0)
+    rows = _log_kernels("whisper decode step", prof, wall)
     if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows):
         raise RuntimeError("whisper breakdown: a decode step launched "
                            "flash attention")
@@ -4081,7 +4106,6 @@ def xlstm_serve(dev, card, reset_counts, read_counts, by_phase):
     one prefill (their loop over the prompt's steps) and the kernel launches
     of one profiled decode step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -4154,13 +4178,10 @@ def xlstm_serve(dev, card, reset_counts, read_counts, by_phase):
         logits, state = api.decode(params, state, {"tokens": tok},
                                    XLSTM_PROMPT + step)
         tok = logits[:, -1].argmax(-1)[:, None]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        api.decode(params, state, {"tokens": tok}, XLSTM_PROMPT + 2)
-        torch.cuda.synchronize()
-    _log_kernels("xlstm decode step", prof, time.perf_counter() - t0)
+    prof, _, wall = profile_calls(
+        lambda: api.decode(params, state, {"tokens": tok}, XLSTM_PROMPT + 2),
+        "xlstm decode step")
+    _log_kernels("xlstm decode step", prof, wall)
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4175,7 +4196,6 @@ def hybrid_serve(dev, card, reset_counts, read_counts, by_phase):
     blocks and the shared attention by the model's marks, and one profiled
     decode step with its launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import pad_cache_to, serve
@@ -4214,13 +4234,9 @@ def hybrid_serve(dev, card, reset_counts, read_counts, by_phase):
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(ZAMBA2_BATCH, ZAMBA2_PROMPT)).astype(
             np.int32)).to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        logits, state = api.prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-    rows = _log_kernels("zamba2 prefill", prof, time.perf_counter() - t0)
+    prof, (logits, state), wall = profile_calls(
+        lambda: api.prefill(params, {"tokens": tokens}), "zamba2 prefill")
+    rows = _log_kernels("zamba2 prefill", prof, wall)
     record_measured("21 prefill", ZAMBA2_ARCH, "prefill", ZAMBA2_BATCH,
                     ZAMBA2_PROMPT, rows)
     wgmma = [(k, n) for k, _, n in rows if FLASH_WGMMA_KERNEL in k]
@@ -4250,13 +4266,10 @@ def hybrid_serve(dev, card, reset_counts, read_counts, by_phase):
         logits, state = api.decode(params, state, {"tokens": tok},
                                    ZAMBA2_PROMPT + step)
         tok = logits[:, -1].argmax(-1)[:, None]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        api.decode(params, state, {"tokens": tok}, ZAMBA2_PROMPT + 2)
-        torch.cuda.synchronize()
-    rows = _log_kernels("zamba2 decode step", prof, time.perf_counter() - t0)
+    prof, _, wall = profile_calls(
+        lambda: api.decode(params, state, {"tokens": tok}, ZAMBA2_PROMPT + 2),
+        "zamba2 decode step")
+    rows = _log_kernels("zamba2 decode step", prof, wall)
     record_measured("21 decode", ZAMBA2_ARCH, "decode", ZAMBA2_BATCH,
                     ZAMBA2_PROMPT + ZAMBA2_GEN, rows)
     if any(FLASH_KERNEL_RE.search(k) for k, _, _ in rows):
@@ -5091,10 +5104,372 @@ def unet_phase(dev, card, features):
         f"{card}")
 
 
+# Phase 3 at head_dim 32: every reduced LLM config runs in f32 at hd 32,
+# which only the f32 kernel takes (padded to 64 columns inside). The
+# serve_llm twin's shape, gemma2 reduced (B 4, S 16, H 4, KV 2, causal: one
+# ragged key tile), with its window 16 and softcap 50 and without the
+# window; for correctness GQA group 4, ragged S with a window inside a tile,
+# non-causal with a ragged tile and Skv != Sq both ways (whisper reduced's
+# cross-attention: 16 frames); and the timing shape, B 2, S 4,096, H 4,
+# KV 2, causal with the softcap (the global layer at a long prompt).
+# (B, Sq, Skv, H, KV, causal, window, softcap)
+HD32_CASES = ((4, 16, 16, 4, 2, True, 16, 50.0),
+              (4, 16, 16, 4, 2, True, None, 50.0),
+              (2, 300, 300, 8, 2, True, 40, 50.0),
+              (1, 65, 65, 4, 1, True, None, None),
+              (2, 1500, 1500, 4, 4, False, None, None),
+              (4, 24, 16, 4, 4, False, None, None),
+              (1, 300, 100, 8, 2, False, None, None),
+              (2, 4096, 4096, 4, 2, True, None, 50.0))
+HD32_TIMED = HD32_CASES[-1]
+
+
+def flash_check_hd32(dev, card) -> dict:
+    """Phase 3 for the f32 flash kernel at head_dim 32: each of HD32_CASES
+    against the plain version (FLASH_TOL in f32), the bf16 kernel's
+    refusal (a ``ValueError`` naming the f32 kernel), and the timing shape
+    by CUDA events beside its bound (flops at 67 TFLOP/s), the plain
+    version and f32 SDPA (causal, GQA; without the softcap, which SDPA
+    lacks)."""
+    import torch
+    from torch.nn import functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    hd = 32
+    gen = torch.Generator(device=dev).manual_seed(32)
+    errs, row = {}, {}
+    for case in HD32_CASES:
+        b, sq, skv, h, kvh, causal, window, cap = case
+        q, k, v = (torch.randn((b, n, heads, hd), generator=gen, device=dev)
+                   for n, heads in ((sq, h), (skv, kvh), (skv, kvh)))
+        got = fa_ops.mha(q, k, v, causal=causal, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype or got.shape != q.shape:
+            raise RuntimeError("flash_attention hd=32: bad output")
+        qf = q.transpose(1, 2).reshape(-1, sq, hd).contiguous()
+        kf, vf = (t.transpose(1, 2).reshape(-1, skv, hd).contiguous()
+                  for t in (k, v))
+        gs = h // kvh
+        want = fa_ref.attention(qf, kf, vf, group_size=gs, causal=causal,
+                                window=window, softcap=cap)
+        want = want.reshape(b, h, sq, hd).transpose(1, 2)
+        what = (f"hd=32 float32 B={b} Sq={sq} Skv={skv} H={h} KV={kvh} "
+                f"causal={causal} window={window} softcap={cap}")
+        errs[what] = _flash_case_check(got, want, "float32", what)
+        del got, want
+        if case != HD32_TIMED:
+            continue
+        try:
+            fa_ops.mha(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                       causal=causal)
+        except ValueError as e:
+            if "flash_attention.cu" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            raise RuntimeError("flash_attention: bf16 at hd 32 ran; no "
+                               "bf16 kernel is built for it")
+
+        def kernel():
+            return fa_ops.flash_attention(qf, kf, vf, group_size=gs,
+                                          causal=causal, window=window,
+                                          softcap=cap)
+
+        def plain():
+            return fa_ref.attention(qf, kf, vf, group_size=gs,
+                                    causal=causal, window=window,
+                                    softcap=cap)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        n_bytes = 4 * (2 * b * h * sq * hd + 2 * b * kvh * skv * hd)
+        flops = 4.0 * hd * _window_pairs(sq, window) * b * h
+        bound = bound_ms(n_bytes, flops, F32_FLOPS_PER_S)
+        held = [(ms, n) for name, ms, n in
+                profiled_rows(kernel, F32_PROFILE_REPS)
+                if FLASH_KERNEL_RE.search(name)]
+        n_held = sum(n for _, n in held)
+        row = dict(ms=time_cuda(kernel, 20),
+                   plain_ms=time_cuda(plain, 3, warmup=1),
+                   library_ms=time_cuda(sdpa, 20),
+                   library_device_ms=device_ms(sdpa, 20),
+                   bound_ms=bound[0], bound_by=bound[1],
+                   profile_launches=n_held,
+                   device_ms=sum(ms for ms, _ in held) / n_held
+                   if n_held == F32_PROFILE_REPS else None)
+        row["call_ms"] = row["ms"]
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["flops"] = flops
+        del qt, kt, vt, qf, kf, vf
+    log(f"[kernels] flash_attention hd=32 f32 (B={HD32_TIMED[0]} "
+        f"S={HD32_TIMED[1]} H={HD32_TIMED[3]} KV={HD32_TIMED[4]}, causal, "
+        f"softcap 50, padded to 64 columns): {row['ms']:.4f} ms (events; "
+        f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+        f"{row['fraction_of_bound']:.3f} of it, {row['tflops']:.2f} TFLOP/s "
+        f"for {row['flops']:.4g} flops; the profile held "
+        f"{row['profile_launches']} of {F32_PROFILE_REPS} launches, device "
+        f"{row['device_ms']} ms; plain {row['plain_ms']:.3f} ms; f32 SDPA "
+        f"(no softcap) {row['library_ms']:.4f} ms, device "
+        f"{row['library_device_ms']:.4f} ms) | {card}")
+    log("[kernels] flash_attention hd=32 errors against the plain version: "
+        + "; ".join(f"{c}: max abs {e['max_abs_err']:.3g}, row max "
+                    f"{e['row_max']:.3g}" for c, e in errs.items()))
+    log(f"[kernels] flash_attention bf16 at hd 32 refused: {refusal}")
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:30",
+        shape=f"B={HD32_TIMED[0]} S={HD32_TIMED[1]} H={HD32_TIMED[3]} "
+              f"KV={HD32_TIMED[4]} hd=32 f32, causal, softcap 50",
+        max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+        errors=errs, library_note="scaled_dot_product_attention f32, "
+        "causal, GQA, without the softcap", **row)
+
+
+# Phase 24: the examples' twins (repro_torch.examples) at the JAX
+# examples' sizes on the card: serve_llm against the CPU's tokens (and
+# every reduced LLM config served on the card against the CPU's tokens),
+# realtime_inference single and in SHARD_DEVICES shards against the CPU's
+# fields (WHOLE_PATH_ATOL), partition_equivalence (its differences within
+# TWIN_PART_TOL), quickstart (losses finite and falling), and a server of
+# TWIN_LEVELS levels a bucket, card against CPU.
+TWIN_PART_TOL = 1e-5
+TWIN_LEVELS = 2
+# they run in a spawned child with the hd-32 part of phase 3 (a fresh
+# torch.profiler; the parent's later profiles need theirs whole), in this
+# directory
+TWINS_DIR = ROOT / "build" / "chip_smoke_twins"
+TWINS_TIMEOUT = 300
+
+
+def _quietly(fn, *args, **kwargs):
+    """``fn``'s return value, its printed lines kept apart (returned
+    second) so that the script's own log stays short."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().splitlines()
+
+
+def _twin_fields(out) -> list:
+    return [r.fields for r in out["results"]] + [out["background"].fields]
+
+
+def twins_phase(dev, card, reset_counts, read_counts, by_phase):
+    """Phase 24: the four twins' ``main`` on the card, each driven with
+    the launch counts set to 0 just before and read just after. The LLM
+    weights are drawn on the card and copied to the CPU (the two devices'
+    generators draw different numbers); the GNN's are drawn on the
+    CPU's."""
+    import torch
+
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.configs.base import GNNConfig
+    from repro_torch.data import geometry as geo
+    from repro_torch.examples import (partition_equivalence, quickstart,
+                                      realtime_inference, serve_llm)
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve_gnn import GNNServer
+    from repro_torch.models import registry
+
+    t_phase = time.perf_counter()
+
+    def weights(arch):
+        """The reduced config's seed-0 weights, drawn on the card (its
+        generator's numbers, not the CPU's), and their CPU copy."""
+        cfg = get_config(arch).reduced()
+        model = registry.get_model(cfg).init(seed=0, device=dev)
+        return model, _model_like(cfg, model)
+    # (a) serve_llm: gemma2 reduced's prefill through the f32 kernel, hd 32
+    pairs = {arch: weights(arch) for arch in serve_llm.ARCHS}
+    reset_counts()
+    t0 = time.perf_counter()
+    got, lines = _quietly(serve_llm.main, ["--device", "cuda"], params={
+        arch: p[0] for arch, p in pairs.items()})
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    read_counts("twin_serve_llm")
+    want, _ = _quietly(serve_llm.main, ["--device", "cpu"], params={
+        arch: p[1] for arch, p in pairs.items()})
+    del pairs
+    for arch in serve_llm.ARCHS:
+        if not np.array_equal(got[arch]["generated"],
+                              want[arch]["generated"]):
+            raise RuntimeError(f"serve_llm twin: {arch} tokens differ, card "
+                               f"{got[arch]['generated'].tolist()} CPU "
+                               f"{want[arch]['generated'].tolist()}")
+    n_flash = by_phase["flash_attention"]["twin_serve_llm"]
+    n_layers = get_config("gemma2-9b").reduced().n_layers
+    if n_flash != n_layers:
+        raise RuntimeError(f"serve_llm twin: {n_flash} flash launches, "
+                           f"expected {n_layers} (gemma2 reduced's prefill)")
+    log(f"[twins] serve_llm on the card in {t_card:.2f} s, tokens equal to "
+        f"the CPU's, {n_flash} f32 hd-32 flash launches: " + " | ".join(lines))
+    # every reduced LLM config on the card
+    per_arch = {}
+    for arch in ASSIGNED_ARCHS:
+        model, model_cpu = weights(arch)
+        reset_counts()
+        g = serve(arch, reduced=True, n_requests=2, prompt_len=16,
+                  gen_len=6, params=model, device=dev)
+        torch.cuda.synchronize()
+        read_counts(f"reduced {arch}")
+        c = serve(arch, reduced=True, n_requests=2, prompt_len=16,
+                  gen_len=6, params=model_cpu, device="cpu")
+        del model, model_cpu
+        if not np.array_equal(g["generated"], c["generated"]):
+            raise RuntimeError(f"{arch} reduced: tokens differ, card "
+                               f"{g['generated'].tolist()} CPU "
+                               f"{c['generated'].tolist()}")
+        per_arch[arch] = by_phase["flash_attention"][f"reduced {arch}"]
+    log(f"[twins] every reduced config served on the card, tokens equal to "
+        f"the CPU's; f32 hd-32 flash launches a prefill: {per_arch}")
+
+    # (b) realtime_inference, single and sharded
+    cfg = GNNConfig().reduced()
+    want, _ = _quietly(realtime_inference.main, ["--device", "cpu"])
+    for shards in (1, SHARD_DEVICES):
+        tag = f"twin_realtime_x{shards}"
+        reset_counts()
+        t0 = time.perf_counter()
+        got, lines = _quietly(realtime_inference.main, [
+            "--device", "cuda", "--shard-devices", str(shards)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        read_counts(tag)
+        errs = [float(np.abs(g - w).max())
+                for g, w in zip(_twin_fields(got), _twin_fields(want))]
+        if not max(errs) <= WHOLE_PATH_ATOL:
+            raise RuntimeError(f"realtime twin x{shards}: fields card vs "
+                               f"CPU {errs} > {WHOLE_PATH_ATOL}")
+        n_knn = by_phase["knn_topk"][tag]
+        n_seg = by_phase["segment_sum"][tag]
+        rows = n_knn // len(cfg.levels)
+        if not rows or n_knn != rows * len(cfg.levels) or \
+                n_seg != rows * cfg.n_mp_layers:
+            raise RuntimeError(f"realtime twin x{shards}: {n_knn} kNN and "
+                               f"{n_seg} segment-sum launches")
+        log(f"[twins] realtime_inference x{shards} on the card in "
+            f"{wall:.2f} s: fields within {max(errs):.3g} of the CPU's "
+            f"(unsharded); {n_knn} kNN and {n_seg} segment-sum launches "
+            f"({rows} rows, warmup included): " + " | ".join(lines))
+
+    # (c) partition_equivalence
+    reset_counts()
+    got, lines = _quietly(partition_equivalence.main, ["--device", "cuda"])
+    torch.cuda.synchronize()
+    read_counts("twin_partition_equivalence")
+    worst = max(max(r["loss_diff"], r["max_grad_diff"])
+                for r in got["parts"].values())
+    if not worst <= TWIN_PART_TOL:
+        raise RuntimeError(f"partition_equivalence twin: {worst} > "
+                           f"{TWIN_PART_TOL}")
+    if not by_phase["segment_sum"]["twin_partition_equivalence"] or \
+            not by_phase["segment_sum_backward"][
+                "twin_partition_equivalence"]:
+        raise RuntimeError("partition_equivalence twin: no segment-sum "
+                           "launches")
+    log(f"[twins] partition_equivalence on the card, worst difference "
+        f"{worst:.3g}: " + " | ".join(lines))
+
+    # (d) quickstart, its checkpoint under build/
+    path = ROOT / "build" / "twin_quickstart.msgpack"
+    reset_counts()
+    t0 = time.perf_counter()
+    got, lines = _quietly(quickstart.main, ["--device", "cuda", "--ckpt",
+                                            str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read_counts("twin_quickstart")
+    size = path.stat().st_size
+    path.unlink()
+    losses = got["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and "force_r2" in got["metrics"]):
+        raise RuntimeError(f"quickstart twin: losses {losses}, metrics "
+                           f"{got['metrics']}")
+    counts = {k: by_phase[k]["twin_quickstart"]
+              for k in ("segment_sum", "segment_sum_backward",
+                        "gather_rows_backward")}
+    if not all(counts.values()):
+        raise RuntimeError(f"quickstart twin: launches {counts}")
+    log(f"[twins] quickstart on the card in {wall:.2f} s ({len(losses)} "
+        f"steps, checkpoint {size} bytes), loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, launches {counts}; metrics "
+        + json.dumps(got["metrics"]))
+
+    # (e) a server of TWIN_LEVELS levels a bucket, card against CPU
+    reqs = [(*geo.car_surface(geo.sample_params(i)), 1024) for i in (1, 2)]
+    out = {}
+    for d in ("cpu", "cuda"):
+        reset_counts()
+        srv = GNNServer(cfg, (1024,), max_batch=2, n_levels=TWIN_LEVELS,
+                        device=d)
+        out[d] = srv.serve(reqs)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            read_counts("twin_levels")
+    err = max(float(np.abs(g.fields - c.fields).max())
+              for g, c in zip(out["cuda"], out["cpu"]))
+    n_knn = by_phase["knn_topk"]["twin_levels"]
+    if not err <= WHOLE_PATH_ATOL or n_knn != TWIN_LEVELS * len(reqs):
+        raise RuntimeError(f"{TWIN_LEVELS}-level server: fields {err}, "
+                           f"{n_knn} kNN launches")
+    log(f"[twins] a {TWIN_LEVELS}-level server: fields card vs CPU "
+        f"{err:.3g}, {n_knn} kNN launches for {len(reqs)} requests")
+    log(f"[twins] phase 24 took {time.perf_counter() - t_phase:.1f} s | "
+        f"{card}")
+
+
+def _twins_child(card: str, out_dir: str):
+    """Phase 3 at head_dim 32 and phase 24 in a spawned process: writes
+    ``result.json`` (the hd-32 row and the launch counts), or its traceback
+    to ``error.txt`` and fails."""
+    import traceback
+    try:
+        import torch
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda")
+        by_phase, reset_counts, read_counts = launch_counters()
+        reset_counts()
+        row = flash_check_hd32(dev, card)
+        torch.cuda.synchronize()
+        read_counts("flash_check_hd32")
+        twins_phase(dev, card, reset_counts, read_counts, by_phase)
+        (Path(out_dir) / "result.json").write_text(
+            json.dumps({"hd32": row, "by_phase": by_phase,
+                        "measured": MEASURED}))
+    except BaseException:
+        (Path(out_dir) / "error.txt").write_text(traceback.format_exc())
+        raise
+
+
+def twins_child_phase(card, by_phase) -> dict:
+    """Phase 3 at head_dim 32 and phase 24, in a spawned child
+    (``_run_child``), as phase 21 runs with the hd-80 part: the parent's
+    profiler held no launch at all of the segment-sum backward's profile
+    in a run where these ran in the parent before the training phases
+    (ROADMAP Queue 3). Returns the flash row's ``hd32`` entry."""
+    return _run_child(_twins_child, card, TWINS_DIR, TWINS_TIMEOUT,
+                      "phase 24", by_phase)["hd32"]
+
+
 def flash_sass_check():
     """Phase 2: each instance of the bf16 flash kernel (one per head_dim of
-    ``KERNEL_HEAD_DIMS``) must hold HGMMA (wgmma on the tensor cores) and
+    ``KERNEL_HEAD_DIMS[torch.bfloat16]``) must hold HGMMA (wgmma on the tensor cores) and
     UTMALDG (TMA loads) in its SASS."""
+    import torch
+
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -5113,11 +5488,12 @@ def flash_sass_check():
     log(f"[build] flash_attention_wgmma SASS by head_dim: " + "; ".join(
         f"hd {hd}: " + ", ".join(f"{op} x{n}" for op, n in found.items())
         for hd, found in sorted(by_hd.items())))
-    if sorted(by_hd) != sorted(fa_ops.KERNEL_HEAD_DIMS) or not all(
+    want = fa_ops.KERNEL_HEAD_DIMS[torch.bfloat16]
+    if sorted(by_hd) != sorted(want) or not all(
             n for found in by_hd.values() for n in found.values()):
         raise RuntimeError(f"flash_attention_wgmma: SASS by head_dim "
                            f"{by_hd}, expected {FLASH_SASS} in each of "
-                           f"{fa_ops.KERNEL_HEAD_DIMS}")
+                           f"{want}")
 
 
 def launch_counters():
@@ -5448,7 +5824,6 @@ def zamba2_train(dev, card, reset_counts, read_counts, by_phase):
     """Phase 22 (b): zamba2-2.7b at full width and depth in bf16 (module
     docstring)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import token_batches
@@ -5501,13 +5876,8 @@ def zamba2_train(dev, card, reset_counts, read_counts, by_phase):
     step_fn = make_llm_step_fn(cfg, AdamConfig(lr_max=3e-4, total_steps=1))
     opt = adam_init([p for _, p in llm_leaves(model)])
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        opt, loss, gnorm = step_fn(model, opt, batches[-1])
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prof, (opt, loss, gnorm), wall = profile_calls(
+        lambda: step_fn(model, opt, batches[-1]), "a zamba2 training step")
     read_counts("train_zamba2_profiled")
     t0 = time.perf_counter()
     rows, marked = _raw_split(prof, TRAIN_LLM_MARKS)
@@ -5939,7 +6309,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
     # 3. (continued) the flash-attention kernels, at head_dim 256, 128 and
-    # 64 (80 in phase 21's child) -------------------------------------------
+    # 64 (80 in phase 21's child, 32 in phase 24's) --------------------------
     reset_counts()
     flash_row = flash_check(dev, card)
     flash_row["hd128"] = flash_check_hd128(dev, card)
@@ -6012,6 +6382,15 @@ def main() -> int:
     dryrun_phase(card, by_phase)
     log(f"[dryrun] phase 23 took {time.perf_counter() - t0:.1f} s | {card}")
 
+    # 24. the examples' twins at the examples' sizes, in a child process
+    # with the hd-32 part of phase 3: serve_llm (the f32 flash kernel at hd
+    # 32), realtime_inference single and sharded, partition_equivalence,
+    # quickstart; a 2-level server
+    t0 = time.perf_counter()
+    flash_row["hd32"] = twins_child_phase(card, by_phase)
+    log(f"[twins] phase 24 and phase 3 at hd 32 took "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+
     # training, last: after its profile of a whole step (about 34,000
     # launches), torch.profiler held almost no launches of the later
     # flash-attention profiles in the same process
@@ -6076,6 +6455,8 @@ def main() -> int:
             kr["hd64"]["launches"] = by_phase[kr["name"]]["whisper_serve"]
         if "hd80" in kr:
             kr["hd80"]["launches"] = by_phase[kr["name"]]["zamba2_serve"]
+        if "hd32" in kr:
+            kr["hd32"]["launches"] = by_phase[kr["name"]]["twin_serve_llm"]
         kr["launches_by_phase"] = by_phase[kr["name"]]
         kr["phases"] = [p for p, n in by_phase[kr["name"]].items() if n]
         kr["card"] = card

@@ -13,25 +13,25 @@ from repro_torch.configs.base import (GNNConfig, HardwareSpec, HW,  # noqa: F401
                                       ModelConfig, SHAPES, ShapeConfig,
                                       UNetConfig)
 
+# in the order of ``repro.configs._ARCH_MODULES``
 _ARCH_MODULES = {
-    "deepseek-moe-16b": "deepseek_moe_16b",
-    "gemma2-9b": "gemma2_9b",
-    "granite-3-8b": "granite_3_8b",
-    "pixtral-12b": "pixtral_12b",
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "starcoder2-15b": "starcoder2_15b",
+    "pixtral-12b": "pixtral_12b",
     "whisper-large-v3": "whisper_large_v3",
-    "xlstm-350m": "xlstm_350m",
+    "granite-3-8b": "granite_3_8b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "yi-34b": "yi_34b",
+    "gemma2-9b": "gemma2_9b",
+    "xlstm-350m": "xlstm_350m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "zamba2-2.7b": "zamba2_2_7b",
     "xmgn-drivaer": "xmgn_drivaer",
     "xunet3d-drivaer": "xunet3d_drivaer",
 }
 
 # the LLM configs, in the order of ``repro.configs.ASSIGNED_ARCHS``
-ASSIGNED_ARCHS = ["starcoder2-15b", "pixtral-12b", "whisper-large-v3",
-                  "granite-3-8b", "deepseek-moe-16b", "yi-34b", "gemma2-9b",
-                  "xlstm-350m", "qwen3-moe-30b-a3b", "zamba2-2.7b"]
+ASSIGNED_ARCHS = [k for k in _ARCH_MODULES
+                  if k not in ("xmgn-drivaer", "xunet3d-drivaer")]
 
 
 def get_config(name: str) -> Union[GNNConfig, ModelConfig, UNetConfig]:
@@ -42,3 +42,8 @@ def get_config(name: str) -> Union[GNNConfig, ModelConfig, UNetConfig]:
             "repro.configs._ARCH_MODULES (src/repro/configs/__init__.py)")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG
+
+
+def list_configs() -> dict:
+    """Every config the port knows, by name, in JAX's order."""
+    return {name: get_config(name) for name in _ARCH_MODULES}

@@ -14,7 +14,25 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.graph import Graph, relative_edge_features
-from repro_torch.core.graph_build import knn_edges
+from repro_torch.core.graph_build import knn_edges, sample_surface
+
+
+def nested_point_clouds(vertices: np.ndarray, faces: np.ndarray,
+                        level_sizes: Sequence[int],
+                        rng: np.random.Generator
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Sample the finest cloud once; coarser levels are prefixes.
+
+    Sampling ``n_finest`` points i.i.d. uniformly and taking the first ``n_l``
+    as level ``l`` yields a uniform point cloud at every level while enforcing
+    the paper's superset property exactly.
+
+    Returns (points (n_finest, 3), normals (n_finest, 3)).
+    """
+    sizes = sorted(level_sizes)
+    if sizes != list(level_sizes):
+        raise ValueError("level_sizes must be increasing (coarse -> fine)")
+    return sample_surface(vertices, faces, sizes[-1], rng)
 
 
 def multiscale_edges(points: np.ndarray, level_sizes: Sequence[int], k: int
@@ -38,6 +56,17 @@ def multiscale_edges(points: np.ndarray, level_sizes: Sequence[int], k: int
     _, first = np.unique(key, return_index=True)
     first.sort()
     return s[first].astype(np.int32), r[first].astype(np.int32), l[first]
+
+
+def build_multiscale_graph(vertices: np.ndarray, faces: np.ndarray,
+                           level_sizes: Sequence[int], k: int,
+                           rng: np.random.Generator) -> Graph:
+    """The paper's tessellated geometry to multi-scale graph, on the host:
+    :func:`nested_point_clouds` of the triangle surface, then
+    :func:`multiscale_edges`, with relative edge features."""
+    points, normals = nested_point_clouds(vertices, faces, level_sizes, rng)
+    return build_multiscale_from_points(points, level_sizes, k,
+                                        normals=normals)
 
 
 def build_multiscale_from_points(points: np.ndarray,

@@ -1,5 +1,6 @@
 // Flash attention with GQA, causal masking, a sliding window and a tanh
-// logit softcap, for head_dim 64, 80, 128 or 256 in f32 on the CUDA cores:
+// logit softcap, for head_dim 32, 64, 80, 128 or 256 in f32 on the CUDA
+// cores:
 //   out[bh, i] = softmax_j(mask(cap(q[bh, i] . k[bh / group, j] / sqrt(hd))))
 //                . v[bh / group, j]
 // with the mask j < Skv, j <= i (causal) and i - j < window, f32
@@ -7,7 +8,8 @@
 // contiguous; Skv may differ from Sq when not causal (whisper's
 // cross-attention). The kernel is a template on hd with one instance for
 // each head_dim on the path, 256 (gemma2), 128 (the llama-style and MoE
-// decoders), 80 (zamba2's shared attention) and 64 (whisper). bf16 goes to
+// decoders), 80 (zamba2's shared attention), 64 (whisper) and 32 (every
+// reduced config, which runs in f32). bf16 goes to
 // the tensor-core
 // kernel in flash_attention_wgmma.cu; f32 stays here because the tensor
 // cores' TF32 keeps about three digits and the f32 path is held to 1e-5.
@@ -75,6 +77,10 @@
 // quarter of the threads compute for nothing) and only columns below 80
 // are stored. Zamba2's prefill (B 2, S 4,096, H 32, causal) does 1.7e11
 // flops, 2.6 ms at 67 TFLOP/s.
+// hd 32 runs in hd 64's layout the same way (72,192 bytes): S over the 32
+// real dims only, P V over 64 columns of which half are pad, so it does 3
+// flops for every 2 useful ones; columns 32-63 are not stored. The reduced configs' prompts are shorter than one tile:
+// their one key tile is ragged, and the Skv mask covers it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -404,8 +410,8 @@ int launch(const float* q, const float* k, const float* v, float* out,
 }  // namespace
 
 // q, out (bh, s, hd); k, v (bh / group, skv, hd); f32, contiguous and
-// 16-byte aligned; hd 64, 80, 128 or 256; causal needs skv == s. window <= 0:
-// none; softcap <= 0: none. Returns a cudaError_t (cudaErrorInvalidValue for
+// 16-byte aligned; hd 32, 64, 80, 128 or 256; causal needs skv == s.
+// window <= 0: none; softcap <= 0: none. Returns a cudaError_t (cudaErrorInvalidValue for
 // a shape the kernel is not built for).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int bh, int group,
@@ -420,6 +426,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 32)
+    return launch<32>(qf, kf, vf, of, bh, group, s, skv, causal, window,
+                      scale, softcap, st);
   if (hd == 64)
     return launch<64>(qf, kf, vf, of, bh, group, s, skv, causal, window,
                       scale, softcap, st);

@@ -29,8 +29,10 @@ from repro_torch.kernels.flash_attention import ref
 # both kernels are templates on head_dim, instanced for those on the path:
 # 256 (gemma2), 128 (granite, starcoder2, yi, deepseek-moe, qwen3-moe,
 # pixtral), 80 (zamba2's shared attention, padded to 128 inside the
-# kernels) and 64 (whisper)
-KERNEL_HEAD_DIMS = (64, 80, 128, 256)
+# kernels) and 64 (whisper); the f32 kernel also for 32 (every reduced
+# config, f32, padded to 64), which no bf16 path runs
+KERNEL_HEAD_DIMS = {torch.bfloat16: (64, 80, 128, 256),
+                    torch.float32: (32, 64, 80, 128, 256)}
 # dtype -> (library in _build.SOURCES, C entry point)
 _ENTRY = {torch.bfloat16: ("flash_attention_wgmma",
                            "flash_attention_wgmma_bf16"),
@@ -102,9 +104,13 @@ def _launch(q, k, v, group_size: int, causal: bool, window: Optional[int],
         raise ValueError(f"flash_attention: q must be (BH, Sq, hd), got "
                          f"{tuple(q.shape)}")
     bh, sq, hd = q.shape
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernels are built for hd in "
-                         f"{KERNEL_HEAD_DIMS}, got hd={hd}")
+    if hd not in KERNEL_HEAD_DIMS[q.dtype]:
+        f32_only = hd in KERNEL_HEAD_DIMS[torch.float32]
+        raise ValueError(
+            f"flash_attention: the {q.dtype} kernel is built for hd in "
+            f"{KERNEL_HEAD_DIMS[q.dtype]}, got hd={hd}"
+            + (" (only the float32 kernel, flash_attention.cu, takes it: "
+               "run the config in float32)" if f32_only else ""))
     if group_size < 1 or bh % group_size:
         raise ValueError(f"flash_attention: BH={bh} is not a multiple of "
                          f"group_size={group_size}")

@@ -133,10 +133,155 @@ def fake_dtensor_fixes():
             setattr(cls, name, fn)
 
 
+def _placed(t, mesh, placements):
+    """``t``, a plain tensor (whole on every device) or a ``DTensor``, as a
+    ``DTensor`` on ``mesh`` with ``placements``. A plain tensor's local
+    tensor is a view of it, and taking a shard of a whole tensor moves no
+    bytes."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if tuple(t.placements) != tuple(placements):
+        t = t.redistribute(mesh, placements)
+    return t
+
+
+def shardwise(op, x, others=(), keep_dims=None, **kwargs):
+    """``op(x, *others, **kwargs)`` of a ``DTensor`` ``x``, computed on each
+    device's shard: for an op whose output row at a position of the dims in
+    ``keep_dims`` (default: all) reads only the inputs' rows at that
+    position, as an elementwise op or a search along the last dim. A mesh
+    dim of ``x`` that holds a partial sum or shards another dim is gathered
+    first, each of ``others`` (plain or ``DTensor``, of ``x``'s rank) is
+    placed as ``x`` then is, and the result, of ``others[0]``'s shape
+    (else ``x``'s), takes those placements. Splitting rows among devices
+    changes no row, so the result is the op's, bit for bit."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    keep = set(range(x.ndim)) if keep_dims is None else \
+        {d % x.ndim for d in keep_dims}
+    pl = [p if type(p) is Shard and p.dim in keep else Replicate()
+          for p in x.placements]
+    x = _placed(x, mesh, pl)
+    rest = [_placed(t, mesh, pl) for t in others]
+    out = op(x.to_local(), *(t.to_local() for t in rest), **kwargs)
+    size = (rest[0] if rest else x).shape
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=size,
+                              stride=_contiguous(size))
+
+
+def view_gathers(size, new_size, placements, mesh_sizes) -> set:
+    """The mesh dims a view from ``size`` to ``new_size`` cannot keep
+    sharded, where eager ``DTensor`` refuses them ("Cannot flatten /
+    unflatten unevenly sharded tensor") or, for a dim sharded over two mesh
+    dims, gives the shard a wrong local shape: a dim sharded ``m`` ways is
+    merged with the dims after it while ``m`` does not divide it, or is
+    split while ``m`` does not divide the first piece (then its mesh dims
+    from the first that breaks that are gathered). JAX's GSPMD gathers such
+    a dim itself (whisper's 20 heads over 16 'model' shards; qwen3-moe's
+    batch on 'data' and 'model', split into its 4 KV heads)."""
+    from torch.distributed.tensor import Shard
+    prefix, acc = set(), 1
+    for d in new_size:
+        prefix.add(acc)
+        acc *= d
+    prefix.add(acc)
+    out = set()
+    for d in {p.dim for p in placements if type(p) is Shard}:
+        dims = [i for i, p in enumerate(placements)
+                if type(p) is Shard and p.dim == d]
+        lo = 1
+        for x in size[:d]:
+            lo *= x
+        hi = lo * size[d]
+        if hi not in prefix:
+            # merged with the dims after it
+            n = size[d]
+        elif lo not in prefix:
+            continue               # the last dim of a merge: DTensor keeps it
+        else:
+            # the new dims it becomes: itself, or a split sharded on the
+            # first piece
+            pieces, acc = [], 1
+            for x in new_size:
+                if lo <= acc < hi and x != 1:
+                    pieces.append(x)
+                acc *= x
+            if len(pieces) <= 1:
+                continue
+            n = pieces[0]
+        m = 1
+        for j, i in enumerate(dims):
+            m *= mesh_sizes[i]
+            if n % m:
+                out.update(dims[j:])
+                break
+    return out
+
+
+def laid_out(t):
+    """``t``, a ``DTensor``, with its local tensor laid out as its global
+    strides say. DTensor takes an op's global strides from the op run on
+    global shapes, while the device runs it on its shard, and at the
+    shard's shape an op may lay its output out otherwise (a shard of one
+    head, a size-1 dim that the global tensor does not have: the MoE's
+    ``act(g) * u``, attention's gradients). A view is then decided on the
+    global strides, and the shard cannot be viewed so. Such a tensor is
+    copied contiguous, and its global strides made so."""
+    from torch.distributed.tensor import DTensor
+    local = t.to_local()
+    dims = [d for d in range(t.ndim) if local.shape[d] > 1]
+    if sorted(dims, key=lambda d: -t.stride()[d]) == \
+            sorted(dims, key=lambda d: -local.stride()[d]):
+        return t
+    return DTensor.from_local(local.contiguous(), t.device_mesh,
+                              t.placements, run_check=False, shape=t.shape,
+                              stride=_contiguous(t.shape))
+
+
+class DTensorViewRules(TorchDispatchMode):
+    """The dry run's rules for views of ``DTensor``s, where eager DTensor's
+    view does not compute what the view computes: ``aten.view`` and
+    ``aten._unsafe_view`` (a ``reshape``'s view, the views inside
+    ``einsum``, ``matmul`` and their gradients) of a ``DTensor`` first
+    gather the mesh dims of :func:`view_gathers` and lay the shard out as
+    its global strides say (:func:`laid_out`). Both leave every value as
+    it is. It runs under the step's :class:`StepCounter`, which counts the
+    gathers."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate
+        kwargs = kwargs or {}
+        aten = torch.ops.aten
+        if func in (aten.view.default, aten._unsafe_view.default) and \
+                isinstance(args[0], DTensor) and not kwargs:
+            x, size = args[0], tuple(args[1])
+            if -1 in size:
+                rest = 1
+                for d in size:
+                    rest *= d if d != -1 else 1
+                size = tuple(x.numel() // rest if d == -1 else d
+                             for d in size)
+            mesh = x.device_mesh
+            with torch.no_grad():
+                bad = view_gathers(tuple(x.shape), size, x.placements,
+                                   [mesh.size(i) for i in range(mesh.ndim)])
+                if bad:
+                    x = x.redistribute(mesh, [
+                        Replicate() if i in bad else p
+                        for i, p in enumerate(x.placements)])
+                x = laid_out(x)
+            return func(x, args[1])
+        return func(*args, **kwargs)
+
+
 class DTensorRules(TorchFunctionMode):
     """Where eager ``DTensor`` shards an op of the models otherwise than
-    GSPMD would, the dry run's rule for it (the models themselves hold no
-    ``DTensor`` code beyond ``models.nn.splittable`` and ``whole``):
+    GSPMD would, or has no rule for it, the dry run's rule for it (the
+    models themselves hold no ``DTensor`` code beyond
+    ``models.nn.splittable`` and ``whole``). Each computes what the op
+    computes (``tests/test_torch_dryrun_rules.py`` holds them to it):
 
     * a gather of one index a row along the last dim (the cross-entropy's
       label logit, the vocabulary sharded or a partial sum): DTensor's
@@ -145,19 +290,67 @@ class DTensorRules(TorchFunctionMode):
       (one nonzero term) and reduces the partial sums once;
     * ``F.embedding`` of a vocabulary-sharded table gives partial sums
       that DTensor reduces at their first use only, and the residual
-      stream reads them twice: they are reduced once, here."""
+      stream reads them twice: they are reduced once, here;
+    * ``torch.searchsorted`` (the MoE dispatch's first slot of each
+      expert) has no sharding strategy: it runs on each device's rows
+      (:func:`shardwise`, the searched dim whole);
+    * ``F.logsigmoid`` (the xLSTM gates; ``aten.log_sigmoid_forward``) has
+      none either: elementwise, on each device's shard;
+    * an in-place ``scatter_`` into a plain tensor (the MoE dispatch's
+      trash-slot buffer, made by ``torch.zeros``) with a ``DTensor`` index
+      or source: the buffer is whole on every device, so it is written as
+      a replicated ``DTensor`` whose local tensor is the buffer itself.
+
+    Views have their rules one level down, where the views of ``einsum``
+    and of the gradients arrive too (:class:`DTensorViewRules`)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor, Replicate
         kwargs = kwargs or {}
         # the method arrives as TensorBase's, the function as torch's
-        if getattr(func, "__name__", None) == "gather":
+        name = getattr(func, "__name__", None)
+        if func is torch.Tensor.backward and len(args) == 1 and not any(
+                kwargs.values()):
+            # a handler runs with its mode off, and ``Tensor.backward``
+            # hands a mode the whole call: the engine is run here with the
+            # mode on, so the recompute of the checkpointed layers (remat)
+            # takes the rules as their forward did
+            from torch.autograd.graph import _engine_run_backward
+            loss = args[0]
+            with self:
+                _engine_run_backward(
+                    (loss,), (torch.ones_like(
+                        loss, memory_format=torch.preserve_format),),
+                    False, False, (), allow_unreachable=True,
+                    accumulate_grad=True)
+            return None
+        if name == "gather":
             x, dim, index = args[:3]
             if (isinstance(x, DTensor) and dim % x.ndim == x.ndim - 1
                     and index.shape[-1] == 1):
                 cols = torch.arange(x.shape[-1], device=x.device)
                 return torch.where(cols == index, x, 0.0).sum(
                     -1, keepdim=True)
+        elif name == "searchsorted" and len(args) >= 2 and all(
+                isinstance(t, torch.Tensor) for t in args[:2]) and any(
+                isinstance(t, DTensor) for t in args[:2]) and \
+                args[0].ndim == args[1].ndim > 1:
+            seq, values = args[:2]
+            if not isinstance(seq, DTensor):
+                seq = _placed(seq, values.device_mesh, [
+                    Replicate()] * values.device_mesh.ndim)
+            return shardwise(torch.searchsorted, seq, (values,),
+                             keep_dims=range(seq.ndim - 1), **kwargs)
+        elif name == "log_sigmoid" and isinstance(args[0], DTensor):
+            return shardwise(func, args[0])
+        elif name == "scatter_" and not isinstance(args[0], DTensor):
+            dt = [t for t in args[1:] + tuple(kwargs.values())
+                  if isinstance(t, DTensor)]
+            if dt:
+                mesh = dt[0].device_mesh
+                _placed(args[0], mesh, [Replicate()] * mesh.ndim).scatter_(
+                    *args[1:], **kwargs)
+                return args[0]
         out = func(*args, **kwargs)
         if func is F.embedding and isinstance(out, DTensor) and any(
                 p.is_partial() for p in out.placements):
@@ -299,6 +492,10 @@ def _microbatches(batch: dict, accum: int):
     for k, v in batch.items():
         size = list(v.shape)
         size[0] //= accum
+        if v.to_local().shape[0] % accum:
+            raise ValueError(
+                f"{k}: a device's {v.to_local().shape[0]} rows do not split "
+                f"into {accum} microbatches (grad_accum)")
         for i, c in enumerate(v.to_local().chunk(accum)):
             out[i][k] = DTensor.from_local(
                 c, v.device_mesh, v.placements, run_check=False,
@@ -595,20 +792,20 @@ def lower_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                                                  device=device),
                                 mu=moments(), nu=moments())
                 arguments = (params, opt, batch)
-                with counter:
+                with counter, DTensorViewRules():
                     opt, loss, gnorm = make_train_step(
                         api, cfg, between=tracker.reset_mod_stats)(
                             model, opt, batch)
                 outputs = (params, opt, loss, gnorm)
             elif shape.kind == "prefill":
                 arguments = (params, batch)
-                with counter:
+                with counter, DTensorViewRules():
                     outputs = make_prefill_step(api)(model, batch)
             else:
                 cache = api.empty_cache(shape.global_batch, shape.seq_len,
                                         device=device)
                 arguments = (params, cache, batch)
-                with counter:
+                with counter, DTensorViewRules():
                     outputs = make_decode_step(api)(
                         model, cache, batch, shape.seq_len - 1)
             arg_bytes = _local_bytes(arguments)

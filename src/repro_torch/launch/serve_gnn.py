@@ -140,7 +140,8 @@ from repro_torch.telemetry import (Histogram, MetricsRegistry, Telemetry,
 
 log = logging.getLogger(__name__)
 
-N_LEVELS = 3        # nested resolution levels per bucket, as in the paper
+N_LEVELS = 3        # nested resolution levels per bucket by default, as in
+                    # the paper (``GNNServer(n_levels=...)``)
 
 # serving-lifecycle stages recorded per batch/request (ServerStats stage
 # histograms + the per-request trace spans): submit -> queue_wait ->
@@ -483,8 +484,11 @@ class GNNServer:
     weights are drawn from a ``torch.Generator`` seeded with ``seed``.
     ``norm_in``/``norm_out`` are optional (mean, std) numpy pairs. The
     server runs on ``device`` (default: the card; it raises without one
-    unless ``device="cpu"``). Every bucket has ``N_LEVELS`` levels and is
-    calibrated from ``reference`` (verts, faces), by default the demo car.
+    unless ``device="cpu"``). Every bucket has ``n_levels`` levels (default
+    ``N_LEVELS``: the kNN kernel launches once a level) and is calibrated
+    from ``reference`` (verts, faces), by default the demo car.
+    ``check_requests=False`` skips the numpy overflow guard
+    (:meth:`_check_cloud`) of each request, as the JAX server's does.
 
     ``bucket_sizes`` is a static ladder or ``"auto"`` (see the module
     docstring); a ladder together with ``cfg.bucket_policy == "auto"`` seeds
@@ -494,16 +498,17 @@ class GNNServer:
     counts devices), with ``shard_pad_factor`` (default
     ``cfg.shard_pad_factor``) of headroom in each bucket's shard shapes.
     The JAX server's ``knn_impl``, ``agg_impl``, ``interpret`` and
-    ``donate`` have no counterpart (the kernels dispatch by device), nor
-    its ``n_levels`` and ``check_requests``. ``_restore`` is the state
+    ``donate`` have no counterpart (the kernels dispatch by device).
+    ``_restore`` is the state
     :meth:`from_artifact` hands over (calibrated specs, ladder, histogram).
     """
 
     def __init__(self, cfg: GNNConfig,
                  bucket_sizes: Union[str, Sequence[int]] = (1024,),
                  *, params: Optional[meshgraphnet.MeshGraphNet] = None,
-                 max_batch: int = 4, norm_in=None, norm_out=None,
-                 seed: int = 0, reference=None,
+                 max_batch: int = 4, n_levels: int = N_LEVELS,
+                 norm_in=None, norm_out=None,
+                 seed: int = 0, reference=None, check_requests: bool = True,
                  reject_overflow: bool = False, async_flush: bool = True,
                  telemetry: Optional[Telemetry] = None,
                  max_queue_depth: Optional[int] = None,
@@ -534,6 +539,10 @@ class GNNServer:
                              "size (or pass bucket_sizes='auto')")
         self.cfg = cfg
         self.max_batch = int(max_batch)
+        self.n_levels = int(n_levels)
+        if self.n_levels < 1:
+            raise ValueError(f"n_levels must be >= 1, got {n_levels}")
+        self.check_requests = bool(check_requests)
         self.reject_overflow = reject_overflow
         self.shard_devices = int(shard_devices)
         self.shard_pad_factor = float(cfg.shard_pad_factor
@@ -634,12 +643,12 @@ class GNNServer:
     # ------------------------------------------------------ deploy artifacts
 
     # server-construction knobs carried inside the artifact so from_artifact
-    # rebuilds an identical server (the JAX server's, less n_levels and
-    # check_requests, which the port does not have)
-    _ARTIFACT_KNOBS = ("max_batch", "seed", "reject_overflow", "async_flush",
-                       "shard_devices", "shard_pad_factor")
+    # rebuilds an identical server (the JAX server's)
+    _ARTIFACT_KNOBS = ("max_batch", "n_levels", "seed", "check_requests",
+                       "reject_overflow", "async_flush", "shard_devices",
+                       "shard_pad_factor")
     # knobs of the JAX server that a JAX artifact carries: read and ignored
-    _JAX_ONLY_KNOBS = ("check_requests", "knn_impl", "interpret", "donate")
+    _JAX_ONLY_KNOBS = ("knn_impl", "interpret", "donate")
 
     def save_artifact(self, path: str) -> dict:
         """Freeze this server's learned state into one deploy artifact.
@@ -703,10 +712,10 @@ class GNNServer:
         ladder, request-size histogram, calibrated grid specs) on
         ``device`` (default: the card); its buckets never calibrate, nor
         does a later evict->rebuild. ``cfg`` (default: the artifact's) and
-        keyword knobs override the saved ones. Of the JAX server's knobs,
-        ``n_levels`` must be ``N_LEVELS`` (else ``ValueError``);
-        ``check_requests``, ``knn_impl``, ``interpret`` and ``donate`` are
-        read and ignored, as are a JAX artifact's AOT executables.
+        keyword knobs override the saved ones (``n_levels`` and
+        ``check_requests`` among them). Of the JAX server's knobs,
+        ``knn_impl``, ``interpret`` and ``donate`` are read and ignored, as
+        are a JAX artifact's AOT executables.
         """
         tree = artifact_lib.load_artifact(path)
         if cfg is None:
@@ -718,10 +727,6 @@ class GNNServer:
             cfg = cfg.replace(bucket_policy="auto")
         knobs = dict(tree.get("knobs", {}))
         knobs.update(kw)
-        n_levels = int(knobs.pop("n_levels", N_LEVELS))
-        if n_levels != N_LEVELS:
-            raise ValueError(f"{path!r}: n_levels={n_levels}, but the port's "
-                             f"server has {N_LEVELS} levels a bucket")
         for k in cls._JAX_ONLY_KNOBS:
             knobs.pop(k, None)
         device = resolve(knobs.pop("device", None))
@@ -765,7 +770,7 @@ class GNNServer:
         if ms is not None:
             return ms
         faults.fire("bucket.calibrate")
-        levels = _level_sizes(n, N_LEVELS)
+        levels = _level_sizes(n, self.n_levels)
         ref_pts, _ = self._sample_reference(n)
         k = self.cfg.k_neighbors
         grids = tuple(hashgrid.calibrate_spec(ref_pts[:m], k, n_points=m)
@@ -1225,7 +1230,7 @@ class GNNServer:
                 continue
             pts, nrm = self._sample(req, b.n_points)
             dropped = 0
-            if record:
+            if record and self.check_requests:
                 dropped = self._check_cloud(b, pts, req.request_id)
             if dropped and self.reject_overflow:
                 results.append(self._reject(

@@ -219,14 +219,24 @@ def test_sharded_restore_reuses_its_shard_specs(tmp_path):
 
 
 def test_jax_only_knobs(tmp_path):
+    """The JAX server's compile knobs are read and ignored; ``n_levels``
+    and ``check_requests`` are the port server's own knobs too: a
+    2-level server's artifact restores a 2-level server, uncalibrated,
+    with bit-equal fields."""
     path = str(tmp_path / "deploy.msgpack")
-    GNNServer(_cfg(), (64,), max_batch=1, device="cpu").save_artifact(path)
-    with pytest.raises(ValueError, match="n_levels"):
-        GNNServer.from_artifact(path, device="cpu", n_levels=2)
-    srv = GNNServer.from_artifact(path, device="cpu", n_levels=3,
-                                  check_requests=False, knn_impl="pallas",
-                                  interpret=False, donate=False)
+    verts, faces = _geom(1)
+    src = GNNServer(_cfg(), (64,), max_batch=1, n_levels=2, device="cpu")
+    [want] = src.serve([(verts, faces, 64)])
+    src.save_artifact(path)
+    srv = GNNServer.from_artifact(path, device="cpu", check_requests=False,
+                                  knn_impl="pallas", interpret=False,
+                                  donate=False)
     assert srv.ladder() == (64,)
+    assert srv.n_levels == 2 and not srv.check_requests
+    assert srv._calib[64].level_sizes == (32, 64)
+    [got] = srv.serve([(verts, faces, 64)])
+    _same(got, want)
+    assert srv.stats.report()["bucket_calibrations"] == 0
 
 
 def _jax_pair(seed=5):

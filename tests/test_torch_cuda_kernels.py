@@ -9,6 +9,7 @@ wrapper tests run anywhere: a tensor that is neither on the CPU nor on the
 card is refused, never routed to the plain version."""
 import math
 import os
+import re
 import sys
 
 import numpy as np
@@ -586,6 +587,48 @@ def test_flash_attention_kernel_matches_plain_at_hd80(cuda, case):
             assert float(_row_rel_err(wrong, want).max()) > FA_BF16_ROW_RTOL
 
 
+# Every reduced config at hd 32 (f32 only, padded to 64 columns inside the
+# f32 kernel): gemma2 reduced's serve shape (B 4, S 16, H 4, KV 2: one
+# ragged key tile) with its window 16 and softcap 50 and without the window,
+# the timing shape (S 4,096), S = 1 and 65, GQA group 4, ragged S with a
+# window inside a tile, non-causal with a ragged tile and with Skv != Sq
+# both ways (whisper reduced's cross-attention: 16 frames).
+# (B, Sq, Skv, H, KV, causal, window, softcap)
+FA_HD32_CASES = [
+    (4, 16, 16, 4, 2, True, 16, 50.0),
+    (4, 16, 16, 4, 2, True, None, 50.0),
+    (2, 4096, 4096, 4, 2, True, None, 50.0),
+    (1, 1, 1, 2, 2, True, None, None),
+    (1, 65, 65, 4, 1, True, None, None),
+    (2, 300, 300, 8, 2, True, 40, 50.0),
+    (2, 1500, 1500, 4, 4, False, None, None),
+    (2, 24, 16, 4, 4, False, None, None),
+    (1, 300, 100, 8, 2, False, None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_HD32_CASES)
+def test_flash_attention_kernel_matches_plain_at_hd32(cuda, case):
+    b, sq, skv, h, kvh, causal, window, cap = case
+    hd = 32
+    rng = np.random.default_rng(sq + skv + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, heads, hd)).astype(
+        np.float32)).to(cuda) for n, heads in ((sq, h), (skv, kvh),
+                                                (skv, kvh)))
+    before = fa_ops.mha.launches
+    got = fa_ops.mha(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_ops.mha.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    qf = q.transpose(1, 2).reshape(-1, sq, hd)
+    kf, vf = (t.transpose(1, 2).reshape(-1, skv, hd) for t in (k, v))
+    want = fa_ref.attention(qf, kf, vf, group_size=h // kvh, causal=causal,
+                            window=window, softcap=cap)
+    want = want.reshape(b, h, sq, hd).transpose(1, 2)
+    torch.testing.assert_close(got, want, atol=FA_TOL["float32"],
+                               rtol=FA_TOL["float32"])
+
+
 @pytest.mark.parametrize("s,window", [(640, None), (1000, 300)])
 def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
     """The bf16 row check admits the plain version's own bf16 rounding and
@@ -605,16 +648,19 @@ def test_bf16_row_check_passes_rounding_and_fails_a_dropped_tile(s, window):
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_is_not_built_for(cuda):
     """Both kernels are built for hd 64, 80, 128 and 256 in bf16 and f32
-    only, and take causal masking only with Skv == Sq; the bf16 kernel's
-    grid takes at most 65,535 blocks of 128 rows, which its C entry checks
-    before it reads any memory. Each C entry refuses any other hd (96
-    here), and causal masking with Skv != Sq, itself."""
+    only, the f32 kernel also for hd 32, and take causal masking only with
+    Skv == Sq; the bf16 kernel's grid takes at most 65,535 blocks of 128
+    rows, which its C entry checks before it reads any memory. Each C entry
+    refuses any other hd (96 here; 32 in bf16, naming the f32 kernel), and
+    causal masking with Skv != Sq, itself."""
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t.to(cuda, dtype)
                    for t in _fa_case(0, 1, 64, 2, 1, hd=96))
+        dims = "(32, 64, 80, 128, 256)" if dtype == torch.float32 else \
+            "(64, 80, 128, 256)"
         with pytest.raises(ValueError,
-                           match=r"\(64, 80, 128, 256\), got hd=96"):
+                           match=re.escape(f"{dims}, got hd=96")):
             fa_ops.mha(q, k, v)
         qf = q.transpose(1, 2).reshape(2, 64, 96).contiguous()
         status = fa_ops._lib(dtype)(
@@ -632,6 +678,17 @@ def test_flash_attention_refuses_what_it_is_not_built_for(cuda):
             130, 128, 1, 0, 64, 1 / 8, 0.0, stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.check(status, "flash_attention")
+    q, k, v = (t.to(cuda, torch.bfloat16)
+               for t in _fa_case(0, 1, 64, 2, 1, hd=32))
+    with pytest.raises(ValueError, match=r"got hd=32 \(only the float32 "
+                       r"kernel, flash_attention\.cu"):
+        fa_ops.mha(q, k, v)
+    qf = q.transpose(1, 2).reshape(2, 64, 32).contiguous()
+    status = fa_ops._lib(torch.bfloat16)(
+        qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 2, 1,
+        64, 64, 1, 0, 32, 32 ** -0.5, 0.0, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(status, "flash_attention")
     q, k, v = (t.to(cuda, torch.float16) for t in _fa_case(0, 1, 64, 2, 1))
     with pytest.raises(ValueError, match="bfloat16 and float32"):
         fa_ops.mha(q, k, v)
