@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.halo import Partition
+from repro_torch.telemetry import span
 
 
 def partition_batch(part: Partition, node_feats: np.ndarray,
@@ -70,14 +71,16 @@ def aggregate_gradients(loss_fn: Callable, model: torch.nn.Module,
     ``loss_fn(model, batch) -> loss`` must normalize by the *global*
     denominator so the sums reproduce full-graph quantities. Each
     partition's graph is freed by its own ``backward()`` before the next
-    one is built. Returns the summed loss, detached.
+    one is built, each partition's forward and backward in a
+    ``forward_backward`` span. Returns the summed loss, detached.
     """
     for p in model.parameters():
         p.grad = None
     total = None
-    for b in batches:
-        loss = loss_fn(model, b)
-        loss.backward()
+    for i, b in enumerate(batches):
+        with span("forward_backward", partition=i):
+            loss = loss_fn(model, b)
+            loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     return total
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphx import hashgrid
+from repro_torch.telemetry import span
 
 
 @dataclass(frozen=True)
@@ -74,8 +75,10 @@ def multiscale_edges(points, n_valid, ms: MultiscaleSpec):
         raise ValueError(f"n_valid must be a scalar or (n_levels,) "
                          f"sequence, got shape {np.shape(n_valid)}")
     nbrs = []
-    for n_l, nv, gspec in zip(ms.level_sizes, counts, ms.grids):
-        idx, _, mask = hashgrid.knn(points[:n_l], nv, gspec)
+    for lvl, (n_l, nv, gspec) in enumerate(zip(ms.level_sizes, counts,
+                                               ms.grids)):
+        with span("knn", level=lvl):
+            idx, _, mask = hashgrid.knn(points[:n_l], nv, gspec)
         nbrs.append((idx, mask))
 
     seg_s, seg_r, seg_m = [], [], []

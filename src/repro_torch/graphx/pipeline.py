@@ -5,7 +5,11 @@ program per bucket, this runs eagerly under ``torch.no_grad``: hash-grid
 kNN at every level (the kNN kernel), the multi-scale edge union,
 featurization, and the MeshGraphNet forward (the segment-sum kernel in every
 layer). The device is the inputs' device. The model is passed to each call,
-as the JAX functions take ``params``.
+as the JAX functions take ``params``. Under a running ``torch.profiler``
+the stages are spans (``telemetry.span``): ``knn`` once per level,
+``features``, then the model's ``encoder``, ``processor`` and ``decoder``;
+host ranges around asynchronous launches, they time the enqueue, not the
+device.
 
 The rollout halves split that pipeline for the transient-rollout engine
 (``launch.rollout``): :func:`make_prefill_fn` builds the graph and its
@@ -26,6 +30,7 @@ from repro_torch.device import resolve
 from repro_torch.graphx import features as fx
 from repro_torch.graphx import hashgrid
 from repro_torch.graphx.multiscale import MultiscaleSpec, multiscale_edges
+from repro_torch.telemetry import span
 
 Stats = Optional[Tuple[np.ndarray, np.ndarray]]
 
@@ -82,7 +87,8 @@ def make_graph_forward(cfg: GNNConfig, *, norm_in: Stats = None,
 
     @torch.no_grad()
     def forward(model, points, normals, senders, receivers, emask):
-        graph = featurize(points, normals, senders, receivers, emask)
+        with span("features"):
+            graph = featurize(points, normals, senders, receivers, emask)
         nf = graph["node_feats"]
         state0 = nf.new_zeros(nf.shape[:-1] + (cfg.node_out,))
         return step(model, graph, state0)

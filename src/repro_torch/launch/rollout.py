@@ -75,6 +75,7 @@ from repro_torch.graphx import sharded
 from repro_torch.graphx.pipeline import make_generate_fn, make_prefill_fn
 from repro_torch.launch.serve_gnn import Request
 from repro_torch.resilience import faults
+from repro_torch.telemetry import clock_ns
 
 ROLLOUT_STAGES = ("rollout_prefill", "rollout_insert", "rollout_generate",
                   "rollout_harvest")
@@ -91,6 +92,7 @@ class RolloutRequest:
     n_points: Optional[int] = None
     t_submit: float = 0.0
     deadline: Optional[float] = None
+    t_submit_ns: int = 0                      # t_submit on the span clock
     init_state: Optional[np.ndarray] = None   # (bucket, node_out) start state
     cloud: Optional[tuple] = None             # (points, normals) override
 
@@ -269,6 +271,7 @@ class RolloutEngine:
         faces = np.asarray(faces)
         bucket = srv._route(n_points, mutate=True)
         t0 = time.perf_counter()
+        t0_ns = clock_ns()
         with srv._cond:
             rid = srv._next_id
             srv._next_id += 1
@@ -276,7 +279,7 @@ class RolloutEngine:
             timeout_s = self.timeout_s or None
         req = RolloutRequest(
             verts=verts, faces=faces, rollout_id=rid, steps=max(int(steps), 1),
-            bucket=bucket, n_points=n_points, t_submit=t0,
+            bucket=bucket, n_points=n_points, t_submit=t0, t_submit_ns=t0_ns,
             deadline=None if not timeout_s else t0 + float(timeout_s),
             init_state=(None if init_state is None
                         else np.asarray(init_state, np.float32)),
@@ -289,10 +292,9 @@ class RolloutEngine:
                     f"(max_queue_depth={self.max_pending})", steps_done=0)
                 return rid
             self._queue.append(req)
-        if srv.telemetry.enabled:
-            srv.telemetry.tracer.record_span(
-                "rollout_submit", t0, time.perf_counter(),
-                trace_id=f"roll-{rid}", bucket=bucket, steps=req.steps)
+        srv.telemetry.tracer.record_span(
+            "rollout_submit", t0_ns, clock_ns(), trace_id=f"roll-{rid}",
+            bucket=bucket, steps=req.steps)
         return rid
 
     def pending(self) -> int:
@@ -316,12 +318,11 @@ class RolloutEngine:
     def _finish(self, req: RolloutRequest, res: RolloutResult):
         self._results[req.rollout_id] = res
         srv = self.server
-        if srv.telemetry.enabled:
-            t = time.perf_counter()
-            srv.telemetry.tracer.record_span(
-                "rollout", req.t_submit or t, t,
-                trace_id=f"roll-{req.rollout_id}", bucket=req.bucket,
-                steps=res.steps_done, error=res.error)
+        t = clock_ns()
+        srv.telemetry.tracer.record_span(
+            "rollout", req.t_submit_ns or t, t,
+            trace_id=f"roll-{req.rollout_id}", bucket=req.bucket,
+            steps=res.steps_done, error=res.error)
 
     def result(self, rollout_id: int, *, drive: bool = True
                ) -> Optional[RolloutResult]:
@@ -411,7 +412,7 @@ class RolloutEngine:
         dev = srv.device
         graph = prefill(torch.from_numpy(pts).to(dev),
                         torch.from_numpy(nrm).to(dev), table.size)
-        t1 = time.perf_counter()
+        t1, t1_ns = time.perf_counter(), clock_ns()
         srv.stats.record_stage("rollout_prefill", t1 - t0)
         faults.fire("rollout.insert")
         if table.graph is None:
@@ -425,7 +426,7 @@ class RolloutEngine:
         for k, v in graph.items():
             table.graph[k][slot].copy_(v)
         table.state[slot].copy_(torch.from_numpy(st0))
-        self._commit_slot(table, slot, req, pts, t1)
+        self._commit_slot(table, slot, req, pts, t1, t1_ns)
 
     def _insert_sharded(self, table: _SlotTable, slot: int,
                         req: RolloutRequest, pts, nrm, st0, t0: float):
@@ -442,7 +443,7 @@ class RolloutEngine:
             spec=sspec)
         batch = plan.batch(srv.device)
         st_local = torch.from_numpy(plan.scatter(st0))
-        t1 = time.perf_counter()
+        t1, t1_ns = time.perf_counter(), clock_ns()
         srv.stats.record_stage("rollout_prefill", t1 - t0)
         faults.fire("rollout.insert")
         if table.graph is None:
@@ -463,23 +464,23 @@ class RolloutEngine:
         table.state[:, slot].copy_(st_local)
         table.plans[slot] = plan
         table.gstate[slot] = np.asarray(st0)
-        self._commit_slot(table, slot, req, pts, t1)
+        self._commit_slot(table, slot, req, pts, t1, t1_ns)
 
     def _commit_slot(self, table: _SlotTable, slot: int, req: RolloutRequest,
-                     pts: np.ndarray, t1: float):
+                     pts: np.ndarray, t1: float, t1_ns: int):
         srv = self.server
         table.reqs[slot] = req
         table.pts[slot] = pts
         table.rem[slot] = req.steps
         t2 = time.perf_counter()
         srv.stats.record_stage("rollout_insert", t2 - t1)
-        if srv.telemetry.enabled:
-            srv.telemetry.tracer.record_span(
-                "rollout_prefill", req.t_submit, t1,
-                trace_id=f"roll-{req.rollout_id}", bucket=table.size)
-            srv.telemetry.tracer.record_span(
-                "rollout_insert", t1, t2, trace_id=f"roll-{req.rollout_id}",
-                bucket=table.size, slot=slot)
+        tracer = srv.telemetry.tracer
+        tracer.record_span("rollout_prefill", req.t_submit_ns, t1_ns,
+                           trace_id=f"roll-{req.rollout_id}",
+                           bucket=table.size)
+        tracer.record_span("rollout_insert", t1_ns, clock_ns(),
+                           trace_id=f"roll-{req.rollout_id}",
+                           bucket=table.size, slot=slot)
 
     # ------------------------------------------------------------ generate
 
@@ -502,19 +503,35 @@ class RolloutEngine:
         srv = self.server
         _, gen = self._programs(table.size)
         spf = self.steps_per_flush
-        t0 = time.perf_counter()
+        with srv.telemetry.span("rollout_generate", bucket=table.size,
+                                active=len(table.active()),
+                                steps=spf) as sp:
+            t0 = time.perf_counter()
+            if not self._generate(table, gen):
+                return
+            advanced = int(np.minimum(table.rem, spf).sum())
+            table.rem = np.maximum(table.rem - spf, 0)
+            self._c_steps.inc(advanced)
+            sp.set(advanced=advanced)
+            t1 = time.perf_counter()
+        srv.stats.record_stage("rollout_generate", t1 - t0)
+
+    def _generate(self, table: _SlotTable, gen) -> bool:
+        """One flush's generate and its per-lane verdict; False when it
+        failed, its rollouts aborted and the table dropped."""
+        srv = self.server
         try:
             faults.fire("rollout.generate")
-            with srv.telemetry.annotate(f"rollout/generate_b{table.size}"):
-                if self.sharded_mode:
-                    self._advance_sharded(table, gen)
-                else:
-                    table.state, _ = gen(srv.params, table.graph,
-                                         table.state, table.rem)
+            if self.sharded_mode:
+                self._advance_sharded(table, gen)
+            else:
+                table.state, _ = gen(srv.params, table.graph, table.state,
+                                     table.rem)
             # the flush's one wait for the card: S floats, the per-lane
             # verdict the harvest reads (NaN/Inf propagate through the sum)
             lanes = (0, 2, 3) if self.sharded_mode else (1, 2)
             table.lane_sum = table.state.abs().sum(lanes).cpu().numpy()
+            return True
         except Exception as e:           # noqa: BLE001 — chaos/card failure
             # a failed flush kills THIS table's in-flight rollouts (their
             # state is unrecoverable) but not the queue or other buckets'
@@ -531,16 +548,7 @@ class RolloutEngine:
             table.graph = None
             table.state = None
             table.lane_sum = None
-            return
-        advanced = int(np.minimum(table.rem, spf).sum())
-        table.rem = np.maximum(table.rem - spf, 0)
-        self._c_steps.inc(advanced)
-        t1 = time.perf_counter()
-        srv.stats.record_stage("rollout_generate", t1 - t0)
-        if srv.telemetry.enabled:
-            srv.telemetry.tracer.record_span(
-                "rollout_generate", t0, t1, bucket=table.size,
-                active=len(table.active()), steps=spf, advanced=advanced)
+            return False
 
     def _advance_sharded(self, table: _SlotTable, gen):
         """One sharded flush. Under state feedback, each active lane's

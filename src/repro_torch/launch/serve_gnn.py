@@ -52,7 +52,14 @@ the CPU.
 
 ``ServerStats`` streams latencies, batch sizes and the ``SERVE_STAGES``
 timings into histograms of the server's ``telemetry.metrics``; with
-``cfg.telemetry`` the tracer records the per-request spans.
+``cfg.telemetry`` the tracer records the per-request spans, and while a
+``torch.profiler`` profile records they land in ``telemetry.PROFILED`` from
+every thread. The worker's spans wrap its work: ``flush``; ``prepare``,
+with a ``sample`` and a ``check_cloud`` per request; ``dispatch``, with
+``h2d`` (the stack and the pinned copies) and ``enqueue`` (the bucket
+call); ``device_wait``; ``harvest``; ``publish``; and ``await_work``, its
+wait for the next plan. ``submit``, ``bucket_route``, ``queue_wait``,
+``request`` and ``result`` cross threads and are recorded afterwards.
 
 Sharded serving (``shard_devices > 1``): each request is split into
 ``shard_devices`` RCB shards with halo rings (``repro_torch.graphx.
@@ -136,7 +143,7 @@ from repro_torch.models import meshgraphnet
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.resilience import faults
 from repro_torch.telemetry import (Histogram, MetricsRegistry, Telemetry,
-                                   default_size_buckets, warn_once)
+                                   clock_ns, default_size_buckets, warn_once)
 
 log = logging.getLogger(__name__)
 
@@ -209,6 +216,7 @@ class Request:
     t_submit: float = 0.0
     deadline: Optional[float] = None   # perf_counter() time after which the
                                        # request is dropped, not served
+    t_submit_ns: int = 0               # t_submit on the span clock
 
 
 @dataclass
@@ -1071,14 +1079,14 @@ class GNNServer:
         A dead server resolves submits at once too, so a ``result()``
         waiter never hangs on a request that can no longer be served.
         """
-        t0 = time.perf_counter()
+        t0 = clock_ns()
         verts = np.asarray(verts, np.float32)
         faces = np.asarray(faces)
         if timeout_s is None:
             timeout_s = self.request_timeout_s or None
-        t_route = time.perf_counter()
+        t_route = clock_ns()
         bucket = self._route(n_points, mutate=True)   # auto mode may grow
-        t_routed = time.perf_counter()
+        t_routed = clock_ns()
         with self._cond:
             if self._worker_dead:
                 return self._resolve_error_locked(
@@ -1112,7 +1120,8 @@ class GNNServer:
                 Request(verts=verts, faces=faces, request_id=rid,
                         n_points=n_points, t_submit=now,
                         deadline=None if not timeout_s
-                        else now + float(timeout_s)))
+                        else now + float(timeout_s),
+                        t_submit_ns=clock_ns()))
             self.stats.g_queue_depth.set(
                 sum(len(q) for q in self._queues.values()))
             if self.auto:
@@ -1124,13 +1133,11 @@ class GNNServer:
                     self._refit_count = 0
                     self._refit_ladder_locked()
             self._cond.notify_all()
-        if self.telemetry.enabled:
-            tracer = self.telemetry.tracer
-            tracer.record_span("submit", t0, time.perf_counter(),
-                               trace_id=f"req-{rid}", bucket=bucket,
-                               n_points=n_points)
-            tracer.record_span("bucket_route", t_route, t_routed,
-                               trace_id=f"req-{rid}", bucket=bucket)
+        tracer = self.telemetry.tracer
+        tracer.record_span("submit", t0, clock_ns(), trace_id=f"req-{rid}",
+                           bucket=bucket, n_points=n_points)
+        tracer.record_span("bucket_route", t_route, t_routed,
+                           trace_id=f"req-{rid}", bucket=bucket)
         return rid
 
     def pending(self) -> int:
@@ -1214,7 +1221,20 @@ class GNNServer:
         rejections. Pure numpy: under the async flush it overlaps the
         previous batch's work on the card. Returns ``(rejections, ok
         requests, samples, start time)``."""
-        t0 = time.perf_counter()
+        with self.telemetry.span("prepare", bucket=b.n_points,
+                                 batch=len(reqs)) as sp:
+            t0 = time.perf_counter()
+            results, ok_reqs, samples = self._prepare_reqs(b, reqs, record)
+            t1 = time.perf_counter()
+            sp.set(ok=len(ok_reqs))
+        if record:
+            self.stats.record_stage("prepare", t1 - t0)
+        return results, ok_reqs, samples, t0
+
+    def _prepare_reqs(self, b: Bucket, reqs: List[Request], record: bool):
+        """``_prepare``'s work, a request at a time: ``(rejections, ok
+        requests, samples)``."""
+        tel = self.telemetry
         results: List[Result] = []
         ok_reqs, samples = [], []
         for req in reqs:
@@ -1228,10 +1248,12 @@ class GNNServer:
                     "is set; use bucket_sizes='auto' to grow the ladder",
                     np.zeros((0, 3), np.float32), record))
                 continue
-            pts, nrm = self._sample(req, b.n_points)
+            with tel.span("sample", rid=req.request_id):
+                pts, nrm = self._sample(req, b.n_points)
             dropped = 0
             if record and self.check_requests:
-                dropped = self._check_cloud(b, pts, req.request_id)
+                with tel.span("check_cloud", rid=req.request_id):
+                    dropped = self._check_cloud(b, pts, req.request_id)
             if dropped and self.reject_overflow:
                 results.append(self._reject(
                     req, b.n_points,
@@ -1241,29 +1263,19 @@ class GNNServer:
                 continue
             ok_reqs.append(req)
             samples.append((pts, nrm))
-        t1 = time.perf_counter()
-        if record:
-            self.stats.record_stage("prepare", t1 - t0)
-        if self.telemetry.enabled:
-            self.telemetry.tracer.record_span(
-                "prepare", t0, t1, bucket=b.n_points, batch=len(reqs),
-                ok=len(ok_reqs), rids=[r.request_id for r in reqs])
-        return results, ok_reqs, samples, t0
+        return results, ok_reqs, samples
 
     def _dispatch(self, b: Bucket, pre: List[Result], ok_reqs: List[Request],
                   samples, record: bool) -> _InFlight:
         """Device stage: copy in, enqueue the bucket's pipeline, copy out;
         no waiting on the card."""
-        t0 = time.perf_counter()
-        with self.telemetry.annotate("serve/dispatch"):
+        with self.telemetry.span("dispatch", bucket=b.n_points,
+                                 batch=len(ok_reqs)):
+            t0 = time.perf_counter()
             fl = self._dispatch_inner(b, pre, ok_reqs, samples, record)
-        t1 = time.perf_counter()
+            t1 = time.perf_counter()
         if record and ok_reqs:
             self.stats.record_stage("dispatch", t1 - t0)
-        if self.telemetry.enabled:
-            self.telemetry.tracer.record_span(
-                "dispatch", t0, t1, bucket=b.n_points, batch=len(ok_reqs),
-                rids=[r.request_id for r in ok_reqs])
         return fl
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -1292,19 +1304,21 @@ class GNNServer:
                                  host=None, pts=np.zeros((0,)),
                                  record=record)
         n = b.n_points
-        # only the real requests run: no replay rows (module docstring)
-        pts = np.stack([p for p, _ in samples])
-        nrm = np.stack([m for _, m in samples])
         on_card = self.device.type == "cuda"
         start = event = None
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        if pack is None:
-            out = self._call_bucket(b, self._to_device(pts),
-                                    self._to_device(nrm), [n] * len(ok_reqs))
-        else:
-            out = self._call_bucket(b, pack.batch(self.device))
+        with self.telemetry.span("h2d"):
+            # only the real requests run: no replay rows (module docstring)
+            pts = np.stack([p for p, _ in samples])
+            nrm = np.stack([m for _, m in samples])
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            if pack is None:
+                args = (self._to_device(pts), self._to_device(nrm),
+                        [n] * len(ok_reqs))
+            else:
+                args = (pack.batch(self.device),)
+        out = self._call_bucket(b, *args)
         host = out
         if on_card:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -1351,7 +1365,8 @@ class GNNServer:
         faults.fire("serve.compile")      # chaos: failure at the bucket call
         ev = None if b.called else compile_cache.CompileEvents()
         t0 = time.perf_counter()
-        with self.telemetry.annotate(f"serve/call_b{b.n_points}"):
+        t0_ns = clock_ns()
+        with self.telemetry.span("enqueue", bucket=b.n_points):
             out = b.infer(self.params, *args)
         if ev is not None:
             # a bucket's first call builds (nvcc) or loads the kernels this
@@ -1366,8 +1381,8 @@ class GNNServer:
                 stage = "compile" if compiles else "cache_load"
                 self.stats.record_stage(stage, t1 - t0)
                 self.telemetry.tracer.record_span(
-                    stage, t0, t1, bucket=b.n_points, compiles=compiles,
-                    cache_loads=loads)
+                    stage, t0_ns, clock_ns(), bucket=b.n_points,
+                    compiles=compiles, cache_loads=loads)
         return out
 
     def _padding_of(self, b: Bucket, req: Request) -> Tuple[int, int]:
@@ -1390,48 +1405,44 @@ class GNNServer:
         if fl.host is None:
             return results
         b, record = fl.bucket, fl.record
-        t0 = time.perf_counter()
-        with self.telemetry.annotate("serve/device_wait"):
+        tel = self.telemetry
+        with tel.span("device_wait", bucket=b.n_points,
+                      batch=len(fl.ok_reqs)):
+            t0 = time.perf_counter()
             if fl.event is not None:
                 fl.event.synchronize()
-        t_sync = time.perf_counter()
+            t_sync = time.perf_counter()
         if record:
             self.stats.record_stage("device_wait", t_sync - t0)
-        tel_on = self.telemetry.enabled
-        tracer = self.telemetry.tracer
-        if tel_on:
-            tracer.record_span("device_wait", t0, t_sync, bucket=b.n_points,
-                               batch=len(fl.ok_reqs))
-        out = fl.host.numpy().copy()
-        out = faults.corrupt("serve.harvest", out)   # chaos: device garbage
-        if fl.plan is not None:
-            # sharded: the owned rows of each geometry gathered back into
-            # one cloud; the guard below then runs per geometry
-            out = fl.plan.gather(out)
-        guard = self.cfg.nonfinite_guard
-        t_done = time.perf_counter()
-        run_s = (fl.start_event.elapsed_time(fl.event) / 1e3
-                 if fl.event is not None else fl.t_dispatched - fl.t_start)
-        lats = []
-        for i, req in enumerate(fl.ok_reqs):
-            if guard and not np.isfinite(out[i]).all():
-                # nonfinite garbage never reaches a client as data; the
-                # per-item scan contains it to this request
-                results.append(self._nonfinite_result(b, req, out[i]))
-                continue
-            lat = t_done - (req.t_submit or t_done)
-            lats.append(lat)
-            results.append(Result(request_id=req.request_id, points=fl.pts[i],
-                                  fields=out[i], latency_s=lat,
-                                  bucket=b.n_points,
-                                  batch_size=len(fl.ok_reqs), run_s=run_s))
-            if tel_on:
-                tracer.record_span("request", req.t_submit or t_done,
-                                   t_done, trace_id=f"req-{req.request_id}",
-                                   bucket=b.n_points)
-        if tel_on:
-            tracer.record_span("harvest", t_sync, t_done,
-                               bucket=b.n_points, batch=len(fl.ok_reqs))
+        with tel.span("harvest", bucket=b.n_points, batch=len(fl.ok_reqs)):
+            out = fl.host.numpy().copy()
+            out = faults.corrupt("serve.harvest", out)   # chaos: garbage
+            if fl.plan is not None:
+                # sharded: the owned rows of each geometry gathered back
+                # into one cloud; the guard below then runs per geometry
+                out = fl.plan.gather(out)
+            guard = self.cfg.nonfinite_guard
+            t_done = time.perf_counter()
+            t_done_ns = clock_ns()
+            run_s = (fl.start_event.elapsed_time(fl.event) / 1e3
+                     if fl.event is not None
+                     else fl.t_dispatched - fl.t_start)
+            lats = []
+            for i, req in enumerate(fl.ok_reqs):
+                if guard and not np.isfinite(out[i]).all():
+                    # nonfinite garbage never reaches a client as data; the
+                    # per-item scan contains it to this request
+                    results.append(self._nonfinite_result(b, req, out[i]))
+                    continue
+                lat = t_done - (req.t_submit or t_done)
+                lats.append(lat)
+                results.append(Result(
+                    request_id=req.request_id, points=fl.pts[i],
+                    fields=out[i], latency_s=lat, bucket=b.n_points,
+                    batch_size=len(fl.ok_reqs), run_s=run_s))
+                tel.tracer.record_span(
+                    "request", req.t_submit_ns or t_done_ns, t_done_ns,
+                    trace_id=f"req-{req.request_id}", bucket=b.n_points)
         if record and fl.ok_reqs:
             padding = [self._padding_of(b, req) for req in fl.ok_reqs]
             for lat in lats:
@@ -1490,11 +1501,12 @@ class GNNServer:
                                  for _ in range(min(len(q), width))]))
         # queue wait ends when the request is popped into a work plan
         t_pop = time.perf_counter()
+        t_pop_ns = clock_ns()
         tracer = self.telemetry.tracer
         for n, batch in plan:
             for req in batch:
                 self.stats.record_stage("queue_wait", t_pop - req.t_submit)
-                tracer.record_span("queue_wait", req.t_submit, t_pop,
+                tracer.record_span("queue_wait", req.t_submit_ns, t_pop_ns,
                                    trace_id=f"req-{req.request_id}",
                                    bucket=n)
         return plan, timed_out
@@ -1708,6 +1720,7 @@ class GNNServer:
                ) -> Result:
         """Block until the background worker finishes ``request_id``."""
         t0 = time.perf_counter()
+        t0_ns = clock_ns()
         deadline = None if timeout is None else t0 + timeout
         with self._cond:
             self._waiting.add(request_id)     # shield from buffer eviction
@@ -1722,10 +1735,8 @@ class GNNServer:
                 out = self._done.pop(request_id)
             finally:
                 self._waiting.discard(request_id)
-        if self.telemetry.enabled:
-            self.telemetry.tracer.record_span(
-                "result", t0, time.perf_counter(),
-                trace_id=f"req-{request_id}")
+        self.telemetry.tracer.record_span("result", t0_ns, clock_ns(),
+                                          trace_id=f"req-{request_id}")
         return out
 
     # ------------------------------------------------------------- rollouts
@@ -1806,7 +1817,8 @@ class GNNServer:
 
     def _publish(self, results: List[Result]):
         """Land finished results in the buffer and wake waiters."""
-        with self._cond:
+        with self.telemetry.span("publish", results=len(results)), \
+                self._cond:
             for r in results:
                 self._done[r.request_id] = r
             self._inflight = []
@@ -1845,7 +1857,8 @@ class GNNServer:
                                  for q in self._queues.values() for r in q
                                  if r.deadline is not None)
                     wait = max(min(wakes), 1e-4) if wakes else None
-                    self._cond.wait(timeout=wait)
+                    with self.telemetry.span("await_work"):
+                        self._cond.wait(timeout=wait)
                     continue
                 # until published, drained requests are "in flight": a
                 # crash between drain and publish resolves them

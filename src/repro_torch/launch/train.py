@@ -82,8 +82,8 @@ from repro_torch.models.convert import (adam_state_from_jax,
 from repro_torch.models.meshgraphnet import MeshGraphNet, loss_fn
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 from repro_torch.resilience import faults
-from repro_torch.telemetry import Telemetry, default_latency_buckets
-from repro_torch.telemetry.profiler import annotate
+from repro_torch.telemetry import (Telemetry, clock_ns,
+                                   default_latency_buckets, span)
 
 # training-loop stages whose wall time lands in the metrics registry as
 # ``train_stage_<name>_seconds`` histograms, as in the JAX trainer
@@ -118,6 +118,11 @@ def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig, group=None):
     the Adam state stay as they were, bit for bit, and ``skipped`` is True.
     Sharded, the verdict is read from the summed loss and gradients, so a
     nonfinite value on one rank makes every rank skip.
+
+    Under a running ``torch.profiler`` a step is spans
+    (``telemetry.span``): ``forward_backward`` per partition, ``adam``
+    (the update's launches) and ``guard`` (the verdict's host read, which
+    waits for the step on the device).
     """
     guard = bool(cfg.nonfinite_guard)
 
@@ -133,13 +138,15 @@ def make_gnn_step_fn(cfg: GNNConfig, opt_cfg: AdamConfig, group=None):
                 lambda m, b: loss_fn(m, b, denom), model, batches, group)
         params = [p for _, p in model.leaves()]
         grads = [p.grad for p in params]
-        new_params, new_opt, metrics = adam_update(opt_cfg, grads, opt,
-                                                   params)
+        with span("adam"):
+            new_params, new_opt, metrics = adam_update(opt_cfg, grads, opt,
+                                                       params)
         skipped = False
         if guard:
-            finite = torch.isfinite(loss) & torch.stack(
-                [torch.isfinite(g).all() for g in grads]).all()
-            skipped = not bool(finite)
+            with span("guard"):
+                finite = torch.isfinite(loss) & torch.stack(
+                    [torch.isfinite(g).all() for g in grads]).all()
+                skipped = not bool(finite)
         if not skipped:
             with torch.no_grad():
                 for p, new in zip(params, new_params):
@@ -215,8 +222,9 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
     fields) records the loop's stages as ``train_stage_<name>_seconds``
     histograms, always, and as spans (``data``, ``partition``, ``step``
     with ``trace_id="step-<it>"``, nested ``prepare``, ``checkpoint``) when
-    its tracer is on. A step's time runs to the end of its update on the
-    device; ``prepare`` is its batch staged on the device.
+    its tracer is on, and under a running ``torch.profiler`` whatever it
+    says. A step's time runs to the end of its update on the device;
+    ``prepare`` is its batch staged on the device.
 
     Returns ``(model, losses, (train, test, norm_in, norm_out))``.
     """
@@ -236,15 +244,13 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
                                    help="most recent training loss")
     steps_ctr = tel.metrics.counter("train_steps_total",
                                     help="optimizer steps taken")
-    with tel.span("data", n_samples=n_samples), \
-            tel.annotate("train/build_dataset"):
+    with tel.span("data", n_samples=n_samples):
         t0 = time.perf_counter()
         train, test, norm_in, norm_out = pipe.build_dataset(cfg, n_samples,
                                                             device=dev)
         hists["data"].observe(time.perf_counter() - t0)
     # one partitioning pass per sample + common padding: one shape for all
-    with tel.span("partition", n_samples=len(train)), \
-            tel.annotate("train/partition"):
+    with tel.span("partition", n_samples=len(train)):
         t0 = time.perf_counter()
         psamples = pipe.partition_samples(cfg, train, norm_in, norm_out)
         hists["partition"].observe(time.perf_counter() - t0)
@@ -333,8 +339,9 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
                         np.ascontiguousarray(nf)).to(dev)
                 _sync(dev)
             tp1 = time.perf_counter()
+            tp1_ns = clock_ns()
             first = it == start_step
-            with tel.annotate(f"train/step{'_first' if first else ''}"):
+            with span(f"train/step{'_first' if first else ''}"):
                 opt, loss, gnorm, skipped = step_fn(model, opt, stacked,
                                                     denom)
                 losses.append(float(loss))
@@ -342,8 +349,8 @@ def train_gnn(cfg: GNNConfig, steps: int, n_samples: int,
             if skipped:
                 nonfinite_steps += 1
                 skip_ctr.inc()
-                tel.tracer.record_span("nonfinite_skip", tp1,
-                                       time.perf_counter(), it=it)
+                tel.tracer.record_span("nonfinite_skip", tp1_ns, clock_ns(),
+                                       it=it)
                 print(f"step {it:5d} SKIPPED: nonfinite loss/grads (loss "
                       f"{losses[-1]}, {nonfinite_steps} skipped so far) - "
                       "params and Adam state unchanged", flush=True)
@@ -461,7 +468,7 @@ def make_llm_step_fn(cfg: ModelConfig, opt_cfg: AdamConfig):
         # a parameter the loss does not reach has JAX's zero gradient
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
-        with annotate("llm.adam_update"):
+        with span("llm.adam_update"):
             new_params, opt, metrics = adam_update(opt_cfg, grads, opt,
                                                    params)
             with torch.no_grad():

@@ -8,7 +8,8 @@ processor's receiver scatter-add and the backward of its two edge gathers
 receiver CSR and a sender CSR are built once per graph, outside the layer
 loop and the remat boundary, and each layer runs the CUDA kernels on the
 card or their plain versions on the CPU. ``masked_mse`` and ``loss_fn`` are
-the training loss.
+the training loss. ``apply`` marks ``encoder``, ``processor`` and
+``decoder`` with spans (``telemetry.span``) for ``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve
 from repro_torch.kernels.segment_agg import ops as segops
 from repro_torch.models.nn import MLP
+from repro_torch.telemetry import span
 
 
 class MeshGraphNet(nn.Module):
@@ -61,10 +63,11 @@ class MeshGraphNet(nn.Module):
         recv_csr = segops.prepare(receivers, n_nodes, edge_mask)
         m = None if edge_mask is None else edge_mask[:, None].to(
             edge_feats.dtype)
-        h = self.node_encoder(node_feats)
-        e = self.edge_encoder(edge_feats)
-        if m is not None:
-            e = e * m
+        with span("encoder"):
+            h = self.node_encoder(node_feats)
+            e = self.edge_encoder(edge_feats)
+            if m is not None:
+                e = e * m
 
         def mp_layer(pe, pn, h, e):
             msg_in = torch.cat([segops.gather_rows(h, send, send_csr),
@@ -81,12 +84,15 @@ class MeshGraphNet(nn.Module):
         # kept, and each layer is recomputed in the backward pass. Without
         # autograd (serving) there is nothing to save.
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for pe, pn in zip(self.proc_edge, self.proc_node):
-            if remat:
-                h, e = checkpoint(mp_layer, pe, pn, h, e, use_reentrant=False)
-            else:
-                h, e = mp_layer(pe, pn, h, e)
-        return self.decoder(h)
+        with span("processor"):
+            for pe, pn in zip(self.proc_edge, self.proc_node):
+                if remat:
+                    h, e = checkpoint(mp_layer, pe, pn, h, e,
+                                      use_reentrant=False)
+                else:
+                    h, e = mp_layer(pe, pn, h, e)
+        with span("decoder"):
+            return self.decoder(h)
 
     forward = apply
 

@@ -32,11 +32,10 @@ expert products; the slot indices carry no gradient, and the aux loss keeps
 its gradient through the mean router probabilities (tested against
 ``jax.value_and_grad`` in ``tests/test_torch_train_llm_decoders.py``).
 
-``apply`` marks its parts for ``torch.profiler`` (``telemetry.profiler.
-annotate``: ``moe.route``, ``moe.dispatch``, ``moe.experts``,
-``moe.combine``, ``moe.shared``), so a profile can split a step's device
-time among them; outside a profile a mark costs a few microseconds of host
-time.
+``apply`` marks its parts with spans (``telemetry.span``: ``moe.route``,
+``moe.dispatch``, ``moe.experts``, ``moe.combine``, ``moe.shared``), so a
+``torch.profiler`` profile can split a step's device time among them;
+outside a profile a span costs one flag read.
 """
 from __future__ import annotations
 
@@ -48,7 +47,7 @@ from torch import nn
 from torch.nn import functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.nn import ACTS
-from repro_torch.telemetry.profiler import annotate
+from repro_torch.telemetry import span
 
 
 def _uniform(shape, lim: float, *, generator, device, dtype):
@@ -172,19 +171,19 @@ def apply(params: MoE, x):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(cfg, s)
-    with annotate("moe.route"):
+    with span("moe.route"):
         weights, expert_idx, aux = route(params, x, cfg)
-    with annotate("moe.dispatch"):
+    with span("moe.dispatch"):
         src, src_ok, pos, w_slot = _dispatch_indices(expert_idx, e, cap,
                                                      weights)
         xb = x.gather(1, src.reshape(b, e * cap, 1).expand(-1, -1, d))
         xb = xb.reshape(b, e, cap, d) * src_ok[..., None].to(x.dtype)
-    with annotate("moe.experts"):
+    with span("moe.experts"):
         g = torch.einsum("becd,edf->becf", xb, params.w_gate)
         u = torch.einsum("becd,edf->becf", xb, params.w_up)
         yb = torch.einsum("becf,efd->becd", params.act(g) * u,
                           params.w_down)
-    with annotate("moe.combine"):
+    with span("moe.combine"):
         yw = yb * w_slot[..., None].to(yb.dtype)             # (B, E, C, d)
         # each token's k slots in k order; a dropped assignment reads the
         # zero row appended at E * C
@@ -197,7 +196,7 @@ def apply(params: MoE, x):
         for i in range(1, k):
             y = y + picked[:, :, i]
     if hasattr(params, "shared"):
-        with annotate("moe.shared"):
+        with span("moe.shared"):
             y = y + _shared(params, x)
     return y.to(x.dtype), aux
 

@@ -31,7 +31,7 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.nn import ACTS, Dense, RMSNorm, whole
-from repro_torch.telemetry.profiler import annotate
+from repro_torch.telemetry import span
 
 State = Dict[str, torch.Tensor]
 
@@ -240,7 +240,7 @@ class Mamba2(nn.Module):
         log_b = torch.log(dt + 1e-20)
         S0 = torch.zeros((B, H, ssm.d_state, hd), device=u.device) \
             if state is None else state["S"]
-        with annotate("mamba2.gla"):
+        with span("mamba2.gla"):
             if T == 1 and state is not None:
                 y, _, S, _ = gla_decode_step(q[:, 0], k[:, 0], v[:, 0],
                                              log_a[:, 0], log_b[:, 0], S0)
@@ -326,7 +326,7 @@ class MLSTM(nn.Module):
             m0 = torch.zeros((B, H), device=x.device)
         else:
             S0, n0, m0 = state["S"], state["n"], state["m"]
-        with annotate("mlstm.gla"):
+        with span("mlstm.gla"):
             m, m_prev = stabilizer_scan(log_f, log_i, m0)
             la_eff = log_f + m_prev - m
             lb_eff = log_i - m
@@ -404,7 +404,7 @@ class SLSTM(nn.Module):
         c, n, m, h = (state[key] for key in ("c", "n", "m", "h"))
         R = self.R.float()
         hs = []
-        with annotate("slstm.loop"):
+        with span("slstm.loop"):
             # unbind: its backward stacks the steps' gradients once
             for zt, it, ft, ot in gates.unbind(1):
                 rz, ri, rf, ro = torch.einsum("bhd,ghde->gbhe", h, R)

@@ -40,7 +40,7 @@ from repro_torch.device import resolve
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.nn import Dense, Embed, RMSNorm
-from repro_torch.telemetry.profiler import annotate
+from repro_torch.telemetry import span
 
 State = Dict[str, torch.Tensor]
 
@@ -238,13 +238,13 @@ class Hybrid(nn.Module):
             fresh = []
             for g, group in enumerate(self.blocks):
                 for i, block in enumerate(group.mamba):
-                    with annotate("hybrid.mamba2"):
+                    with span("hybrid.mamba2"):
                         h, new = block(h, _sub(state, f"mamba.{i}.", g))
                         for k, t in new.items():
                             state[f"mamba.{i}.{k}"][g] = t
                 ckv = None if mode != "decode" else \
                     (state["attn_kv.k"][g], state["attn_kv.v"][g])
-                with annotate("hybrid.shared_attention"):
+                with span("hybrid.shared_attention"):
                     h, kv, _ = self.shared_attn(h, q_pos, window=None,
                                                 mode=mode, cache_kv=ckv,
                                                 decode_pos=decode_pos)
@@ -262,9 +262,9 @@ class Hybrid(nn.Module):
         """One group in training: its Mamba2 blocks from the zero state,
         then the shared block's plain causal attention; no cache."""
         for block in group.mamba:
-            with annotate("hybrid.mamba2"):
+            with span("hybrid.mamba2"):
                 h, _ = block(h)
-        with annotate("hybrid.shared_attention"):
+        with span("hybrid.shared_attention"):
             h, _, _ = self.shared_attn(h, q_pos, window=None, mode="train")
         return h
 

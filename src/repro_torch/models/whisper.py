@@ -21,7 +21,7 @@ non-causal, the decoder's causal), never the kernel, and with
 ``cfg.remat == "full"`` each encoder and decoder layer runs under
 ``transformer.remat_wrap``, as JAX wraps its scanned layer bodies.
 The attention sublayers are marked for ``torch.profiler``
-(``telemetry.profiler.annotate``: ``whisper.encoder_attention``,
+(spans, ``telemetry.span``: ``whisper.encoder_attention``,
 ``whisper.decoder_attention``, ``whisper.cross_attention``, each with its
 projections), so a profile can split a prefill's device time among them.
 
@@ -42,7 +42,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.nn import Dense, Embed, LayerNorm
-from repro_torch.telemetry.profiler import annotate
+from repro_torch.telemetry import span
 
 Cache = Dict[str, torch.Tensor]
 
@@ -70,7 +70,7 @@ class EncoderLayer(nn.Module):
     def forward(self, h, q_pos, mode: str = "prefill"):
         """One bidirectional layer; ``mode`` 'prefill' (the kernel) or
         'train' (the plain attention)."""
-        with annotate("whisper.encoder_attention"):
+        with span("whisper.encoder_attention"):
             a, _ = self.attn(self.ln1(h), q_pos, window=None, mode=mode,
                              causal=False)
         h = h + a
@@ -104,7 +104,7 @@ class DecoderLayer(nn.Module):
         cfg = self.xattn.cfg
         b, s, _ = x.shape
         h, hd = cfg.n_heads, cfg.resolved_head_dim
-        with annotate("whisper.cross_attention"):
+        with span("whisper.cross_attention"):
             q = tfm.split_heads(self.xattn.wq(x), h, hd)
             if plain:
                 t = xk.shape[1]
@@ -120,10 +120,10 @@ class DecoderLayer(nn.Module):
     def forward(self, h, q_pos, enc_out):
         """One layer in training: causal self-attention, cross-attention
         over ``enc_out``, the FFN; no cache."""
-        with annotate("whisper.decoder_attention"):
+        with span("whisper.decoder_attention"):
             a, _ = self.attn(self.ln1(h), q_pos, window=None, mode="train")
         h = h + a
-        with annotate("whisper.cross_attention"):
+        with span("whisper.cross_attention"):
             xk, xv = self.cross_kv(enc_out)
         h = h + self.cross_attend(self.ln_x(h), xk, xv, plain=True)
         return h + self.mlp(self.ln2(h))
@@ -222,7 +222,7 @@ class Whisper(nn.Module):
         for i, layer in enumerate(self.dec_blocks):
             ckv = (cache["k"][i], cache["v"][i]) if mode == "decode" \
                 else None
-            with annotate("whisper.decoder_attention"):
+            with span("whisper.decoder_attention"):
                 a, (k, v) = layer.attn(layer.ln1(h), q_pos, window=None,
                                        mode=mode, cache_kv=ckv,
                                        decode_pos=decode_pos)
@@ -230,7 +230,7 @@ class Whisper(nn.Module):
             if mode == "decode":
                 xk, xv = cache["xk"][i], cache["xv"][i]
             else:
-                with annotate("whisper.cross_attention"):
+                with span("whisper.cross_attention"):
                     xk, xv = layer.cross_kv(enc_out)
                 cache["k"][i], cache["v"][i] = k, v
                 cache["xk"][i], cache["xv"][i] = xk, xv

@@ -4,13 +4,16 @@ The port of ``repro.telemetry``, one import for the trainer's and the GNN
 server's observability:
 
 * :class:`~repro_torch.telemetry.trace.Tracer`: nestable, thread-safe spans
-  with a per-step or per-request ``trace_id``; JSONL and Chrome
-  ``trace_event`` exporters.
+  with a per-step or per-request ``trace_id``, stamped on the profiler's
+  clock; JSONL and Chrome ``trace_event`` exporters. Every span follows a
+  running ``torch.profiler``: a ``record_function`` range of its name and a
+  record in :data:`PROFILED`, which :func:`profiled_spans` reads by
+  interval; :func:`span` is the span of code that holds no tracer.
 * :class:`~repro_torch.telemetry.metrics.MetricsRegistry`: counters,
   gauges, fixed-bucket streaming histograms; Prometheus text and JSON
   snapshots.
-* :mod:`~repro_torch.telemetry.profiler`: ``record_function`` annotations,
-  opt-in ``torch.profiler`` capture, ``torch.cuda`` memory snapshots.
+* :mod:`~repro_torch.telemetry.profiler`: opt-in ``torch.profiler``
+  capture of every thread, ``torch.cuda`` memory snapshots.
 
 :class:`Telemetry` is the bundle call sites thread around, built from the
 config's ``telemetry`` / ``trace_dir`` / ``profile_capture`` fields (or
@@ -23,20 +26,22 @@ import os
 from typing import Optional
 
 from repro_torch.telemetry.metrics import (Counter, Gauge, Histogram,
-                                           MetricsRegistry, SnapshotWriter,
+                                           MetricsRegistry,
                                            default_latency_buckets,
                                            default_size_buckets)
-from repro_torch.telemetry.trace import (NULL_TRACER, NullTracer, SpanRecord,
-                                         Tracer, check_well_nested,
-                                         make_tracer)
+from repro_torch.telemetry.trace import (NULL_TRACER, PROFILED, NullTracer,
+                                         SpanRecord, Tracer,
+                                         check_well_nested, clock_ns,
+                                         make_tracer, profiled_spans, span)
 from repro_torch.telemetry import profiler
-from repro_torch.telemetry.profiler import (annotate, device_memory_snapshot,
+from repro_torch.telemetry.profiler import (device_memory_snapshot,
                                             trace_capture, warn_once)
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "SnapshotWriter",
-    "Tracer", "NullTracer", "NULL_TRACER", "SpanRecord", "Telemetry",
-    "make_tracer", "check_well_nested", "annotate", "trace_capture",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "Tracer", "NullTracer", "NULL_TRACER", "PROFILED", "SpanRecord",
+    "Telemetry", "make_tracer", "check_well_nested", "clock_ns", "span",
+    "profiled_spans", "trace_capture",
     "device_memory_snapshot", "warn_once", "profiler",
     "default_latency_buckets", "default_size_buckets",
 ]
@@ -48,8 +53,9 @@ class Telemetry:
     """The bundle a trainer or a server owns: tracer + metrics + capture
     flags.
 
-    ``enabled`` gates the span tracer and the ``record_function`` regions;
-    the metrics registry stays live either way. ``trace_dir`` is where
+    ``enabled`` gates the span tracer (a running profiler records the
+    spans whatever it says); the metrics registry stays live either way.
+    ``trace_dir`` is where
     :meth:`export` drops artifacts; ``profile`` additionally captures a
     ``torch.profiler`` trace under ``<trace_dir>/torch_profile`` for the
     duration of :meth:`capture`.
@@ -86,12 +92,9 @@ class Telemetry:
     def trace(self, trace_id: Optional[str]):
         return self.tracer.trace(trace_id)
 
-    def annotate(self, name: str):
-        """Host-side profiler region (no-op when telemetry is off)."""
-        return annotate(name, enabled=self.enabled)
-
     def capture(self):
-        """Opt-in ``torch.profiler`` capture for a ``with`` region."""
+        """Opt-in ``torch.profiler`` capture of every thread for a ``with``
+        region."""
         log_dir = (os.path.join(self.trace_dir, PROFILE_SUBDIR)
                    if (self.profile and self.trace_dir) else None)
         return trace_capture(log_dir)
@@ -123,12 +126,3 @@ class Telemetry:
             paths["metrics_json"],
             extra={"device_memory": device_memory_snapshot()})
         return paths
-
-    def snapshot_writer(self, interval_s: float = 5.0) -> SnapshotWriter:
-        """Periodic JSON snapshot writer into ``<trace_dir>/metrics.json``."""
-        if not self.trace_dir:
-            raise ValueError("no trace_dir configured for snapshot writer")
-        os.makedirs(self.trace_dir, exist_ok=True)
-        return SnapshotWriter(self.metrics,
-                              os.path.join(self.trace_dir, "metrics.json"),
-                              interval_s=interval_s)

@@ -14,11 +14,8 @@ Exporters:
   format (``# HELP`` / ``# TYPE``, cumulative ``_bucket{le=...}`` rows with
   ``+Inf``, ``_sum`` / ``_count``), scrape-ready.
 * :meth:`MetricsRegistry.snapshot` / :meth:`write_snapshot` — one JSON
-  object of every metric's current value, for the periodic snapshot writer
-  and the bench breakdown fields.
-* :class:`SnapshotWriter` — background thread writing the JSON snapshot
-  every ``interval_s`` (the "streaming" half: a dashboard can tail the
-  file without attaching to the process).
+  object of every metric's current value, for the telemetry export and
+  the bench breakdown fields.
 
 Everything is thread-safe: each metric carries its own lock (an observe
 never contends with an unrelated metric), the registry lock only guards
@@ -301,39 +298,3 @@ class MetricsRegistry:
                 lines.append(f"{pname} {v!r}" if v else f"{pname} 0")
         return "\n".join(lines) + "\n"
 
-
-class SnapshotWriter:
-    """Background thread writing the registry's JSON snapshot periodically.
-
-    ``start()`` spawns, ``stop()`` writes one final snapshot and joins —
-    so even a run shorter than ``interval_s`` leaves a snapshot behind.
-    """
-
-    def __init__(self, registry: MetricsRegistry, path: str,
-                 interval_s: float = 5.0):
-        self.registry = registry
-        self.path = path
-        self.interval_s = float(interval_s)
-        self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
-
-    def start(self) -> "SnapshotWriter":
-        if self._thread is not None:
-            raise RuntimeError("snapshot writer already running")
-        self._stop.clear()
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="metrics-snapshot")
-        self._thread.start()
-        return self
-
-    def _loop(self):
-        while not self._stop.wait(self.interval_s):
-            self.registry.write_snapshot(self.path)
-
-    def stop(self):
-        if self._thread is None:
-            return
-        self._stop.set()
-        self._thread.join()
-        self._thread = None
-        self.registry.write_snapshot(self.path)

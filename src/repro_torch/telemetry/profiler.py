@@ -1,13 +1,14 @@
-"""``torch.profiler`` integration: annotations, capture, memory snapshots.
+"""``torch.profiler`` integration: capture and memory snapshots.
 
-The PyTorch twin of ``repro.telemetry.profiler``. Three hooks, all opt-in
-and all safe to call when telemetry is disabled:
+The PyTorch twin of ``repro.telemetry.profiler``. Two hooks, both opt-in
+and both safe to call when telemetry is disabled (the named ranges in a
+profile are the spans of :mod:`~repro_torch.telemetry.trace`, which follow
+any running profiler):
 
-* :func:`annotate`: a ``torch.profiler.record_function`` region (a named
-  range in a captured profile) when enabled, a nullcontext otherwise.
-* :func:`trace_capture`: a ``torch.profiler.profile`` of the host and, where
-  CUDA is available, the card, for a ``with`` region; on exit it writes a
-  Chrome trace to ``<log_dir>/trace.json``. ``log_dir=None`` is a no-op.
+* :func:`trace_capture`: a ``torch.profiler.profile`` of the host, on every
+  thread where this torch can (``profile_all_threads``), and, where CUDA is
+  available, the card, for a ``with`` region; on exit it writes a Chrome
+  trace to ``<log_dir>/trace.json``. ``log_dir=None`` is a no-op.
 * :func:`device_memory_snapshot`: ``torch.cuda.memory_stats`` per card
   (bytes in use, peak, ...), empty when the process has not used CUDA.
 
@@ -28,12 +29,15 @@ log = logging.getLogger(__name__)
 TRACE_FILE = "trace.json"
 
 
-def annotate(name: str, enabled: bool = True):
-    """Named host-side region for the profiler timeline; a shared
-    nullcontext when disabled, so call sites stay unconditional."""
-    if not enabled:
-        return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
+def all_threads_config():
+    """The profiler's experimental config that records every thread's
+    operations and ranges (the serving worker's spans beside the client
+    threads'), or None where this torch has no ``profile_all_threads``."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
 
 
 @contextlib.contextmanager
@@ -47,7 +51,9 @@ def trace_capture(log_dir: Optional[str]):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=acts,
+            experimental_config=all_threads_config()) as prof:
         yield log_dir
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

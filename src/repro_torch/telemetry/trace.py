@@ -1,18 +1,35 @@
-"""Span tracer: lightweight, thread-safe, nestable timing spans (a copy of
-``repro.telemetry.trace``, which imports no JAX).
+"""Span tracer: lightweight, thread-safe, nestable timing spans (the port
+of ``repro.telemetry.trace``), and the spans that follow ``torch.profiler``.
 
 One :class:`Tracer` records the lifecycle of every request / training step as
-a tree of spans. Each span carries a wall-clock interval, the thread it ran
-on, an optional ``trace_id`` tying it to one request (or one training step),
-and the id of its enclosing span on the same thread — enough to reconstruct
-the full nesting and to render the run in chrome://tracing.
+a tree of spans. Each span carries an interval on the span clock, the thread
+it ran on, an optional ``trace_id`` tying it to one request (or one training
+step), and the id of its enclosing span on the same thread — enough to
+reconstruct the full nesting and to render the run in chrome://tracing.
+
+The span clock, :func:`clock_ns`, is the one ``torch.profiler`` stamps its
+events with: nanoseconds since the Unix epoch. A span's interval lies on a
+profile's host and device timeline as it is, with no anchor.
+
+A span follows the profiler. While a ``torch.profiler`` profile records
+anywhere in the process (torch's process-wide ``_is_profiler_enabled``
+flag; its ``_profiler_enabled()`` is per thread and reads False on a
+thread the profile did not start on),
+every :meth:`Tracer.span`, enabled tracer or not, also opens a
+``record_function`` range of its name (a named range in the profile of the
+thread that started the profile, or of every thread with
+``profile_all_threads``) and lands a record in :data:`PROFILED`, one bounded
+process-wide buffer that :func:`profiled_spans` reads by interval, whatever
+thread the span ran on. Retroactive :meth:`Tracer.record_span` spans land
+there too.
 
 Design constraints (the serving hot path runs through this):
 
 * **Zero-cost when off.** ``NULL_TRACER`` (and any tracer built with
   ``enabled=False`` via :func:`make_tracer`) returns one shared no-op
-  context manager from :meth:`span` — no allocation, no locking, no clock
-  reads. The bound is pinned by ``tests/test_torch_telemetry.py``.
+  context manager from :meth:`span` while no profiler records: one flag
+  read, no allocation, no locking, no clock reads. The bound is pinned by
+  ``tests/test_torch_telemetry.py``.
 * **Bounded memory.** Finished spans land in a ``deque(maxlen=max_spans)``;
   sustained traffic overwrites the oldest spans instead of growing forever
   (the same discipline ``ServerStats`` follows for latencies).
@@ -37,16 +54,23 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+
+def clock_ns() -> int:
+    """The span clock: nanoseconds since the Unix epoch, the clock of
+    ``torch.profiler``'s event stamps (``start_ns()``)."""
+    return time.time_ns()
+
 
 @dataclass(frozen=True)
 class SpanRecord:
-    """One finished span. Times are raw ``time.perf_counter()`` seconds —
-    the same monotonic clock the serving/training code stamps requests
-    with, so externally-measured intervals line up with spans exactly. The
-    exporters re-anchor to the tracer's wall-clock epoch."""
+    """One finished span. Times are :func:`clock_ns` nanoseconds, the
+    profiler's clock, on every thread."""
     name: str
-    t_start: float
-    t_end: float
+    start_ns: int
+    end_ns: int
     span_id: int
     parent_id: Optional[int]           # enclosing span on the same thread
     thread_id: int
@@ -56,11 +80,11 @@ class SpanRecord:
 
     @property
     def duration_s(self) -> float:
-        return self.t_end - self.t_start
+        return (self.end_ns - self.start_ns) / 1e9
 
     def to_dict(self) -> dict:
-        d = {"name": self.name, "t_start": self.t_start,
-             "t_end": self.t_end, "duration_s": self.duration_s,
+        d = {"name": self.name, "start_ns": self.start_ns,
+             "end_ns": self.end_ns, "duration_s": self.duration_s,
              "span_id": self.span_id, "parent_id": self.parent_id,
              "thread_id": self.thread_id, "thread_name": self.thread_name,
              "trace_id": self.trace_id}
@@ -100,7 +124,7 @@ class _ActiveSpan:
         self.parent_id = None
         self.trace_id = trace_id
         self.attrs = attrs
-        self._t0 = 0.0
+        self._t0 = 0
 
     def set(self, **attrs):
         """Attach attributes discovered mid-span (batch size, bucket...)."""
@@ -118,12 +142,12 @@ class _ActiveSpan:
         if self.trace_id is None:
             self.trace_id = getattr(tr._local, "trace_id", None)
         stack.append(self)
-        self._t0 = tr._now()
+        self._t0 = clock_ns()
         return self
 
     def __exit__(self, *exc):
         tr = self._tracer
-        t1 = tr._now()
+        t1 = clock_ns()
         stack = tr._stack()
         # tolerate exception-driven unwinding out of order: pop through us
         while stack and stack[-1] is not self:
@@ -131,11 +155,41 @@ class _ActiveSpan:
         if stack:
             stack.pop()
         tr._record(SpanRecord(
-            name=self.name, t_start=self._t0, t_end=t1,
+            name=self.name, start_ns=self._t0, end_ns=t1,
             span_id=self.span_id, parent_id=self.parent_id,
             thread_id=threading.get_ident(),
             thread_name=threading.current_thread().name,
             trace_id=self.trace_id, attrs=self.attrs))
+        return False
+
+
+class _ProfiledSpan:
+    """A span while a profiler records: a ``record_function`` range of its
+    name around a span in :data:`PROFILED` and, when the tracer that opened
+    it is enabled, one in that tracer."""
+    __slots__ = ("_spans", "_range")
+
+    def __init__(self, tracer: "Tracer", name: str,
+                 trace_id: Optional[str], attrs: Dict[str, Any]):
+        self._spans = [_ActiveSpan(PROFILED, name, trace_id, attrs)]
+        if tracer.enabled and tracer is not PROFILED:
+            self._spans.append(_ActiveSpan(tracer, name, trace_id, attrs))
+        self._range = torch.profiler.record_function(name)
+
+    def set(self, **attrs):
+        self._spans[0].set(**attrs)     # the spans share one attrs dict
+        return self
+
+    def __enter__(self):
+        self._range.__enter__()
+        for s in self._spans:
+            s.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for s in reversed(self._spans):
+            s.__exit__(*exc)
+        self._range.__exit__(*exc)
         return False
 
 
@@ -163,8 +217,8 @@ class Tracer:
     """Thread-safe span recorder with bounded memory.
 
     ``max_spans`` bounds the finished-span buffer (oldest dropped first).
-    All span times share one epoch: wall clock at construction plus
-    ``perf_counter`` deltas, so spans from different threads line up.
+    All span times are :func:`clock_ns` stamps, so spans from different
+    threads line up with each other and with a ``torch.profiler`` trace.
     """
 
     enabled = True
@@ -175,17 +229,8 @@ class Tracer:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._ids = itertools.count(1)
-        self._wall0 = time.time()
-        self._perf0 = time.perf_counter()
 
     # ------------------------------------------------------------ recording
-
-    def _now(self) -> float:
-        return time.perf_counter()
-
-    def wall_time(self, t: float) -> float:
-        """Convert a span timestamp to wall-clock seconds since the epoch."""
-        return self._wall0 + (t - self._perf0)
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -200,7 +245,10 @@ class Tracer:
             self._spans.append(rec)
 
     def span(self, name: str, trace_id: Optional[str] = None, **attrs):
-        """Open a nested span: ``with tracer.span("prepare", bucket=256):``"""
+        """Open a nested span: ``with tracer.span("prepare", bucket=256):``
+        (see the module docstring for what a running profiler adds)."""
+        if _autograd_profiler._is_profiler_enabled:
+            return _ProfiledSpan(self, name, trace_id, attrs)
         return _ActiveSpan(self, name, trace_id, attrs)
 
     def trace(self, trace_id: Optional[str]):
@@ -208,20 +256,23 @@ class Tracer:
         ``with tracer.trace(f"req-{rid}"): ...``"""
         return _TraceContext(self, trace_id)
 
-    def record_span(self, name: str, t_start: float, t_end: float,
+    def record_span(self, name: str, start_ns: int, end_ns: int,
                     trace_id: Optional[str] = None, **attrs):
         """Record a span whose interval was measured externally — e.g. a
-        request's queue wait, whose endpoints live on different threads."""
+        request's queue wait, whose endpoints live on different threads.
+        ``start_ns``/``end_ns`` are :func:`clock_ns` stamps."""
         self._record(SpanRecord(
-            name=name, t_start=t_start, t_end=t_end,
+            name=name, start_ns=start_ns, end_ns=end_ns,
             span_id=next(self._ids), parent_id=None,
             thread_id=threading.get_ident(),
             thread_name=threading.current_thread().name,
             trace_id=trace_id, attrs=attrs))
+        if _autograd_profiler._is_profiler_enabled and self is not PROFILED:
+            PROFILED.record_span(name, start_ns, end_ns, trace_id, **attrs)
 
     def instant(self, name: str, trace_id: Optional[str] = None, **attrs):
         """Record a zero-duration marker event."""
-        t = self._now()
+        t = clock_ns()
         self.record_span(name, t, t, trace_id=trace_id, **attrs)
 
     # ------------------------------------------------------------ inspection
@@ -244,22 +295,20 @@ class Tracer:
     # ------------------------------------------------------------- exporters
 
     def export_jsonl(self, path: str) -> int:
-        """One JSON object per line per span; returns the span count.
-        ``t_wall_start`` re-anchors the monotonic timestamps to wall time."""
+        """One JSON object per line per span; returns the span count."""
         recs = self.records()
         with open(path, "w") as f:
             for r in recs:
-                d = r.to_dict()
-                d["t_wall_start"] = self.wall_time(r.t_start)
-                f.write(json.dumps(d, sort_keys=True) + "\n")
+                f.write(json.dumps(r.to_dict(), sort_keys=True) + "\n")
         return len(recs)
 
     def export_chrome_trace(self, path: str) -> int:
         """Chrome ``trace_event`` JSON for chrome://tracing / Perfetto.
 
         Spans become "X" (complete) events; ``ts``/``dur`` are microseconds
-        relative to the tracer epoch. Thread names are emitted as metadata
-        so the timeline groups rows by serving thread.
+        on the span clock (since the Unix epoch, as a ``torch.profiler``
+        trace's). Thread names are emitted as metadata so the timeline
+        groups rows by serving thread.
         """
         recs = self.records()
         events = []
@@ -271,8 +320,8 @@ class Tracer:
                 args["trace_id"] = r.trace_id
             events.append({
                 "name": r.name, "ph": "X", "pid": 1, "tid": r.thread_id,
-                "ts": (r.t_start - self._perf0) * 1e6,
-                "dur": max(r.duration_s, 0.0) * 1e6,
+                "ts": r.start_ns / 1e3,
+                "dur": max(r.end_ns - r.start_ns, 0) / 1e3,
                 "cat": "repro", "args": args,
             })
         for tid, tname in seen_threads.items():
@@ -286,21 +335,26 @@ class Tracer:
 
 class NullTracer(Tracer):
     """The disabled tracer: every operation is a no-op returning shared
-    objects. ``span()`` costs one attribute lookup and no allocation."""
+    objects, except that a span or a ``record_span`` while a profiler
+    records lands in :data:`PROFILED`. ``span()`` costs one flag read and no
+    allocation otherwise."""
 
     enabled = False
 
-    def __init__(self):                 # no buffer, no lock, no epoch
+    def __init__(self):                 # no buffer, no lock
         pass
 
     def span(self, name, trace_id=None, **attrs):
+        if _autograd_profiler._is_profiler_enabled:
+            return _ProfiledSpan(self, name, trace_id, attrs)
         return _NULL_SPAN
 
     def trace(self, trace_id):
         return _NULL_SPAN
 
-    def record_span(self, *a, **kw):
-        pass
+    def record_span(self, name, start_ns, end_ns, trace_id=None, **attrs):
+        if _autograd_profiler._is_profiler_enabled:
+            PROFILED.record_span(name, start_ns, end_ns, trace_id, **attrs)
 
     def instant(self, *a, **kw):
         pass
@@ -327,6 +381,24 @@ class NullTracer(Tracer):
 
 NULL_TRACER = NullTracer()
 
+#: The spans recorded while a profiler ran, from every thread, bounded.
+PROFILED = Tracer(max_spans=1 << 17)
+
+
+def span(name: str, trace_id: Optional[str] = None, **attrs):
+    """A span for code that holds no tracer (the pipeline, the models, the
+    training step): a no-op unless a profiler records, then a
+    ``record_function`` range and a record in :data:`PROFILED`."""
+    return NULL_TRACER.span(name, trace_id, **attrs)
+
+
+def profiled_spans(t0_ns: int, t1_ns: int) -> List[SpanRecord]:
+    """Every span of :data:`PROFILED` that overlaps ``[t0_ns, t1_ns]`` (the
+    span clock), oldest first: its name, thread, start and end, attributes,
+    trace id and nesting."""
+    return [r for r in PROFILED.records()
+            if r.end_ns >= t0_ns and r.start_ns <= t1_ns]
+
 
 def make_tracer(enabled: bool, max_spans: int = 65536) -> Tracer:
     """The one constructor call sites should use: a real tracer when
@@ -338,12 +410,11 @@ def check_well_nested(records: List[SpanRecord]) -> List[str]:
     """Validate span nesting (used by tests and the CI smoke check).
 
     For every span with a parent: the parent must exist, live on the same
-    thread, and contain the child's interval (small clock slack). Returns a
+    thread, and contain the child's interval. Returns a
     list of human-readable violations — empty means well-nested.
     """
     by_id = {r.span_id: r for r in records}
     problems = []
-    eps = 1e-6
     for r in records:
         if r.parent_id is None:
             continue
@@ -357,9 +428,9 @@ def check_well_nested(records: List[SpanRecord]) -> List[str]:
         if p.thread_id != r.thread_id:
             problems.append(f"span {r.span_id} ({r.name}): parent on "
                             f"different thread")
-        if r.t_start < p.t_start - eps or r.t_end > p.t_end + eps:
+        if r.start_ns < p.start_ns or r.end_ns > p.end_ns:
             problems.append(
-                f"span {r.span_id} ({r.name}) [{r.t_start:.6f},"
-                f"{r.t_end:.6f}] escapes parent {p.span_id} ({p.name}) "
-                f"[{p.t_start:.6f},{p.t_end:.6f}]")
+                f"span {r.span_id} ({r.name}) [{r.start_ns},{r.end_ns}] "
+                f"escapes parent {p.span_id} ({p.name}) "
+                f"[{p.start_ns},{p.end_ns}]")
     return problems

@@ -1,6 +1,8 @@
 """``repro_torch.telemetry``: the span tracer, metrics registry and
 ``torch.profiler`` hooks, ported from ``tests/test_telemetry.py`` (the
-tracer, metrics and bundle cases), plus the port against the JAX package:
+tracer, metrics and bundle cases); the spans under a running profiler, on
+its clock and from every thread, the serving worker's among them; plus the
+port against the JAX package:
 one sequence of calls gives the same Prometheus text in both registries,
 and the trainer records the same metrics, with the same observation
 counts, as the JAX trainer for the same run.
@@ -23,12 +25,13 @@ from repro.telemetry import MetricsRegistry as JaxMetricsRegistry
 from repro.telemetry import Telemetry as JaxTelemetry
 from repro_torch.configs.base import GNNConfig
 from repro_torch.launch import train as ptrain
+from repro_torch.launch.serve_gnn import GNNServer
 from repro_torch.telemetry import (NULL_TRACER, Counter, Gauge, Histogram,
-                                   MetricsRegistry, NullTracer,
-                                   SnapshotWriter, Telemetry, Tracer,
-                                   check_well_nested,
+                                   MetricsRegistry, NullTracer, Telemetry,
+                                   Tracer, check_well_nested, clock_ns,
                                    default_latency_buckets,
                                    default_size_buckets, make_tracer,
+                                   profiled_spans, span, trace_capture,
                                    warn_once)
 from repro_torch.telemetry.trace import _NULL_SPAN
 
@@ -49,8 +52,8 @@ def test_span_nesting_and_attrs():
     assert inner_r.trace_id == "req-1" and outer_r.trace_id == "req-1"
     assert outer_r.attrs == {"bucket": 256}
     assert inner_r.attrs == {"n": 3}
-    assert inner_r.t_start >= outer_r.t_start - 1e-6
-    assert inner_r.t_end <= outer_r.t_end + 1e-6
+    assert inner_r.start_ns >= outer_r.start_ns
+    assert inner_r.end_ns <= outer_r.end_ns
     assert check_well_nested(recs) == []
 
 
@@ -106,8 +109,8 @@ def test_bounded_span_buffer_drops_oldest():
 
 def test_record_span_external_interval():
     tr = Tracer()
-    t0 = time.perf_counter()
-    t1 = t0 + 0.5
+    t0 = clock_ns()
+    t1 = t0 + 500_000_000
     tr.record_span("queue_wait", t0, t1, trace_id="req-9", bucket=128)
     [r] = tr.records()
     assert r.duration_s == pytest.approx(0.5)
@@ -127,8 +130,8 @@ def test_exporters_jsonl_and_chrome(tmp_path):
     lines = [json.loads(l) for l in open(jl)]
     assert {l["name"] for l in lines} == {"flush", "prepare"}
     for l in lines:
-        assert l["t_end"] >= l["t_start"]
-        assert l["t_wall_start"] > 1e9     # wall-clock re-anchored
+        assert l["end_ns"] >= l["start_ns"]
+        assert l["start_ns"] > 1e18        # the Unix epoch, in ns
     chrome = json.load(open(ch))
     evs = chrome["traceEvents"]
     xs = [e for e in evs if e["ph"] == "X"]
@@ -254,19 +257,6 @@ def test_prometheus_text_format():
     assert "serve_requests_total 3.0" in lines
 
 
-def test_snapshot_writer(tmp_path):
-    reg = MetricsRegistry()
-    reg.counter("n").inc(7)
-    path = str(tmp_path / "metrics.json")
-    w = SnapshotWriter(reg, path, interval_s=0.05).start()
-    time.sleep(0.15)
-    w.stop()                               # final snapshot on stop
-    snap = json.load(open(path))
-    assert snap["metrics"]["n"] == 7
-    assert snap["time"] > 1e9
-    assert not [f for f in os.listdir(tmp_path) if ".tmp." in f]
-
-
 def test_warn_once_dedups_per_key(caplog):
     log = logging.getLogger("test_warn_once")
     wo = warn_once(log)
@@ -286,9 +276,6 @@ def test_telemetry_bundle_disabled_is_null():
     assert not tel.enabled
     assert tel.tracer is NULL_TRACER
     assert tel.span("x") is _NULL_SPAN
-    # annotate degrades to a nullcontext-like CM
-    with tel.annotate("region"):
-        pass
     with tel.capture():                    # no trace_dir: no-op
         pass
 
@@ -328,7 +315,7 @@ def test_telemetry_from_config():
 def test_capture_writes_a_torch_profile(tmp_path):
     tel = Telemetry(enabled=True, trace_dir=str(tmp_path), profile=True)
     with tel.capture() as log_dir:
-        with tel.annotate("region"):
+        with tel.span("region"):
             torch.ones(64).sum()
     assert log_dir == os.path.join(str(tmp_path), "torch_profile")
     trace = json.load(open(os.path.join(log_dir, "trace.json")))
@@ -339,6 +326,113 @@ def test_capture_writes_a_torch_profile(tmp_path):
                          profile=True).profile
     with Telemetry(enabled=True, profile=True).capture() as none:
         assert none is None
+
+
+def test_span_without_a_profiler_is_the_shared_noop():
+    """Telemetry off and no profiler: every span is the one shared no-op,
+    and nothing lands in the profiled buffer."""
+    t0 = clock_ns()
+    tel = Telemetry.disabled()
+    assert tel.span("prepare", bucket=256) is _NULL_SPAN
+    assert span("knn", level=0) is _NULL_SPAN
+    with span("features"), tel.span("prepare"):
+        NULL_TRACER.record_span("queue_wait", t0, clock_ns())
+    assert profiled_spans(t0, clock_ns()) == []
+
+
+def test_span_under_a_profiler_is_a_range_and_a_profiled_span():
+    """Under ``torch.profiler`` (on the CPU) a main-thread span is both a
+    ``record_function`` event of the profile and a profiled span, their
+    starts on one clock within 1 ms; spans nest, a retroactive span lands
+    too, and an enabled tracer records its own copy."""
+    from torch.profiler import profile
+    tel = Telemetry(enabled=True)
+    t0 = clock_ns()
+    with profile() as prof:
+        with tel.span("outer", trace_id="req-3"):
+            with span("inner", level=2):
+                torch.ones(64).sum()
+        tel.tracer.record_span("queue_wait", t0, clock_ns(), bucket=8)
+    got = {r.name: r for r in profiled_spans(t0, clock_ns())}
+    assert set(got) == {"outer", "inner", "queue_wait"}
+    assert got["inner"].parent_id == got["outer"].span_id
+    assert got["inner"].attrs == {"level": 2}
+    assert got["inner"].trace_id == "req-3"
+    assert got["outer"].thread_name == threading.current_thread().name
+    assert check_well_nested(list(got.values())) == []
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.name() in ("outer", "inner")}
+    assert set(events) == {"outer", "inner"}
+    for name, ev in events.items():
+        assert abs(got[name].start_ns - ev.start_ns()) < 1_000_000, name
+    assert sorted(r.name for r in tel.tracer.records()) == [
+        "outer", "queue_wait"]
+
+
+def test_trace_capture_writes_a_worker_threads_span(tmp_path):
+    """``trace_capture`` profiles every thread: a span opened on a worker
+    thread that started before the capture is in ``trace.json``."""
+    go, done = threading.Event(), threading.Event()
+
+    def worker():
+        go.wait(30)
+        with span("worker_region"):
+            torch.ones(64).sum()
+        done.set()
+
+    th = threading.Thread(target=worker, name="capture-worker")
+    th.start()
+    try:
+        with trace_capture(str(tmp_path)):
+            go.set()
+            assert done.wait(30)
+    finally:
+        go.set()
+        th.join(30)
+    trace = json.load(open(tmp_path / "trace.json"))
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "worker_region" in names
+
+
+def test_serving_worker_spans_under_a_profiler():
+    """A CPU ``GNNServer`` with its background worker, two requests served
+    inside ``torch.profiler.profile``: the worker's stage spans are in the
+    profiled buffer from thread ``gnn-serve-worker``, a ``sample`` per
+    request id, well nested per thread."""
+    from repro_torch.data import geometry as geo
+    from torch.profiler import profile
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cfg = GNNConfig().reduced().replace(levels=(64, 128, 256))
+    server = GNNServer(cfg, (128,), max_batch=2, seed=0, device="cpu")
+    verts, faces = geo.car_surface(geo.sample_params(0))
+    server.start(deadline_s=0.01)
+    try:
+        t0 = clock_ns()
+        with profile():
+            rids = [server.submit(verts, faces, 128) for _ in range(2)]
+            results = [server.result(rid, timeout=60) for rid in rids]
+            rids.append(server.submit(verts, faces, 128))
+            results.append(server.result(rids[-1], timeout=60))
+            time.sleep(0.05)             # the worker waits for work again
+        t1 = clock_ns()
+    finally:
+        server.stop()
+        torch.set_num_threads(n)
+    assert all(r.error is None for r in results)
+    recs = profiled_spans(t0, t1)
+    worker = [r for r in recs if r.thread_name == "gnn-serve-worker"]
+    assert {"prepare", "sample", "dispatch", "h2d", "enqueue",
+            "device_wait", "harvest", "publish", "await_work",
+            "flush", "knn", "features", "encoder", "processor",
+            "decoder"} <= {r.name for r in worker}
+    assert sorted(r.attrs["rid"] for r in worker
+                  if r.name == "sample") == sorted(rids)
+    assert {"submit", "queue_wait", "request", "result"} <= {
+        r.name for r in recs}
+    assert check_well_nested(recs) == []
+    assert all(t0 <= r.start_ns <= r.end_ns <= t1 for r in worker
+               if r.name != "await_work")
 
 
 def test_device_memory_snapshot():
