@@ -7,9 +7,16 @@ featurization, and the MeshGraphNet forward (the segment-sum kernel in every
 layer). The device is the inputs' device. The model is passed to each call,
 as the JAX functions take ``params``. Under a running ``torch.profiler``
 the stages are spans (``telemetry.span``): ``knn`` once per level,
-``features``, then the model's ``encoder``, ``processor`` and ``decoder``;
-host ranges around asynchronous launches, they time the enqueue, not the
-device.
+``compact`` (batched), ``features``, then the model's ``encoder``,
+``processor`` and ``decoder``; host ranges around asynchronous launches,
+they time the enqueue, not the device.
+
+Serving (:func:`make_infer_fn`, :func:`make_batched_infer_fn`) runs the
+model over the valid edges only: :func:`compact_edges` drops the union's
+masked slots (about half of them: mutual-kNN duplicates and edges a
+coarser level already has) before featurization, keeping the slot order,
+so every receiver sums the same messages in the same order as over the
+padded union, and the model runs with no edge mask.
 
 The rollout halves split that pipeline for the transient-rollout engine
 (``launch.rollout``): :func:`make_prefill_fn` builds the graph and its
@@ -68,10 +75,10 @@ def make_step_fn(cfg: GNNConfig, *, norm_out: Stats = None):
 
     @torch.no_grad()
     def step(model, graph, state):
-        nf = graph["node_feats"]
+        nf, em = graph["node_feats"], graph["emask"]
         return model.step(nf, graph["edge_feats"], graph["senders"],
                           graph["receivers"], state,
-                          edge_mask=graph["emask"].to(nf.dtype),
+                          edge_mask=None if em is None else em.to(nf.dtype),
                           out_stats=_stats_on(norm_out, nf.device), cfg=cfg)
 
     return step
@@ -81,7 +88,8 @@ def make_graph_forward(cfg: GNNConfig, *, norm_in: Stats = None,
                        norm_out: Stats = None):
     """``forward(model, points, normals, senders, receivers, emask)`` ->
     (N, node_out): featurize, then one physics step from a zero state (with
-    the default ``'direct'`` integrator this is the plain forward pass)."""
+    the default ``'direct'`` integrator this is the plain forward pass).
+    ``emask`` None: every edge is real (:func:`compact_edges`)."""
     featurize = make_featurizer(cfg, norm_in=norm_in)
     step = make_step_fn(cfg, norm_out=norm_out)
 
@@ -96,13 +104,26 @@ def make_graph_forward(cfg: GNNConfig, *, norm_in: Stats = None,
     return forward
 
 
+def compact_edges(senders, receivers, emask, n_edges: int):
+    """``(senders[emask], receivers[emask])``: the valid edges of a
+    fixed-shape union, in ascending slot order (``torch.nonzero``'s), so
+    that each receiver's CSR run lists its edges in the union's order.
+    ``n_edges`` is the count of ``emask``'s True slots, read beforehand:
+    with it the compaction waits for nothing (``torch.nonzero_static``).
+    """
+    idx = torch.nonzero_static(emask, size=n_edges).squeeze(1)
+    return senders[idx], receivers[idx]
+
+
 def make_infer_fn(cfg: GNNConfig, ms: MultiscaleSpec, *,
                   norm_in: Stats = None, norm_out: Stats = None):
     """``infer(model, points, normals, n_valid)`` -> (N, node_out).
 
     points/normals: (ms.n_points, 3) padded tensors; n_valid: count of real
     points (a prefix). ``norm_in``/``norm_out`` are optional (mean, std)
-    pairs for input encoding and output decoding.
+    pairs for input encoding and output decoding. The model runs over the
+    valid edges only (:func:`compact_edges`, after one wait for the
+    device: the count of them).
     """
     forward = make_graph_forward(cfg, norm_in=norm_in, norm_out=norm_out)
 
@@ -110,22 +131,41 @@ def make_infer_fn(cfg: GNNConfig, ms: MultiscaleSpec, *,
     def infer(model, points, normals, n_valid):
         points = points.float()
         senders, receivers, emask = multiscale_edges(points, n_valid, ms)
-        return forward(model, points, normals, senders, receivers, emask)
+        senders, receivers = compact_edges(senders, receivers, emask,
+                                           int(emask.sum()))
+        return forward(model, points, normals, senders, receivers, None)
 
     return infer
 
 
-def make_batched_infer_fn(cfg: GNNConfig, ms: MultiscaleSpec, **kw):
+def make_batched_infer_fn(cfg: GNNConfig, ms: MultiscaleSpec, *,
+                          on_edges=None, **kw):
     """``(model, (B, N, 3), (B, N, 3), (B,)) -> (B, N, out)``: the JAX
     package's vmap, written as a loop over the rows (one graph at a time
-    keeps a full-width row's edge activations the only large buffer)."""
-    infer = make_infer_fn(cfg, ms, **kw)
+    keeps a full-width row's edge activations the only large buffer).
+
+    Every row's graph is built and compacted (:func:`compact_edges`) before
+    the first forward is enqueued: the rows' valid-edge counts are read in
+    one wait for the device, span ``compact``, where a wait per row would
+    also wait for the row before it. ``on_edges``, if given, is called with
+    those counts, a list of host integers, one a row, each out of
+    ``ms.n_edges`` slots.
+    """
+    forward = make_graph_forward(cfg, **kw)
 
     @torch.no_grad()
     def batched(model, points, normals, n_valid):
-        return torch.stack([infer(model, points[i], normals[i],
-                                  int(n_valid[i]))
-                            for i in range(points.shape[0])])
+        points = points.float()
+        graphs = [multiscale_edges(points[i], int(n_valid[i]), ms)
+                  for i in range(points.shape[0])]
+        with span("compact"):
+            counts = torch.stack([em.sum() for _, _, em in graphs]).tolist()
+            edges = [compact_edges(s, r, em, c)
+                     for (s, r, em), c in zip(graphs, counts)]
+        if on_edges is not None:
+            on_edges(counts)
+        return torch.stack([forward(model, points[i], normals[i], s, r, None)
+                            for i, (s, r) in enumerate(edges)])
 
     return batched
 

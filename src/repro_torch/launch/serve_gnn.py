@@ -5,8 +5,8 @@ geometry; the server samples a point cloud at the bucket's
 resolution (numpy, keyed on ``(seed, request id)`` exactly as the JAX
 server, so both sample bit-equal clouds), then runs the bucket's pipeline on
 the card: hash-grid kNN at every level (the kNN kernel), the multi-scale
-edge union, featurization and the MeshGraphNet forward (the segment-sum
-kernel in every layer).
+edge union, its compaction to the valid edges, featurization and the
+MeshGraphNet forward over them (the segment-sum kernel in every layer).
 
 Padding buckets: request sizes are quantized to a ladder of point counts.
 Each bucket's grid specs are calibrated once per size from a reference
@@ -32,12 +32,14 @@ counts no replay rows here.
 
 Async double-buffered flush (the default): batch ``j`` is copied to the card
 from pinned memory, its pipeline is enqueued, its result is copied back
-into pinned memory behind it and a ``torch.cuda.Event`` is recorded; the
-dispatch returns without synchronising. The host then samples batch
-``j + 1`` while the card runs batch ``j``, waits on ``j``'s event and
-dispatches ``j + 1`` (the JAX server dispatches ``j + 1`` first: see
-``_run_plan``). ``async_flush=False`` samples each batch only after the
-previous one has finished.
+into pinned memory behind it and a ``torch.cuda.Event`` is recorded. The
+dispatch waits for the card once, after every row's graph is built and
+before any forward is enqueued (``compact``: the rows' valid-edge
+counts), and returns without waiting for the forwards. The host then
+samples batch ``j + 1`` while the card runs batch ``j``, waits on ``j``'s
+event and dispatches ``j + 1`` (the JAX server dispatches ``j + 1``
+first: see ``_run_plan``). ``async_flush=False`` samples each batch only
+after the previous one has finished.
 
 Background serving: ``start(deadline_s=...)`` spawns a supervised worker
 thread that flushes a bucket as soon as it holds ``max_batch`` requests or
@@ -57,9 +59,10 @@ timings into histograms of the server's ``telemetry.metrics``; with
 every thread. The worker's spans wrap its work: ``flush``; ``prepare``,
 with a ``sample`` and a ``check_cloud`` per request; ``dispatch``, with
 ``h2d`` (the stack and the pinned copies) and ``enqueue`` (the bucket
-call); ``device_wait``; ``harvest``; ``publish``; and ``await_work``, its
-wait for the next plan. ``submit``, ``bucket_route``, ``queue_wait``,
-``request`` and ``result`` cross threads and are recorded afterwards.
+call, with the pipeline's ``compact`` inside); ``device_wait``;
+``harvest``; ``publish``; and ``await_work``, its wait for the next
+plan. ``submit``, ``bucket_route``, ``queue_wait``, ``request`` and
+``result`` cross threads and are recorded afterwards.
 
 Sharded serving (``shard_devices > 1``): each request is split into
 ``shard_devices`` RCB shards with halo rings (``repro_torch.graphx.
@@ -205,6 +208,8 @@ class Bucket:
                                        # second half in sharded mode
     called: bool = False               # its first call has run (compiles
                                        # and cache loads are counted there)
+    edges: list = field(default_factory=list)   # valid edges a row, one
+                                       # list a call, from the pipeline
 
 
 @dataclass
@@ -250,6 +255,11 @@ class ServerStats:
     ``compile`` / ``cache_load`` stages hold those calls' times. Both stay 0
     once every kernel is loaded, and on the CPU.
 
+    ``edges_computed`` counts the valid edges of the rows served, over
+    which the model runs, and ``edge_slots`` the fixed-shape union's slots
+    of those rows (``ms.n_edges`` each); ``report()["edge_compute_frac"]``
+    is their ratio. Sharded buckets count neither.
+
     Scalar counter mutations and :meth:`report` synchronize on ``lock``;
     histograms carry their own locks.
     """
@@ -268,6 +278,8 @@ class ServerStats:
     grown_buckets: int = 0             # ladder sizes added for oversize asks
     padding_points: int = 0            # computed-but-unrequested points
     requested_points: int = 0          # points actually asked for
+    edge_slots: int = 0                # union slots of the rows served
+    edges_computed: int = 0            # of them, valid: the model's rows
     # resilience counters (each mirrored to a Prometheus counter
     # serve_<name>_total via bump(), so monitors see them live)
     timed_out_requests: int = 0        # deadline expired before device work
@@ -385,6 +397,8 @@ class ServerStats:
             self.grown_buckets = 0
             self.padding_points = 0
             self.requested_points = 0
+            self.edge_slots = 0
+            self.edges_computed = 0
             for name in self._RESILIENCE:
                 setattr(self, name, 0)
             self._recent_lat.clear()
@@ -439,6 +453,8 @@ class ServerStats:
                 "cache_loads": self.cache_loads,
                 "bucket_calibrations": self.bucket_calibrations,
                 "grown_buckets": self.grown_buckets,
+                "edge_slots": self.edge_slots,
+                "edges_computed": self.edges_computed,
             }
             counters.update({name: getattr(self, name)
                              for name in self._RESILIENCE})
@@ -454,6 +470,8 @@ class ServerStats:
             "mean_batch": self._h_batch.mean,
             "throughput_rps": n / max(t_serving, 1e-9),
             "padding_waste_frac": padded / max(padded + requested, 1),
+            "edge_compute_frac": (counters["edges_computed"]
+                                  / max(counters["edge_slots"], 1)),
             "stages": self.stage_report(),
             "by_bucket": self.bucket_report(),
         }
@@ -482,6 +500,7 @@ class _InFlight:
     t_start: float = 0.0               # its prepare began (perf_counter)
     t_dispatched: float = 0.0          # its dispatch returned
     plan: object = None                # sharded mode: the PackPlan
+    edges: Optional[List[int]] = None  # valid edges a row (not sharded)
 
 
 class GNNServer:
@@ -826,9 +845,11 @@ class GNNServer:
                 device=self.device)
             return Bucket(n_points=n, ms=ms, infer=infer, sspec=sspec,
                           plan_sig=sspec.signature())
+        edges: List[List[int]] = []
         infer = make_batched_infer_fn(self.cfg, ms, norm_in=self._norm_in,
-                                      norm_out=self._norm_out)
-        return Bucket(n_points=n, ms=ms, infer=infer)
+                                      norm_out=self._norm_out,
+                                      on_edges=edges.append)
+        return Bucket(n_points=n, ms=ms, infer=infer, edges=edges)
 
     def _round_up(self, n: int) -> int:
         g = max(int(self.cfg.bucket_granularity), 1)
@@ -1318,7 +1339,9 @@ class GNNServer:
                         [n] * len(ok_reqs))
             else:
                 args = (pack.batch(self.device),)
+        b.edges.clear()
         out = self._call_bucket(b, *args)
+        edges = b.edges.pop() if b.edges else None
         host = out
         if on_card:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -1328,7 +1351,8 @@ class GNNServer:
         return _InFlight(bucket=b, results=pre, ok_reqs=ok_reqs, host=host,
                          pts=pts, record=record, event=event,
                          start_event=start,
-                         t_dispatched=time.perf_counter(), plan=pack)
+                         t_dispatched=time.perf_counter(), plan=pack,
+                         edges=edges)
 
     def _plan_shards(self, b: Bucket, pre: List[Result],
                      ok_reqs: List[Request], samples, record: bool):
@@ -1452,6 +1476,9 @@ class GNNServer:
             with self.stats.lock:
                 self.stats.requested_points += sum(a for a, _ in padding)
                 self.stats.padding_points += sum(w for _, w in padding)
+                if fl.edges is not None:
+                    self.stats.edges_computed += sum(fl.edges)
+                    self.stats.edge_slots += len(fl.edges) * b.ms.n_edges
             b.served += len(fl.ok_reqs)
         return results
 

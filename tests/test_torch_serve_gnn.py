@@ -15,6 +15,7 @@ from repro.models import meshgraphnet as jmgn
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.base import GNNConfig
 from repro_torch.data import geometry as geo
+from repro_torch.graphx.multiscale import multiscale_edges
 from repro_torch.launch.serve_gnn import (GNNServer, _level_sizes,
                                           load_gnn_checkpoint)
 from repro_torch.models.convert import params_from_jax
@@ -250,6 +251,29 @@ def test_partial_batch_runs_only_real_rows():
     assert server.stats.padding_points == 128 - 100
     assert server.stats.requested_points == 100
     assert res.error is None
+
+
+def test_edge_counters_sum_the_served_rows_valid_edges():
+    """``edges_computed`` is the sum of the union's edge mask over the rows
+    served, ``edge_slots`` their slots, and ``edge_compute_frac`` the
+    ratio; warm-up rows count in neither."""
+    server = _server(_cfg(), (128, 256), max_batch=2, seed=0)
+    server.warmup()
+    reqs = [(*geo.car_surface(geo.sample_params(i)), n)
+            for i, n in [(0, 100), (1, 128), (2, 200)]]
+    results = server.serve(reqs)
+    valid = 0
+    for res in results:
+        assert res.error is None
+        ms = server._buckets[res.bucket].ms
+        _, _, em = multiscale_edges(torch.from_numpy(res.points),
+                                    res.bucket, ms)
+        valid += int(em.sum())
+    slots = sum(server._buckets[res.bucket].ms.n_edges for res in results)
+    st = server.stats
+    assert st.edges_computed == valid and st.edge_slots == slots
+    assert server.stats.report()["edge_compute_frac"] == valid / slots
+    assert 0.3 < valid / slots < 0.6
 
 
 def test_background_deadline_flush():
